@@ -1,0 +1,8 @@
+"""repro_torch.api — the typed run spec and its generated CLI flags."""
+
+from repro_torch.api.cli import add_spec_args, apply_args
+from repro_torch.api.spec import (SCHEMA, ClusterSpec, ExchangeSpec, RunSpec,
+                                  SketchSpec, default_geometry)
+
+__all__ = ["SCHEMA", "ClusterSpec", "ExchangeSpec", "RunSpec", "SketchSpec",
+           "add_spec_args", "apply_args", "default_geometry"]
