@@ -30,12 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers, and ``{"ok": true, "device": ...}``.
-``--phases`` runs a subset (for a first short call after a kernel change).
 """
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import math
@@ -45,7 +43,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "train", "profile", "parity", "cli")
 
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -136,6 +133,7 @@ def full_width_step(torch, device):
 def kernels_phase(torch, device, ts) -> list[dict]:
     from repro_torch.core import count_sketch as cs
     from repro_torch.core.heavymix import topk_lower_index
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.heavymix_topk import (heavymix_scores,
                                                    heavymix_scores_plain)
     from repro_torch.kernels.sketch_encode import (sketch_encode,
@@ -223,33 +221,39 @@ def kernels_phase(torch, device, ts) -> list[dict]:
         fail(f"heavymix_scores est not bit-equal: max err {hm_err}")
     if not torch.equal(sc, sc_p):
         fail("heavymix_scores scores not bit-equal")
-    idx = topk_lower_index(sc, k)[1]
-    idx_p = topk_lower_index(sc_p, k)[1]
-    if not torch.equal(idx, idx_p):
-        fail("heavymix top-k indices differ between kernel and plain")
     n_heavy = int((sc >= 1e30).sum())
-    log(f"[kernels] heavymix_scores d={d}: est and scores bit-equal, "
-        f"top-k idx equal ({n_heavy} heavy of k={k})")
     del sc_p, est_p
+    # the main path's selection (ops.heavymix_recover, through the kernel)
+    # against the port's plain HEAVYMIX, which takes the reference's
+    # chunked route at this d
+    idx = ops.heavymix_recover(cfg, sk, k, d)[0]
+    idx_p = ref.heavymix_recover(cfg, sk, k, d)[0]
+    if not torch.equal(idx, idx_p):
+        fail("heavymix_recover selects other coordinates than the plain "
+             f"HEAVYMIX: {int((idx != idx_p).sum())} of k={k} differ")
+    log(f"[kernels] heavymix_scores d={d}: est and scores bit-equal; "
+        f"recovered idx equal to the plain HEAVYMIX ({n_heavy} heavy of "
+        f"k={k})")
+    del idx, idx_p
     hm_ms = time_ms(torch, lambda: heavymix_scores(cfg, sk, thr, d), reps=10)
     hm_plain_ms = time_ms(
         torch, lambda: heavymix_scores_plain(cfg, sk, thr, d), reps=2)
     hm_bound, hm_by = bound_ms(R * W * 4 + 4 + 2 * d * 4,
                                d * (R * 6.0 + R * (R - 1) + 4))
-    topk_ms = time_ms(torch, lambda: topk_lower_index(sc, k), reps=3)
-    log(f"[kernels] top-k with lower-index ties (outside the kernel) at "
-        f"d={d}, k={k}: {topk_ms:.3f} ms")
+    topk_ms = time_ms(torch, lambda: topk_lower_index(est.abs(), k), reps=3)
+    log(f"[kernels] top-k of |est| with lower-index ties (outside the "
+        f"kernel) at d={d}, k={k}: {topk_ms:.3f} ms")
     out = [
         {"name": "sketch_encode", "route": "cuda",
          "source": "src/repro_torch/csrc/sketch_encode.cu",
          "replaces": "src/repro/kernels/sketch_encode.py:87",
-         "launches": 0, "max_abs_err": enc_err, "ms": enc_ms,
+         "launches": None, "max_abs_err": enc_err, "ms": enc_ms,
          "plain_ms": enc_plain_ms, "bound_ms": enc_bound,
          "bound_by": enc_by, "library_ms": enc_lib_ms},
         {"name": "heavymix_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/heavymix_scores.cu",
          "replaces": "src/repro/kernels/heavymix_topk.py:91",
-         "launches": 0, "max_abs_err": hm_err, "ms": hm_ms,
+         "launches": None, "max_abs_err": hm_err, "ms": hm_ms,
          "plain_ms": hm_plain_ms, "bound_ms": hm_bound,
          "bound_by": hm_by, "library_ms": None},
     ]
@@ -407,16 +411,7 @@ def cli_phase():
     log(f"[cli] ran in {time.time() - t0:.1f} s")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help=f"comma-separated subset of {PHASES}")
-    args = ap.parse_args(argv)
-    phases = [p for p in args.phases.split(",") if p]
-    bad = [p for p in phases if p not in PHASES]
-    if bad:
-        ap.error(f"unknown phases {bad}")
-
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -432,31 +427,23 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
-    build_phase(torch)   # every later phase needs the kernels
-    kernels = []
-    cfg = opt = ts = state = stream = None
-    if {"kernels", "train", "profile"} & set(phases):
-        cfg, opt, ts = full_width_step(torch, device)
-    if "kernels" in phases:
-        t0 = time.time()
-        kernels = kernels_phase(torch, device, ts)
-        torch.cuda.empty_cache()
-        log(f"[kernels] phase took {time.time() - t0:.1f} s")
-    if "train" in phases or "profile" in phases:
-        t0 = time.time()
-        state, stream, counts, _ = train_phase(torch, cfg, opt, ts)
-        for kr in kernels:
-            kr["launches"] = counts.get(kr["name"], 0)
-        log(f"[train] phase took {time.time() - t0:.1f} s")
-    if "profile" in phases:
-        state = profile_phase(torch, ts, state, stream)
+    build_phase(torch)
+    cfg, opt, ts = full_width_step(torch, device)
+    t0 = time.time()
+    kernels = kernels_phase(torch, device, ts)
+    torch.cuda.empty_cache()
+    log(f"[kernels] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    state, stream, counts, _ = train_phase(torch, cfg, opt, ts)
+    for kr in kernels:
+        kr["launches"] = counts[kr["name"]]
+    log(f"[train] phase took {time.time() - t0:.1f} s")
+    state = profile_phase(torch, ts, state, stream)
     del state
     torch.cuda.empty_cache()
-    if "parity" in phases:
-        parity_phase(torch)
-    if "cli" in phases:
-        cli_phase()
-    log(f"[done] phases {phases} in {time.time() - t_start:.1f} s")
+    parity_phase(torch)
+    cli_phase()
+    log(f"[done] in {time.time() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

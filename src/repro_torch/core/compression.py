@@ -14,7 +14,9 @@ P). Collectives are the worker-axis reductions of ``core.allreduce``.
 Recovery goes through ``kernels.ops.heavymix_recover`` — the HEAVYMIX
 scoring kernel and a top-k with the reference's tie order — where the
 reference calls the pure-jnp ``heavymix.heavymix``; the two select the
-same indices (pinned in tests/test_torch_compression.py).
+same indices in the same order, below and above the reference's chunked
+threshold d > 2^22 (pinned in tests/test_torch_compression.py and
+tests/test_torch_kernels.py).
 
 Baselines (topk, gtopk, sketched-sgd, fetchsgd, signsgd, powersgd) are
 left to a later slice.

@@ -14,17 +14,19 @@
 // kernel, as in the reference (kernels/ops.py heavymix_recover).
 //
 // Design: grid-stride loop over coordinates; hash parameters in shared
-// memory; the R gathered values sort in registers with a compare-exchange
-// network whose indices are compile-time (template on R up to 16), so the
-// array never spills to local memory. R from 17 to 32 (rows='log' gives
-// ceil(log2 d) <= 32) takes an insertion sort in a local array. The
-// threshold arrives as a one-element device tensor, so the host never
-// synchronises to read it.
+// memory. R is a runtime value up to 32 (rows='log' gives ceil(log2 d)).
+// One kernel body, instantiated for a slot count N of 8 or 32: the R
+// gathered values fill N slots padded with +inf, a compare-exchange
+// network with compile-time indices sorts them, and the middle values are
+// read with compile-time indices too, so the slots stay in registers. A
+// runtime-indexed array would live in local memory: at R = 5 an insertion
+// sort in such an array took 1.43x as long on an H100 (PERF.md).
 // Bound: writing 2 * d * 4 bytes (scores and est) plus reading the
 // L2-resident (R, W) sketch once; the R gathers per coordinate are random
 // 4-byte L2 reads.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -43,76 +45,45 @@ __device__ __forceinline__ float gather(const float* __restrict__ sk,
   return (hs >> 31) ? -v : v;
 }
 
-__device__ __forceinline__ void finish(float e, float thr, int64_t j,
-                                       float* __restrict__ scores,
-                                       float* __restrict__ est) {
-  est[j] = e;
-  scores[j] = fabsf(e) + ((e * e >= thr) ? 1e30f : 0.0f);
-}
-
-template <int R>
+template <int N>
 __global__ void __launch_bounds__(kThreads)
-scores_fixed(const float* __restrict__ sk, int64_t width,
-             const uint32_t* __restrict__ hp, int shift,
-             const float* __restrict__ thr_p, int64_t d,
-             float* __restrict__ scores, float* __restrict__ est) {
-  __shared__ uint32_t sh[R * 4];
-  for (int t = threadIdx.x; t < R * 4; t += blockDim.x) sh[t] = hp[t];
-  __syncthreads();
-  const float thr = *thr_p;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += stride) {
-    const uint32_t i = (uint32_t)j;
-    float v[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = gather(sk, sh, r, i, shift, width);
-#pragma unroll
-    for (int a = 0; a < R - 1; ++a) {
-#pragma unroll
-      for (int b = 0; b < R - 1 - a; ++b) {
-        const float lo = fminf(v[b], v[b + 1]);
-        const float hi = fmaxf(v[b], v[b + 1]);
-        v[b] = lo;
-        v[b + 1] = hi;
-      }
-    }
-    float e;
-    if constexpr (R & 1) {
-      e = v[R / 2];
-    } else {
-      e = 0.5f * (v[R / 2 - 1] + v[R / 2]);
-    }
-    finish(e, thr, j, scores, est);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-scores_any(const float* __restrict__ sk, int64_t width,
-           const uint32_t* __restrict__ hp, int rows, int shift,
-           const float* __restrict__ thr_p, int64_t d,
-           float* __restrict__ scores, float* __restrict__ est) {
-  __shared__ uint32_t sh[kMaxRows * 4];
+scores_kernel(const float* __restrict__ sk, int64_t width,
+              const uint32_t* __restrict__ hp, int rows, int shift,
+              const float* __restrict__ thr_p, int64_t d,
+              float* __restrict__ scores, float* __restrict__ est) {
+  __shared__ uint32_t sh[N * 4];
   for (int t = threadIdx.x; t < rows * 4; t += blockDim.x) sh[t] = hp[t];
   __syncthreads();
   const float thr = *thr_p;
+  const int lo_at = (rows - 1) / 2, hi_at = rows / 2;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d;
        j += stride) {
     const uint32_t i = (uint32_t)j;
-    float v[kMaxRows];
-    for (int r = 0; r < rows; ++r) {
-      const float x = gather(sk, sh, r, i, shift, width);
-      int b = r - 1;
-      while (b >= 0 && v[b] > x) {
-        v[b + 1] = v[b];
-        --b;
-      }
-      v[b + 1] = x;
+    float v[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      v[r] = r < rows ? gather(sk, sh, r, i, shift, width) : INFINITY;
     }
-    const float e = (rows & 1) ? v[rows / 2]
-                               : 0.5f * (v[rows / 2 - 1] + v[rows / 2]);
-    finish(e, thr, j, scores, est);
+#pragma unroll
+    for (int a = 0; a < N - 1; ++a) {
+#pragma unroll
+      for (int b = 0; b < N - 1 - a; ++b) {
+        const float x = fminf(v[b], v[b + 1]);
+        const float y = fmaxf(v[b], v[b + 1]);
+        v[b] = x;
+        v[b + 1] = y;
+      }
+    }
+    float lo = 0.0f, hi = 0.0f;
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      if (t == lo_at) lo = v[t];
+      if (t == hi_at) hi = v[t];
+    }
+    const float e = (rows & 1) ? hi : 0.5f * (lo + hi);
+    est[j] = e;
+    scores[j] = fabsf(e) + ((e * e >= thr) ? 1e30f : 0.0f);
   }
 }
 
@@ -129,25 +100,19 @@ extern "C" int heavymix_scores_launch(const void* sketch, int64_t width,
   const int64_t cap = 132 * 16;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned g = (unsigned)blocks;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sk = static_cast<const float*>(sketch);
   const uint32_t* hp = static_cast<const uint32_t*>(hash_params);
   const float* t = static_cast<const float*>(thr);
   float* sc = static_cast<float*>(scores);
   float* es = static_cast<float*>(est);
-  const unsigned g = (unsigned)blocks;
-  switch (rows) {
-#define CASE(R)                                                            \
-  case R:                                                                  \
-    scores_fixed<R><<<g, kThreads, 0, s>>>(sk, width, hp, shift, t, d, sc, \
-                                           es);                            \
-    break;
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-    CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)
-#undef CASE
-    default:
-      scores_any<<<g, kThreads, 0, s>>>(sk, width, hp, rows, shift, t, d, sc,
-                                        es);
+  if (rows <= 8) {
+    scores_kernel<8><<<g, kThreads, 0, st>>>(sk, width, hp, rows, shift, t,
+                                              d, sc, es);
+  } else {
+    scores_kernel<kMaxRows><<<g, kThreads, 0, st>>>(sk, width, hp, rows,
+                                                     shift, t, d, sc, es);
   }
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,10 @@ Replaces the TPU kernel ``repro/kernels/heavymix_topk.py:heavymix_scores``
     score_i = |est_i| + 1e30 * heavy_i
 
 The Hopper kernel (``csrc/heavymix_scores.cu``) gives each coordinate one
-thread: R gathers from the L2-resident sketch, a sort of the R values in
-registers, then both outputs. Bound on the H100: writing ``scores`` and
-``est`` (8 * d bytes) plus one read of the (R, W) sketch, over 3.35 TB/s.
+thread: R gathers from the L2-resident sketch, a sort network in
+registers over 8 or 32 slots (R up to 32), then both outputs. Bound on the
+H100: writing ``scores`` and ``est`` (8 * d bytes) plus one read of the
+(R, W) sketch, over 3.35 TB/s.
 
 ``thresh`` is a one-element f32 tensor on the sketch's device
 (``l2sq_estimate(S) / k`` computed in torch), so no host sync reads it.

@@ -6,11 +6,9 @@ tensors run the plain PyTorch versions.
 
 ``heavymix_recover`` always goes through ``heavymix_scores`` and a top-k
 with the reference's lower-index tie-break, on either device, so the CPU
-tests run the same Python path the card runs. For d <= 2^22 its result
-equals ``ref.heavymix_recover`` index for index; above that the reference
-orders the heavy set by |est| (its chunked path) while the score path
-orders ties by index, so the selected SET is the same whenever the heavy
-set has at most k members.
+tests run the same Python path the card runs. It selects what
+``core.heavymix.heavymix`` selects, index for index, in both of its
+regimes (see ``heavymix_recover``).
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ import torch
 
 from repro_torch.core import count_sketch as cs
 from repro_torch.core.count_sketch import SketchConfig
-from repro_torch.core.heavymix import topk_lower_index
+from repro_torch.core.heavymix import _CHUNK, topk_lower_index
 from repro_torch.kernels.heavymix_topk import heavymix_scores
 from repro_torch.kernels.sketch_encode import (sketch_encode,
                                                sketch_encode_bucketed)
@@ -37,10 +35,19 @@ def heavymix_recover(cfg: SketchConfig, sketch: torch.Tensor, k: int, d: int
 
     The heavy threshold stays a device tensor (no host sync before the
     scoring kernel); the top-k follows ``jax.lax.top_k``'s tie order.
+
+    The ranking follows the reference's two regimes. For d > 2^22 and
+    d > 4k it ranks by |est| alone (``_heavymix_chunked``: the heavy set
+    is the top-|H| by |est|), so when the heavy set outnumbers k the
+    largest estimates win. Below that it ranks by the kernel's scores,
+    where every heavy coordinate scores 1e30 in f32 and the lower index
+    wins among them.
     """
     sk = sketch.to(torch.float32)
     thr = cs.l2sq_estimate(sk) / k
     scores, est = heavymix_scores(cfg, sk, thr, int(d))
+    if d > _CHUNK and d > 4 * k:
+        scores = est.abs()
     _, idx = topk_lower_index(scores, k)
     return idx, est[idx]
 

@@ -16,11 +16,13 @@ import pytest
 import torch
 
 from repro.core import count_sketch as jcs
+from repro.core import heavymix as jhm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.heavymix_topk import heavymix_scores as j_scores
 from repro.kernels.sketch_encode import sketch_encode as j_encode
 from repro_torch.core import count_sketch as tcs
+from repro_torch.core.compression import GsSGD
 from repro_torch.core.heavymix import topk_lower_index
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -127,17 +129,47 @@ def test_topk_tie_break_lower_index(vals, k):
         assert ti.tolist() == [1, 2]
 
 
-def test_heavymix_chunked_regime():
-    """d > 2^22 and d > 4k: the reference takes _heavymix_chunked. The
-    port's plain HEAVYMIX takes the same hierarchical route (idx equal as
-    returned); the score route of ops.heavymix_recover selects the same
-    set (the heavy set is smaller than k here)."""
-    d, rows, width, k = (1 << 22) + 5000, 3, 4096, 64
+@pytest.fixture(scope="module")
+def chunked_case():
+    """d > 2^22 and d > 4k, where the reference takes _heavymix_chunked, in
+    the paper's regime W = k/2: the sketch noise makes far more than k
+    coordinates heavy, so the ranking among heavy coordinates decides the
+    selection. One sketch feeds both sides, so estimates are bit-equal."""
+    d, rows, width, k = (1 << 22) + 5000, 5, 1024, 2048
     jc = jcs.SketchConfig(rows=rows, width=width, seed=9)
     tc = tcs.SketchConfig(rows=rows, width=width, seed=9)
     sk = _sketch(rows, width, 9, d, spikes=20)
-    j_idx, _ = jref.heavymix_recover(jc, jnp.asarray(sk), k, d)
+    j_idx, j_est = (np.array(a) for a in
+                    jhm.heavymix(jc, jnp.asarray(sk), k, d))
+    est = tcs.decode(tc, torch.from_numpy(sk), d)
+    n_heavy = int((est * est >= tcs.l2sq_estimate(torch.from_numpy(sk)) / k)
+                  .sum())
+    assert n_heavy > k  # the case the boosted scores would get wrong
+    return tc, sk, k, d, j_idx, j_est
+
+
+def test_heavymix_chunked_regime(chunked_case):
+    """The port's plain HEAVYMIX and ops.heavymix_recover (the scores
+    kernel's route) both return the reference's idx and est as returned:
+    the k largest |est|, ties to the lower index."""
+    tc, sk, k, d, j_idx, j_est = chunked_case
     r_idx, _ = tref.heavymix_recover(tc, torch.from_numpy(sk), k, d)
-    np.testing.assert_array_equal(r_idx.numpy(), np.asarray(j_idx))
-    o_idx, _ = tops.heavymix_recover(tc, torch.from_numpy(sk), k, d)
-    assert sorted(o_idx.tolist()) == sorted(np.asarray(j_idx).tolist())
+    np.testing.assert_array_equal(r_idx.numpy(), j_idx)
+    o_idx, o_est = tops.heavymix_recover(tc, torch.from_numpy(sk), k, d)
+    np.testing.assert_array_equal(o_idx.numpy(), j_idx)
+    np.testing.assert_array_equal(o_est.numpy(), j_est)
+
+
+def test_recover_chunked_regime_matches_reference(chunked_case):
+    """GsSGD._recover, the train step's recovery, selects the reference's
+    indices on every worker when the heavy set outnumbers k."""
+    tc, sk, k, d, j_idx, _ = chunked_case
+    comp = GsSGD(k=k, sketch=tc)
+    u = torch.from_numpy(np.random.RandomState(3).randn(2, d)
+                         .astype(np.float32))
+    sk_sum = torch.from_numpy(sk).expand(2, *sk.shape)
+    upd, idx = comp._recover(sk_sum, u, d)
+    for p in range(2):
+        np.testing.assert_array_equal(idx[p].numpy(), j_idx)
+    np.testing.assert_array_equal(upd[0, j_idx].numpy(),
+                                  u[:, j_idx].sum(0).numpy())
