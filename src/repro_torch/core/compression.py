@@ -1,25 +1,30 @@
-"""Gradient compressors: gs-SGD (the paper) and the dense baseline.
+"""Gradient compressors: gs-SGD (the paper) and every baseline it compares to.
 
-Port of ``repro/core/compression.py`` (the gs-SGD part). One contract:
+Port of ``repro/core/compression.py``. One contract:
 
     state              = compressor.init(d, nworkers, device)
     upd_sum, state, nfo = compressor.step(state, g, nworkers=P)
 
 The reference runs each worker under ``jax.vmap(..., axis_name=...)``;
 here every per-worker tensor carries the worker axis first: ``g`` and the
-error-feedback state are (P, d), and ``upd_sum`` is (P, d), the SUM over
-workers of the applied update as each worker holds it (caller divides by
-P). Collectives are the worker-axis reductions of ``core.allreduce``.
+error-feedback state are (P, d), sketch states (P, R, W), and ``upd_sum``
+is (P, d), the SUM over workers of the applied update as each worker holds
+it (caller divides by P). Collectives are the worker-axis reductions of
+``core.allreduce``; ``jax.lax.top_k`` is ``heavymix.topk_lower_index``
+(the same lower-index tie order), per worker.
 
-Recovery goes through ``kernels.ops.heavymix_recover`` — the HEAVYMIX
-scoring kernel and a top-k with the reference's tie order — where the
-reference calls the pure-jnp ``heavymix.heavymix``; the two select the
-same indices in the same order, below and above the reference's chunked
-threshold d > 2^22 (pinned in tests/test_torch_compression.py and
-tests/test_torch_kernels.py).
+Compressors: ``DenseAllReduce``, ``TopKCompressor``, ``GTopK``,
+``SketchedSGD``, ``GsSGD`` (the paper), ``FetchSGDStyle``, ``SignSGD``,
+``PowerSGD``.
 
-Baselines (topk, gtopk, sketched-sgd, fetchsgd, signsgd, powersgd) are
-left to a later slice.
+Recovery from an exact sketch goes through ``kernels.ops.heavymix_recover``
+(the decode or scores kernel and a top-k with the reference's tie order)
+where the reference calls the pure-jnp ``heavymix.heavymix``; the two
+select the same indices in the same order, below and above the
+reference's chunked threshold d > 2^22 (pinned in
+tests/test_torch_compression.py and tests/test_torch_kernels.py).
+``encoder="ts"`` sketches with ``kernels.ts_encode`` and recovers from the
+TS decode's estimates (``heavymix(estimates=...)``), as the reference.
 """
 
 from __future__ import annotations
@@ -34,7 +39,11 @@ import torch
 from repro_torch.core import allreduce as ar
 from repro_torch.core import count_sketch as cs
 from repro_torch.core import error_feedback as ef
+from repro_torch.core import heavymix as hm
+from repro_torch.core import ts_sketch as ts
+from repro_torch.core.heavymix import topk_lower_index
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ts_encode import ts_encode
 
 _F32 = 4  # wire bytes per float32
 _I32 = 4
@@ -65,6 +74,18 @@ def _scatter(d: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return out.scatter_(-1, idx, vals.to(torch.float32))
 
 
+def _topk_rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Each worker's ``jax.lax.top_k(|x_p|, k)`` indices: (P, d) -> (P, k)."""
+    return torch.stack([topk_lower_index(x[p].abs(), k)[1]
+                        for p in range(x.shape[0])])
+
+
+def _sparsify(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep each worker's k largest-magnitude coordinates of (P, d) ``x``."""
+    idx = _topk_rows(x, k)
+    return _scatter(x.shape[-1], idx, torch.gather(x, -1, idx))
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -87,17 +108,98 @@ class DenseAllReduce:
 
 
 @dataclasses.dataclass(frozen=True)
+class TopKCompressor:
+    """Local Top-k with centralized (PS-style) aggregation + error feedback.
+
+    The PS inbox is a sum over workers of the k-sparse local selections;
+    the wire model is the PS up/down link (k values + k indices a worker).
+    """
+
+    k: int
+    name: str = "topk"
+
+    def init(self, d: int, nworkers: int = 1, device="cpu") -> torch.Tensor:
+        return ef.init(d, nworkers, device=device)
+
+    def comm_stats(self, d: int, nworkers: int) -> CommStats:
+        return CommStats(2 * self.k * (_F32 + _I32), rounds=2,
+                         label=self.name)
+
+    def step(self, acc: torch.Tensor, g: torch.Tensor, *, nworkers: int):
+        u = ef.add(acc, g)
+        local = _sparsify(u, self.k)
+        upd = ar.psum_allreduce(local)
+        return upd, ef.residual_dense(u, local), self.comm_stats(
+            u.shape[-1], nworkers)
+
+
+@dataclasses.dataclass(frozen=True)
+class GTopK:
+    """gTop-k [23]: tree merge keeping only k survivors a hop (Alg. 1's
+    reduce schedule), then the survivors broadcast back down the tree."""
+
+    k: int
+    name: str = "gtopk"
+
+    def init(self, d: int, nworkers: int = 1, device="cpu") -> torch.Tensor:
+        return ef.init(d, nworkers, device=device)
+
+    def comm_stats(self, d: int, nworkers: int) -> CommStats:
+        rounds = ar.tree_allreduce_rounds(nworkers)
+        return CommStats(rounds * self.k * (_F32 + _I32), rounds=rounds,
+                         label=self.name)
+
+    def step(self, acc: torch.Tensor, g: torch.Tensor, *, nworkers: int):
+        u = ef.add(acc, g)
+        s = _sparsify(u, self.k)
+        sched = ar.reduce_schedule(nworkers)
+        for pairs in sched:  # recursive halving; merged set re-sparsified
+            received, mask = ar.masked_permute(s, pairs, nworkers)
+            merged = s + torch.where(mask, received,
+                                     torch.zeros_like(received))
+            s = torch.where(mask, _sparsify(merged, self.k), s)
+        for pairs in reversed(sched):  # broadcast the survivors back
+            back = [(dst, src) for (src, dst) in pairs]
+            received, mask = ar.masked_permute(s, back, nworkers)
+            s = torch.where(mask, received, s)
+        # EF: zero the globally surviving coordinates in u.
+        acc = ef.residual_global(u, _topk_rows(s, self.k), inplace=True)
+        return s, acc, self.comm_stats(u.shape[-1], nworkers)
+
+
+@dataclasses.dataclass(frozen=True)
 class _SketchBased:
     k: int = 1024
     sketch: cs.SketchConfig = cs.SketchConfig()
+    encoder: str = "exact"  # 'exact' (multiply-shift) | 'ts' (TS-sketch)
     name: str = "sketch-base"
 
     def init(self, d: int, nworkers: int = 1, device="cpu") -> torch.Tensor:
         return ef.init(d, nworkers, device=device)
 
+    def _ts_cfg(self, d: int) -> ts.TSketchConfig:
+        return ts.TSketchConfig(d=d, rows=self.sketch.rows,
+                                width=self.sketch.width,
+                                seed=self.sketch.seed)
+
     def _encode(self, u: torch.Tensor) -> torch.Tensor:
         """One worker's (d,) vector -> its (R, W) f32 sketch."""
+        if self.encoder == "ts":
+            return ts_encode(self._ts_cfg(u.shape[-1]), u)
         return kops.encode(self.sketch, u)
+
+    def _encode_workers(self, x: torch.Tensor) -> torch.Tensor:
+        """Every worker's (d,) row of (P, d) ``x`` -> (P, R, W) sketches."""
+        return torch.stack([self._encode(x[p]) for p in range(x.shape[0])])
+
+    def _select(self, sketch_sum: torch.Tensor, d: int) -> torch.Tensor:
+        """HEAVYMIX's k indices from one worker's copy of the summed
+        sketch (the TS route recovers from the TS decode's estimates)."""
+        if self.encoder == "ts":
+            est = ts.decode(self._ts_cfg(d), sketch_sum, d)
+            return hm.heavymix(self.sketch, sketch_sum, self.k, d,
+                               estimates=est)[0]
+        return kops.heavymix_recover(self.sketch, sketch_sum, self.k, d)[0]
 
     def _recover(self, sketch_sum: torch.Tensor, u: torch.Tensor, d: int, *,
                  include: torch.Tensor | None = None,
@@ -108,8 +210,7 @@ class _SketchBased:
         copies are identical, so every worker selects the same indices).
         include/scale: straggler-drop support, as in the reference.
         """
-        idx = torch.stack([kops.heavymix_recover(self.sketch, sketch_sum[p],
-                                                 self.k, d)[0]
+        idx = torch.stack([self._select(sketch_sum[p], d)
                            for p in range(u.shape[0])])
         vals = torch.gather(u, -1, idx)
         if include is not None:
@@ -118,6 +219,30 @@ class _SketchBased:
         if scale is not None:
             vals = vals * scale[:, None]
         return _scatter(d, idx, vals), idx
+
+
+@dataclasses.dataclass(frozen=True)
+class SketchedSGD(_SketchBased):
+    """Sketched-SGD [22]: PS aggregation of sketches — O(log d * P) comm.
+
+    The PS inbox (every worker's sketch arriving at one place) is the
+    reference's all_gather + sum: here a sum over the worker axis.
+    """
+
+    name: str = "sketched-sgd"
+
+    def comm_stats(self, d: int, nworkers: int) -> CommStats:
+        sk_bytes = self.sketch.size * _F32
+        return CommStats(sk_bytes * nworkers + self.k * _F32,
+                         rounds=nworkers, label=self.name)
+
+    def step(self, acc: torch.Tensor, g: torch.Tensor, *, nworkers: int):
+        u = ef.add(acc, g)
+        d = u.shape[-1]
+        upd, idx = self._recover(ar.psum_allreduce(self._encode_workers(u)),
+                                 u, d)
+        acc = ef.residual_global(u, idx, inplace=True)
+        return upd, acc, self.comm_stats(d, nworkers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,8 +265,7 @@ class GsSGD(_SketchBased):
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """Stage 1 (compute): EF add + each worker's Count-Sketch encode."""
         u = ef.add(acc, g)
-        sk = torch.stack([self._encode(u[p]) for p in range(u.shape[0])])
-        return u, sk.to(self.wire_dtype)
+        return u, self._encode_workers(u).to(self.wire_dtype)
 
     def stage_reduce(self, sk: torch.Tensor, *, nworkers: int,
                      include: torch.Tensor | None = None):
@@ -196,6 +320,118 @@ class GsSGD(_SketchBased):
                                           include=include)
         return self.stage_recover(u, sk_sum, scale, nworkers=nworkers,
                                   include=include)
+
+
+@dataclasses.dataclass(frozen=True)
+class FetchSGDStyle(_SketchBased):
+    """Sketch-space EF + momentum (FetchSGD [36]).
+
+    State is TWO (P, R, W) sketches (momentum + error), independent of d.
+    No exact second round: applied values are the sketch estimates, and
+    the error sketch subtracts the sketch of the applied update. Run it
+    under an optimizer without its own momentum.
+    """
+
+    momentum: float = 0.9
+    name: str = "fetchsgd"
+
+    def init(self, d: int, nworkers: int = 1, device="cpu"):
+        z = torch.zeros((nworkers, self.sketch.rows, self.sketch.width),
+                        dtype=torch.float32, device=device)
+        return (z, torch.zeros_like(z))  # (momentum sketch, error sketch)
+
+    def comm_stats(self, d: int, nworkers: int) -> CommStats:
+        return CommStats(
+            _ring_allreduce_bytes(self.sketch.size * _F32, nworkers),
+            rounds=2 * (nworkers - 1), label=self.name)
+
+    def step(self, state, g: torch.Tensor, *, nworkers: int):
+        s_m, s_e = state
+        p_n, d = g.shape
+        sk = ar.psum_allreduce(self._encode_workers(g))  # merged grad sketch
+        s_m = self.momentum * s_m + sk                 # momentum in-sketch
+        s_e = s_e + s_m                                # error accumulation
+        rec = [kops.heavymix_recover(self.sketch, s_e[p], self.k, d)
+               for p in range(p_n)]
+        upd = _scatter(d, torch.stack([i for i, _ in rec]),
+                       torch.stack([e for _, e in rec]))
+        s_e = s_e - self._encode_workers(upd)          # subtract applied
+        return upd, (s_m, s_e), self.comm_stats(d, nworkers)
+
+
+@dataclasses.dataclass(frozen=True)
+class SignSGD:
+    """1-bit SGD with error feedback: sign(u) times one scale (mean |u|)
+    a worker; EF keeps the quantization residual."""
+
+    name: str = "signsgd"
+
+    def init(self, d: int, nworkers: int = 1, device="cpu") -> torch.Tensor:
+        return ef.init(d, nworkers, device=device)
+
+    def comm_stats(self, d: int, nworkers: int) -> CommStats:
+        return CommStats(
+            _ring_allreduce_bytes(d / 8 + _F32, nworkers),
+            rounds=2 * (nworkers - 1), label=self.name)
+
+    def step(self, acc: torch.Tensor, g: torch.Tensor, *, nworkers: int):
+        u = ef.add(acc, g)
+        local = torch.sign(u) * u.abs().mean(dim=-1, keepdim=True)
+        upd = ar.psum_allreduce(local)
+        return upd, ef.residual_dense(u, local), self.comm_stats(
+            g.shape[-1], nworkers)
+
+
+def _powersgd_cols(d: int) -> int:
+    """n of init's near-square (m0, n) split of a flat d-vector."""
+    m0 = 1 << ((d - 1).bit_length() + 1) // 2
+    return (d + m0 - 1) // m0
+
+
+@dataclasses.dataclass(frozen=True)
+class PowerSGD:
+    """Rank-r low-rank compression with EF: the flat gradient as a
+    near-square (m, n) matrix, one power iteration (P = M Q, orthonormalize
+    after the sum, Q' = M^T P), two small all-reduces of r*(m+n) floats.
+
+    ``q`` starts as standard normals from a ``torch.Generator`` seeded with
+    ``seed`` (the reference draws it from ``jax.random``: other numbers).
+    """
+
+    rank: int = 4
+    seed: int = 0
+    name: str = "powersgd"
+
+    def init(self, d: int, nworkers: int = 1, device="cpu"):
+        n = _powersgd_cols(d)
+        q = torch.randn((n, self.rank), dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(self.seed))
+        q = q.to(device).expand(nworkers, n, self.rank).clone()
+        return (ef.init(d, nworkers, device=device), q)
+
+    def comm_stats(self, d: int, nworkers: int) -> CommStats:
+        n = _powersgd_cols(d)
+        m = (d + n - 1) // n                           # step's matricization
+        return CommStats(
+            _ring_allreduce_bytes(self.rank * (m + n) * _F32, nworkers),
+            rounds=4 * (nworkers - 1), label=self.name)
+
+    def step(self, state, g: torch.Tensor, *, nworkers: int):
+        acc, q = state
+        u = ef.add(acc, g)
+        p_n, d = u.shape
+        n = q.shape[-2]
+        m = (d + n - 1) // n
+        mat = torch.nn.functional.pad(u, (0, m * n - d)).reshape(p_n, m, n)
+        mat_t = mat.transpose(-1, -2)
+        p = ar.psum_allreduce(mat @ q)                 # (P, m, r)
+        p, _ = torch.linalg.qr(p)                      # orthonormal basis
+        q_new = ar.psum_allreduce(mat_t @ p)           # (P, n, r)
+        approx = (p @ q_new.transpose(-1, -2)).reshape(p_n, -1)[:, :d]
+        # each worker's applied share is ITS projection p p^T M_w
+        local = (p @ (mat_t @ p).transpose(-1, -2)).reshape(p_n, -1)[:, :d]
+        acc = ef.residual_dense(u, local)
+        return approx, (acc, q_new), self.comm_stats(d, nworkers)
 
 
 # ---------------------------------------------------------------------------
@@ -347,21 +583,35 @@ def static_comm_stats(compressor, d: int, nworkers: int):
 
 REGISTRY = {
     "dense": DenseAllReduce,
+    "topk": TopKCompressor,
+    "gtopk": GTopK,
+    "sketched-sgd": SketchedSGD,
     "gs-sgd": GsSGD,
+    "fetchsgd": FetchSGDStyle,
+    "signsgd": SignSGD,
+    "powersgd": PowerSGD,
 }
 
 
 def make(name: str, **kw) -> Any:
-    """Build a compressor by name; sketch geometry via rows/width/seed kw."""
+    """Build a compressor by name; sketch geometry via rows/width/seed kw.
+
+    Non-sketch compressors drop the sketch-geometry kwargs they have no
+    field for (and the k-free baselines drop ``k``), as the reference, so
+    one kwarg dict can be threaded to any method."""
     if name not in REGISTRY:
-        raise KeyError(f"compressor {name!r} is not ported yet; "
-                       f"ported: {sorted(REGISTRY)}")
+        raise KeyError(f"unknown compressor {name!r}; choose from "
+                       f"{sorted(REGISTRY)}")
     cls = REGISTRY[name]
-    if name == "gs-sgd":
+    if name in ("sketched-sgd", "gs-sgd", "fetchsgd"):
         sk = cs.SketchConfig(rows=kw.pop("rows", 5),
                              width=kw.pop("width", 16384),
                              seed=kw.pop("seed", 0))
         return cls(sketch=sk, **kw)
-    for geo in ("rows", "width", "seed", "k"):
-        kw.pop(geo, None)
+    fields = {f.name for f in dataclasses.fields(cls)}
+    for geo in ("rows", "width", "seed"):
+        if geo not in fields:
+            kw.pop(geo, None)
+    if name in ("dense", "signsgd", "powersgd"):
+        kw.pop("k", None)
     return cls(**kw)

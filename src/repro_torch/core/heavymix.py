@@ -45,17 +45,23 @@ def topk_lower_index(score: torch.Tensor, k: int
     return score[idx], idx
 
 
-def heavymix(cfg: cs.SketchConfig, sketch: torch.Tensor, k: int, d: int
+def heavymix(cfg: cs.SketchConfig, sketch: torch.Tensor, k: int, d: int, *,
+             estimates: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Select k indices from a summed sketch. Returns (idx (k,), est (k,)).
 
     For d beyond 2^22 coords (and d > 4k) the selection runs
     hierarchically, as the reference: per-chunk top-k, then a top-k over
     the union of the per-chunk winners.
+
+    ``estimates`` (precomputed, e.g. the TS-sketch decode) skips the
+    decode and the chunked route at every d, as in the reference: the
+    boosted-score top-k then keeps the lowest-index heavy coordinates
+    when the heavy set outnumbers k.
     """
-    if d > _CHUNK and d > 4 * k:
+    if estimates is None and d > _CHUNK and d > 4 * k:
         return _heavymix_chunked(cfg, sketch, k, d)
-    est = cs.decode(cfg, sketch, d)
+    est = cs.decode(cfg, sketch, d) if estimates is None else estimates
     l2sq = cs.l2sq_estimate(sketch)
     heavy = est * est >= l2sq / k
     score = torch.where(heavy, torch.abs(est) + _BIG, torch.abs(est))

@@ -15,35 +15,17 @@
 //
 // Design: grid-stride loop over coordinates; hash parameters in shared
 // memory. R is a runtime value up to 32 (rows='log' gives ceil(log2 d)).
-// One kernel body, instantiated for a slot count N of 8 or 32: the R
-// gathered values fill N slots padded with +inf, a compare-exchange
-// network with compile-time indices sorts them, and the middle values are
-// read with compile-time indices too, so the slots stay in registers. A
-// runtime-indexed array would live in local memory: at R = 5 an insertion
-// sort in such an array took 1.43x as long on an H100 (PERF.md).
+// The gather and the median network in registers are sketch_common.cuh's,
+// shared with the decode kernel (sketch_decode.cu).
 // Bound: writing 2 * d * 4 bytes (scores and est) plus reading the
 // L2-resident (R, W) sketch once; the R gathers per coordinate are random
 // 4-byte L2 reads.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "sketch_common.cuh"
 
 namespace {
 
-constexpr int kMaxRows = 32;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float gather(const float* __restrict__ sk,
-                                        const uint32_t* sh, int r,
-                                        uint32_t i, int shift,
-                                        int64_t width) {
-  const uint32_t hb = sh[4 * r] * i + sh[4 * r + 1];
-  const uint32_t hs = sh[4 * r + 2] * i + sh[4 * r + 3];
-  const uint32_t bucket = shift >= 32 ? 0u : (hb >> shift);
-  const float v = sk[(int64_t)r * width + bucket];
-  return (hs >> 31) ? -v : v;
-}
 
 template <int N>
 __global__ void __launch_bounds__(kThreads)
@@ -52,36 +34,14 @@ scores_kernel(const float* __restrict__ sk, int64_t width,
               const float* __restrict__ thr_p, int64_t d,
               float* __restrict__ scores, float* __restrict__ est) {
   __shared__ uint32_t sh[N * 4];
-  for (int t = threadIdx.x; t < rows * 4; t += blockDim.x) sh[t] = hp[t];
-  __syncthreads();
+  sketch_common::load_hash(sh, hp, rows);
   const float thr = *thr_p;
-  const int lo_at = (rows - 1) / 2, hi_at = rows / 2;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d;
        j += stride) {
-    const uint32_t i = (uint32_t)j;
-    float v[N];
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      v[r] = r < rows ? gather(sk, sh, r, i, shift, width) : INFINITY;
-    }
-#pragma unroll
-    for (int a = 0; a < N - 1; ++a) {
-#pragma unroll
-      for (int b = 0; b < N - 1 - a; ++b) {
-        const float x = fminf(v[b], v[b + 1]);
-        const float y = fmaxf(v[b], v[b + 1]);
-        v[b] = x;
-        v[b + 1] = y;
-      }
-    }
-    float lo = 0.0f, hi = 0.0f;
-#pragma unroll
-    for (int t = 0; t < N; ++t) {
-      if (t == lo_at) lo = v[t];
-      if (t == hi_at) hi = v[t];
-    }
-    const float e = (rows & 1) ? hi : 0.5f * (lo + hi);
+    const float e = sketch_common::median_estimate<N>(sk, sh, rows,
+                                                      (uint32_t)j, shift,
+                                                      width);
     est[j] = e;
     scores[j] = fabsf(e) + ((e * e >= thr) ? 1e30f : 0.0f);
   }
@@ -95,12 +55,10 @@ extern "C" int heavymix_scores_launch(const void* sketch, int64_t width,
                                       int shift, const void* thr, int64_t d,
                                       void* scores, void* est,
                                       void* stream) {
-  if (rows < 1 || rows > kMaxRows) return (int)cudaErrorInvalidValue;
-  int64_t blocks = (d + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 16;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  const unsigned g = (unsigned)blocks;
+  if (rows < 1 || rows > sketch_common::kMaxRows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const unsigned g = sketch_common::grid_for(d, kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sk = static_cast<const float*>(sketch);
   const uint32_t* hp = static_cast<const uint32_t*>(hash_params);
@@ -111,8 +69,8 @@ extern "C" int heavymix_scores_launch(const void* sketch, int64_t width,
     scores_kernel<8><<<g, kThreads, 0, st>>>(sk, width, hp, rows, shift, t,
                                               d, sc, es);
   } else {
-    scores_kernel<kMaxRows><<<g, kThreads, 0, st>>>(sk, width, hp, rows,
-                                                     shift, t, d, sc, es);
+    scores_kernel<sketch_common::kMaxRows><<<g, kThreads, 0, st>>>(
+        sk, width, hp, rows, shift, t, d, sc, es);
   }
   return (int)cudaGetLastError();
 }

@@ -22,21 +22,14 @@
 // the sketch is not bit-reproducible on the card; it matches the plain
 // index_add_ version within f32 summation-order error.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sketch_common.cuh"
 
 namespace {
 
+using sketch_common::to_f32;
+
 constexpr int kMaxRows = 64;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -64,11 +57,8 @@ encode_kernel(const T* __restrict__ g, int64_t d,
 template <typename T>
 int launch(const void* g, int64_t d, const void* hp, int rows, int shift,
            int64_t offset, void* out, int64_t width, cudaStream_t stream) {
-  int64_t blocks = (d + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 16;  // grid-stride beyond ~16 blocks per SM
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  encode_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  encode_kernel<T><<<sketch_common::grid_for(d, kThreads), kThreads, 0,
+                     stream>>>(
       static_cast<const T*>(g), d, static_cast<const uint32_t*>(hp), rows,
       shift, offset, static_cast<float*>(out), width);
   return (int)cudaGetLastError();

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``build/kernels/lib<name>-<hash>.so`` at the repo root (a directory
 ``.gitignore`` lists) at first use, then loaded with ``ctypes``. The file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. ``build_all`` starts one
-``nvcc`` per source, all in parallel.
+name carries a hash of the flags, the source and every ``csrc`` header it
+includes (``#include "x.cuh"``, followed recursively), so an edited source
+or header is rebuilt and a stale library is never loaded. ``build_all``
+starts one ``nvcc`` per source, all in parallel.
 
 Nothing here runs at import time: the CPU tests import every module, and
 ``nvcc`` is needed only when a CUDA tensor reaches a kernel wrapper.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,10 +41,28 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list[str]:
+    """``<name>.cu`` and the ``csrc`` headers it includes, recursively."""
+    out, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f not in out:
+            out.append(f)
+            with open(os.path.join(CSRC, f), "rb") as fh:
+                todo += [m.decode() for m in
+                         _LOCAL_INCLUDE.findall(fh.read())]
+    return out
+
+
 def _target(name: str) -> tuple[str, str]:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources(name):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read())
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 

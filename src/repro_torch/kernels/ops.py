@@ -4,11 +4,12 @@ Port of ``repro/kernels/ops.py``. Dispatch is per tensor device
 (``kernels.dispatch``): CUDA tensors launch the hand-written kernels, CPU
 tensors run the plain PyTorch versions.
 
-``heavymix_recover`` always goes through ``heavymix_scores`` and a top-k
-with the reference's lower-index tie-break, on either device, so the CPU
-tests run the same Python path the card runs. It selects what
-``core.heavymix.heavymix`` selects, index for index, in both of its
-regimes (see ``heavymix_recover``).
+``heavymix_recover`` goes through a kernel and a top-k with the
+reference's lower-index tie-break, on either device, so the CPU tests run
+the same Python path the card runs: ``sketch_decode`` where the reference
+ranks by |est| (d > 2^22 and d > 4k), ``heavymix_scores`` below that. It
+selects what ``core.heavymix.heavymix`` selects, index for index, in both
+regimes.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from repro_torch.core import count_sketch as cs
 from repro_torch.core.count_sketch import SketchConfig
 from repro_torch.core.heavymix import _CHUNK, topk_lower_index
 from repro_torch.kernels.heavymix_topk import heavymix_scores
+from repro_torch.kernels.sketch_decode import (sketch_decode,
+                                               sketch_decode_bucketed)
 from repro_torch.kernels.sketch_encode import (sketch_encode,
                                                sketch_encode_bucketed)
 
@@ -29,25 +32,34 @@ def encode(cfg: SketchConfig, g: torch.Tensor, *,
     return sketch_encode(cfg, g, index_offset=int(offset))
 
 
+def decode(cfg: SketchConfig, sketch: torch.Tensor, d: int, *,
+           offset: int = 0) -> torch.Tensor:
+    """Count-Sketch decode: (rows, width) -> (d,) estimates of the
+    coordinates [offset, offset + d)."""
+    return sketch_decode(cfg, sketch, int(d), index_offset=int(offset))
+
+
 def heavymix_recover(cfg: SketchConfig, sketch: torch.Tensor, k: int, d: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """HEAVYMIX greedy recovery from a summed sketch -> (idx (k,), est (k,)).
 
-    The heavy threshold stays a device tensor (no host sync before the
-    scoring kernel); the top-k follows ``jax.lax.top_k``'s tie order.
-
-    The ranking follows the reference's two regimes. For d > 2^22 and
-    d > 4k it ranks by |est| alone (``_heavymix_chunked``: the heavy set
-    is the top-|H| by |est|), so when the heavy set outnumbers k the
-    largest estimates win. Below that it ranks by the kernel's scores,
-    where every heavy coordinate scores 1e30 in f32 and the lower index
-    wins among them.
+    The ranking follows the reference's two regimes; the top-k follows
+    ``jax.lax.top_k``'s tie order. For d > 2^22 and d > 4k the reference
+    ranks by |est| alone (``_heavymix_chunked``: the heavy set is the
+    top-|H| by |est|), so when the heavy set outnumbers k the largest
+    estimates win: the decode kernel gives ``est``, and no threshold or
+    scores are computed. Below that it ranks by the scores kernel's boosted
+    scores, where every heavy coordinate scores 1e30 in f32 and the lower
+    index wins among them; the threshold stays a device tensor (no host
+    sync before the kernel).
     """
     sk = sketch.to(torch.float32)
+    if d > _CHUNK and d > 4 * k:
+        est = sketch_decode(cfg, sk, int(d))
+        _, idx = topk_lower_index(est.abs(), k)
+        return idx, est[idx]
     thr = cs.l2sq_estimate(sk) / k
     scores, est = heavymix_scores(cfg, sk, thr, int(d))
-    if d > _CHUNK and d > 4 * k:
-        scores = est.abs()
     _, idx = topk_lower_index(scores, k)
     return idx, est[idx]
 
@@ -56,3 +68,9 @@ def encode_buckets(cfgs, g: torch.Tensor, sizes) -> tuple:
     """Per-bucket encode: one (rows_i, width_i) sketch per contiguous
     bucket of ``g`` (sizes sum to g.numel())."""
     return sketch_encode_bucketed(cfgs, g, sizes)
+
+
+def decode_buckets(cfgs, sketches, sizes) -> torch.Tensor:
+    """Per-bucket decode concatenated back into one flat estimate vector."""
+    return sketch_decode_bucketed(cfgs, sketches,
+                                  tuple(int(x) for x in sizes))

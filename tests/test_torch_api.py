@@ -13,7 +13,8 @@ from repro.sim.replay import default_geometry as j_default_geometry
 from repro_torch import api as tapi
 from repro_torch.api import RunSpec as TSpec
 from repro_torch.data import LMStream
-from repro_torch.kernels import build, heavymix_topk, sketch_encode
+from repro_torch.kernels import (build, heavymix_topk, sketch_decode,
+                                 sketch_encode, ts_encode)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = os.path.join(ROOT, "examples", "specs", "qwen3_smoke.json")
@@ -115,46 +116,89 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
         train.main(["--spec", SPEC, "--steps", "1"])
 
 
+def _wrapper_calls():
+    """One call of each kernel wrapper on tensors that lie on ``meta``."""
+    from repro_torch.core.count_sketch import SketchConfig
+    from repro_torch.core.ts_sketch import TSketchConfig
+    cfg = SketchConfig(rows=3, width=256)
+    meta = dict(device="meta")
+    return {
+        "sketch_encode": lambda: sketch_encode.sketch_encode(
+            cfg, torch.empty(100, **meta)),
+        "heavymix_scores": lambda: heavymix_topk.heavymix_scores(
+            cfg, torch.empty((3, 256), **meta), torch.empty((), **meta),
+            100),
+        "sketch_decode": lambda: sketch_decode.sketch_decode(
+            cfg, torch.empty((3, 256), **meta), 100),
+        "ts_encode": lambda: ts_encode.ts_encode(
+            TSketchConfig(d=100, rows=3, width=256),
+            torch.empty(100, **meta)),
+    }
+
+
+_KERNEL_MODULES = (sketch_encode, heavymix_topk, sketch_decode, ts_encode)
+
+
 def test_kernel_wrappers_never_fall_back(monkeypatch):
     """A non-CPU tensor launches the kernel or raises: with the build
     missing, the wrappers raise instead of running the plain version."""
+    from types import SimpleNamespace
+
     from repro_torch.core.count_sketch import SketchConfig
 
     def missing(name):
         raise RuntimeError(f"no library for {name}")
 
+    def clear():
+        for mod in _KERNEL_MODULES:
+            mod._lib.cache_clear()
+
+    calls = _wrapper_calls()
+    assert set(calls) == {"sketch_encode", "heavymix_scores",
+                          "sketch_decode", "ts_encode"}
     monkeypatch.setattr(build, "load", missing)
-    sketch_encode._lib.cache_clear()
-    heavymix_topk._lib.cache_clear()
-    cfg = SketchConfig(rows=3, width=256)
-    with pytest.raises(RuntimeError, match="no library"):
-        sketch_encode.sketch_encode(cfg, torch.empty(100, device="meta"))
-    with pytest.raises(RuntimeError, match="no library"):
-        heavymix_topk.heavymix_scores(
-            cfg, torch.empty((3, 256), device="meta"),
-            torch.empty((), device="meta"), 100)
+    clear()
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no library"):
+            call()
     # with a library at hand, a tensor that is neither CPU nor CUDA is
     # refused before any launch
-    from types import SimpleNamespace
-    monkeypatch.setattr(build, "load", lambda name: SimpleNamespace(
-        sketch_encode_launch=SimpleNamespace(),
-        heavymix_scores_launch=SimpleNamespace()))
-    sketch_encode._lib.cache_clear()
-    heavymix_topk._lib.cache_clear()
-    with pytest.raises(ValueError, match="needs a CUDA tensor"):
-        sketch_encode.sketch_encode(cfg, torch.empty(100, device="meta"))
-    with pytest.raises(ValueError, match="needs a CUDA tensor"):
-        heavymix_topk.heavymix_scores(
-            cfg, torch.empty((3, 256), device="meta"),
-            torch.empty((), device="meta"), 100)
-    sketch_encode._lib.cache_clear()
-    heavymix_topk._lib.cache_clear()
+    monkeypatch.setattr(build, "load", lambda name: SimpleNamespace(**{
+        f"{n}_launch": SimpleNamespace() for n in calls}))
+    clear()
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="needs a CUDA tensor"):
+            call()
+    clear()
     # CPU tensors take the plain version without touching the build
+    cfg = SketchConfig(rows=3, width=256)
     out = sketch_encode.sketch_encode(cfg, torch.ones(10))
     assert out.shape == (3, 256) and float(out.abs().sum()) == 30.0
 
 
+def test_kernel_target_covers_included_headers(tmp_path, monkeypatch):
+    """The library's name hashes the source AND every csrc header it
+    includes (recursively), so an edited header is never served by a
+    stale library; an unrelated header does not change it."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint f() { return A; }\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n #include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("#define A 1\n")
+    (tmp_path / "other.cuh").write_text("#define B 1\n")
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    assert sorted(build._sources("k")) == ["a.cuh", "b.cuh", "k.cu"]
+    first = build._target("k")[1]
+    (tmp_path / "other.cuh").write_text("#define B 2\n")
+    assert build._target("k")[1] == first
+    (tmp_path / "b.cuh").write_text("#define A 2\n")
+    second = build._target("k")[1]
+    assert second != first and os.path.basename(second).startswith("libk-")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint f() { return 0; }\n')
+    assert build._target("k")[1] not in (first, second)
+
+
 def test_build_paths_stay_in_repo():
     assert build.BUILD_DIR.startswith(ROOT)
-    assert os.path.isfile(os.path.join(build.CSRC, "sketch_encode.cu"))
-    assert os.path.isfile(os.path.join(build.CSRC, "heavymix_scores.cu"))
+    for name in ("sketch_encode", "heavymix_scores", "sketch_decode",
+                 "ts_encode"):
+        assert os.path.isfile(os.path.join(build.CSRC, f"{name}.cu"))
+        assert "sketch_common.cuh" in build._sources(name)

@@ -1,5 +1,7 @@
-"""The slice as a whole: two gs-SGD steps of examples/specs/qwen3_smoke.json
-(qwen3-4b smoke config, P=2, buckets=2, psum, AdamW) in both packages.
+"""The slices as a whole: two gs-SGD steps of examples/specs/qwen3_smoke.json
+(qwen3-4b smoke config, P=2, buckets=2, psum, AdamW) in both packages,
+and two steps of the same spec with the Sketched-SGD baseline and with
+gs-SGD's TS-sketch encoder (``compressor_kw`` ``encoder="ts"``).
 
 Params come from the JAX package's ``init_flat_params`` (through
 ``params_from_numpy``) and batches from its ``LMStream``, passed as numpy.
@@ -16,6 +18,7 @@ coordinate up to the last winner sits within 1e-4 (relative) of the heavy
 threshold (asserted below), so the selection is not decided by rounding.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -26,11 +29,13 @@ import torch
 
 from repro.api import RunSpec as JSpec
 from repro.core.gs_sgd import make_state as j_make_state
+from repro.core.gs_sgd import make_train_step as j_make_train_step
 from repro.data import LMStream as JStream
 from repro.launch.train import build as j_build
 from repro.models.flatten import init_flat_params as j_init
 from repro_torch.api import RunSpec as TSpec
 from repro_torch.core.gs_sgd import make_state as t_make_state
+from repro_torch.core.gs_sgd import make_train_step as t_make_train_step
 from repro_torch.launch import train as ttrain
 from repro_torch.models.flatten import params_from_numpy
 
@@ -46,23 +51,18 @@ def _batches(spec, steps):
             for s in range(steps)]
 
 
-@pytest.fixture(scope="module")
-def runs():
-    jspec = JSpec.load(SPEC)
-    tspec = TSpec.load(SPEC)
-    P, steps = jspec.cluster.p, 2
-    assert P == 2 and tspec.cluster.p == P
+def _run(jspec, jts, opt, tts, topt, steps=2):
+    """Both packages' steps from the reference's initial params, on the
+    reference's batches."""
+    P = jspec.cluster.p
     batches = _batches(jspec, steps)
-
-    cfg, opt, _, jts = j_build(jspec)
-    params = j_init(cfg, jax.random.PRNGKey(jspec.seed), 1, jts.fs)
+    params = j_init(jspec.arch_config(), jax.random.PRNGKey(jspec.seed), 1,
+                    jts.fs)
     seg_np = {k: np.asarray(v) for k, v in params.items()}
     jstate = j_make_state(params, opt, jts.compressor, jts.d_local)
     jstate = jax.tree_util.tree_map(
         lambda a: jnp.broadcast_to(a, (P,) + a.shape), jstate)
     jstep = jax.jit(jax.vmap(jts.fn, axis_name="data"))
-
-    _, topt, _, tts = ttrain.build(tspec, "cpu")
     tstate = t_make_state(params_from_numpy(seg_np, tts.fs, "cpu"), topt,
                           tts.compressor, tts.d_local, P)
     out = {"j_loss": [], "t_loss": [], "j_ef": [], "t_ef": [], "t_u": []}
@@ -81,6 +81,66 @@ def runs():
     out["t_params"] = {k: v.numpy() for k, v in tstate["params"].items()}
     out["tts"] = tts
     return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jspec = JSpec.load(SPEC)
+    tspec = TSpec.load(SPEC)
+    assert jspec.cluster.p == 2 and tspec.cluster.p == 2
+    _, opt, _, jts = j_build(jspec)
+    _, topt, _, tts = ttrain.build(tspec, "cpu")
+    return _run(jspec, jts, opt, tts, topt)
+
+
+def _variant(name):
+    """(jspec, reference step, optimizer, port step, optimizer) of the smoke
+    spec with another compressor, or with gs-SGD's TS-sketch encoder."""
+    jspec, tspec = JSpec.load(SPEC), TSpec.load(SPEC)
+    if name == "ts":
+        _, opt, ma, jts0 = j_build(jspec)
+        kw = dict(jspec.exchange.compressor_kw(jts0.d_local), encoder="ts")
+        jts = j_make_train_step(
+            jspec.arch_config(), ma, opt, compressor_name="gs-sgd",
+            compressor_kw=kw, buckets=jspec.exchange.buckets, overlap=True,
+            remat=jspec.remat, dtype=jnp.float32)
+        topt = tspec.make_optimizer()
+        tkw = dict(tspec.exchange.compressor_kw(jts0.d_local), encoder="ts")
+        tts = t_make_train_step(
+            tspec.arch_config(), tspec.mesh_axes(), topt,
+            compressor_name="gs-sgd", compressor_kw=tkw,
+            buckets=tspec.exchange.buckets, overlap=True, remat=tspec.remat,
+            dtype=torch.float32, device="cpu")
+        assert all(c.encoder == "ts" for c in tts.compressor.parts)
+        return jspec, jts, opt, tts, topt
+    jspec = dataclasses.replace(jspec, exchange=dataclasses.replace(
+        jspec.exchange, compressor=name))
+    tspec = dataclasses.replace(tspec, exchange=dataclasses.replace(
+        tspec.exchange, compressor=name))
+    _, opt, _, jts = j_build(jspec)
+    _, topt, _, tts = ttrain.build(tspec, "cpu")
+    assert tts.compressor.parts[0].name == name
+    return jspec, jts, opt, tts, topt
+
+
+@pytest.mark.parametrize("name", ["sketched-sgd", "ts"])
+def test_smoke_train_variant_matches(name):
+    """Two steps: losses at rtol 1e-4, the selected coordinates (the EF
+    zero pattern) equal every step, final params at rtol 1e-4 / atol 1e-6.
+    On the TS route every bucket's heavy set outnumbers k, so the
+    lowest-index heavy coordinates win; the nearest estimate up to the
+    last winner sits 1.9e-3 (relative) from the heavy threshold, so the
+    selection is not decided by rounding."""
+    out = _run(*_variant(name))
+    np.testing.assert_allclose(out["t_loss"], out["j_loss"], rtol=1e-4)
+    for step, (jefs, tefs) in enumerate(zip(out["j_ef"], out["t_ef"])):
+        for b, (je, te) in enumerate(zip(jefs, tefs)):
+            np.testing.assert_array_equal(te == 0, je == 0,
+                                          err_msg=f"step {step} bucket {b}")
+            np.testing.assert_allclose(te, je, rtol=1e-4, atol=1e-6)
+    for k, v in out["t_params"].items():
+        np.testing.assert_allclose(v, out["j_params"][k], rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
 
 
 def test_losses_match(runs):

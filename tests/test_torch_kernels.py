@@ -20,6 +20,7 @@ from repro.core import heavymix as jhm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.heavymix_topk import heavymix_scores as j_scores
+from repro.kernels.sketch_decode import sketch_decode as j_decode
 from repro.kernels.sketch_encode import sketch_encode as j_encode
 from repro_torch.core import count_sketch as tcs
 from repro_torch.core.compression import GsSGD
@@ -28,6 +29,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.dispatch import resolve_dispatch
 from repro_torch.kernels.heavymix_topk import heavymix_scores as t_scores
+from repro_torch.kernels.sketch_decode import sketch_decode as t_decode
 from repro_torch.kernels.sketch_encode import (sketch_encode as t_encode,
                                                sketch_encode_bucketed)
 
@@ -74,6 +76,48 @@ def _sketch(rows, width, seed, d, spikes=8):
     g[rs.choice(d, spikes, replace=False)] = 10.0 * rs.randn(spikes)
     cfg = tcs.SketchConfig(rows=rows, width=width, seed=seed)
     return tcs.encode(cfg, torch.from_numpy(g)).numpy()
+
+
+@pytest.mark.parametrize("rows,width,d,offset", [
+    (1, 512, 3000, 0), (3, 384, 2000, 0), (5, 1000, 4096, 4099),
+    (5, 256, 1537, 2**30 + 700), (29, 512, 3001, 17)])
+def test_decode_plain_matches_pallas(rows, width, d, offset):
+    """Odd R: bit-equal to the reference's Pallas decode, with an
+    index_offset and widths that are not a multiple of the Pallas kernel's
+    512-wide bucket block."""
+    jc = jcs.SketchConfig(rows=rows, width=width, seed=rows)
+    tc = tcs.SketchConfig(rows=rows, width=width, seed=rows)
+    sk = _sketch(rows, tc.width, rows, 5000)
+    want = np.asarray(j_decode(jc, jnp.asarray(sk), d, index_offset=offset,
+                               block_w=384 if width == 384 else 512,
+                               interpret=True))
+    got = t_decode(tc, torch.from_numpy(sk), d, index_offset=offset)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tops.decode(tc, torch.from_numpy(sk), d, offset=offset).numpy(), want)
+
+
+def test_decode_even_rows_matches_pallas():
+    """Even R: the mean of the two middles, rounded in another place."""
+    jc, tc = (m.SketchConfig(rows=4, width=512, seed=4) for m in (jcs, tcs))
+    sk = _sketch(4, 512, 4, 3000)
+    want = np.asarray(j_decode(jc, jnp.asarray(sk), 3000, interpret=True))
+    got = t_decode(tc, torch.from_numpy(sk), 3000).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_decode_buckets_matches_reference():
+    sizes = (1200, 800, 333)
+    jcfgs = [jcs.SketchConfig(rows=3, width=256, seed=s) for s in range(3)]
+    tcfgs = [tcs.SketchConfig(rows=3, width=256, seed=s) for s in range(3)]
+    sks = [_sketch(3, 256, s, sz) for s, sz in enumerate(sizes)]
+    want = np.asarray(jops.decode_buckets(jcfgs, [jnp.asarray(x) for x in sks],
+                                          sizes, use_pallas=True,
+                                          interpret=True))
+    got = tops.decode_buckets(tcfgs, [torch.from_numpy(x) for x in sks],
+                              sizes)
+    assert got.shape == (sum(sizes),)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("rows", [3, 5, 4])
