@@ -11,9 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
                 ``nvcc`` (one process per source, all started together) and
                 load them.
 2. kernels   — call each kernel's wrapper on the card at the shapes the
-                full-width step gives it (bucket 0 below) plus small odd
-                cases, hold it against its plain PyTorch version, and time
-                kernel, plain version, library yardstick and bound.
+                full-width step gives it (the encode and decode at both
+                buckets, with their launch geometry, and the encode also at
+                the CLI's default sketch width; the others at bucket 0)
+                plus small odd cases, hold it against its plain PyTorch
+                version, and time kernel, plain version, library yardstick
+                and bound.
 3. train     — the main path: three gs-SGD steps of qwen3-4b at its
                 published widths (depth cut to 2 layers), P=2 workers,
                 buckets=2, psum, AdamW, SketchSpec(rows=5, width=None,
@@ -42,7 +45,8 @@ launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
-object with every kernel's numbers, and ``{"ok": true, "device": ...}``.
+object with every kernel's numbers (bucket 0's; a kernel timed at several
+shapes lists each under ``shapes``), and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -66,8 +70,9 @@ TRAIN_P, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 8, 64, 3, 1e-3
 
 # Tolerances.
 ENCODE_REL_TOL = 1e-4   # |kernel - plain| / max|S|: the encoders add in
-#                         another order (atomics, or the TS kernel's fixed
-#                         per-bucket order); n*eps*sum|x|/max|S| stays below
+#                         another order (shared-memory atomics, or the TS
+#                         kernel's fixed per-bucket order); n*eps*sum|x|/max|S|
+#                         stays below
 PARITY_LOSS_RTOL = 1e-3  # card vs CPU: f32 matmuls and sketch sums in
 #                          another order, then AdamW (the CPU port matches
 #                          the JAX package at 1e-4)
@@ -181,47 +186,84 @@ def _index_add_ms(torch, device, R, W, d, ids_vals):
     return ms, out.view(R, W)
 
 
-def encode_checks(torch, device, gen, cfg, g) -> tuple[dict, torch.Tensor]:
-    """sketch_encode: small odd cases, then bucket 0. Returns its row and
-    the kernel's bucket-0 sketch."""
+def _shapes_row(name, source, replaces, shapes):
+    """A kernel's row timed at several shapes: the first's (bucket 0's)
+    numbers at the top level, every shape's under ``shapes``."""
+    s0 = shapes[0]
+    row = _row(name, source, replaces, s0["max_abs_err"], s0["ms"],
+               s0["plain_ms"], (s0["bound_ms"], s0["bound_by"]),
+               s0["library_ms"])
+    row["shapes"] = shapes
+    return row
+
+
+def encode_checks(torch, device, gen, buckets) -> tuple[dict, list]:
+    """sketch_encode: small odd cases, then every bucket of the main path
+    (``buckets``: (cfg, g) each), then bucket 0's g at the CLI's default
+    width (few tiles, so several accumulating CTAs a tile). Returns its row
+    and the kernel's sketch of each main-path bucket."""
+    from repro_torch.api import SketchSpec
     from repro_torch.core import count_sketch as cs
-    from repro_torch.kernels.sketch_encode import (sketch_encode,
+    from repro_torch.kernels.sketch_encode import (encode_plan, sketch_encode,
                                                    sketch_encode_plain)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
-        c = cs.SketchConfig(rows=3, width=300, seed=5)
-        x = torch.randn(1537, generator=gen, device=device).to(dt)
-        got = sketch_encode(c, x, index_offset=4099)
-        want = sketch_encode_plain(c, x, 4099)
-        err = float((got - want).abs().max())
-        lim = ENCODE_REL_TOL * float(want.abs().max())
-        log(f"[kernels] sketch_encode small d=1537 off=4099 {dt}: "
-            f"max_abs_err {err:.3g} (limit {lim:.3g})")
+        for rows, width, off in ((3, 300, 4099), (64, 1 << 12, 2**32 - 700)):
+            c = cs.SketchConfig(rows=rows, width=width, seed=5)
+            x = torch.randn(1537, generator=gen, device=device).to(dt)
+            got = sketch_encode(c, x, index_offset=off)
+            want = sketch_encode_plain(c, x, off)
+            err = float((got - want).abs().max())
+            lim = ENCODE_REL_TOL * float(want.abs().max())
+            log(f"[kernels] sketch_encode small d=1537 R={rows} W={c.width} "
+                f"off={off} {dt}: max_abs_err {err:.3g} (limit {lim:.3g})")
+            if not err <= lim:
+                fail(f"sketch_encode small {dt} disagrees: {err} > {lim}")
+    cfg0, g0 = buckets[0]
+    cases = [(f"bucket {b}", cfg, g) for b, (cfg, g) in enumerate(buckets)]
+    cases.append(("CLI default width at bucket 0's d", cs.SketchConfig(
+        rows=cfg0.rows, width=SketchSpec().width, seed=cfg0.seed), g0))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shapes, sketches = [], []
+    for what, cfg, g in cases:
+        d, R, W = g.shape[0], cfg.rows, cfg.width
+        plan = encode_plan(R, cfg.log2_width, d, sms)
+        log(f"[kernels] sketch_encode plan at {what} (d={d}, R={R}, W={W}): "
+            f"{plan.ntiles} tiles of 32 KB, {plan.splits} accumulating "
+            f"CTA(s) a tile; binning CTAs of {plan.block} elements "
+            f"({plan.bin_smem} bytes of shared memory), {plan.nblocks} a "
+            f"pass; passes of {plan.chunk} elements: {-(-d // plan.chunk)}, "
+            f"scratch {plan.scratch_bytes} bytes")
+        sk = sketch_encode(cfg, g)
+        sk_p = sketch_encode_plain(cfg, g)
+        err = float((sk - sk_p).abs().max())
+        lim = ENCODE_REL_TOL * float(sk_p.abs().max())
+        log(f"[kernels] sketch_encode {what} d={d}: max_abs_err {err:.4g} "
+            f"(limit {lim:.4g} = {ENCODE_REL_TOL} * max|S|)")
         if not err <= lim:
-            fail(f"sketch_encode small {dt} disagrees: {err} > {lim}")
-    d, R, W = g.shape[0], cfg.rows, cfg.width
-    sk = sketch_encode(cfg, g)
-    sk_p = sketch_encode_plain(cfg, g)
-    err = float((sk - sk_p).abs().max())
-    lim = ENCODE_REL_TOL * float(sk_p.abs().max())
-    log(f"[kernels] sketch_encode d={d}: max_abs_err {err:.4g} "
-        f"(limit {lim:.4g} = {ENCODE_REL_TOL} * max|S|)")
-    if not err <= lim:
-        fail(f"sketch_encode disagrees with its plain version: {err}")
-    ms = time_ms(torch, lambda: sketch_encode(cfg, g), reps=10)
-    plain_ms = time_ms(torch, lambda: sketch_encode_plain(cfg, g), reps=2)
-    del sk_p
+            fail(f"sketch_encode disagrees with its plain version at {what}: "
+                 f"{err}")
+        del sk_p
+        ms = time_ms(torch, lambda: sketch_encode(cfg, g), reps=10)
+        plain_ms = time_ms(torch, lambda: sketch_encode_plain(cfg, g), reps=2)
 
-    def ids_vals(lo, hi):
-        b, sg = cs.hash_buckets(cfg, torch.arange(lo, hi, device=device))
-        return b, sg * g[lo:hi]
+        def ids_vals(lo, hi):
+            bk, sg = cs.hash_buckets(cfg, torch.arange(lo, hi, device=device))
+            return bk, sg * g[lo:hi]
 
-    lib_ms, lib_out = _index_add_ms(torch, device, R, W, d, ids_vals)
-    log(f"[kernels] index_add_ yardstick vs kernel: max_abs_err "
-        f"{float((lib_out - sk).abs().max()):.4g}")
-    bound = bound_ms(d * g.element_size() + R * W * 4, d * R * 7.0)
-    return _row("sketch_encode", "src/repro_torch/csrc/sketch_encode.cu",
-                "src/repro/kernels/sketch_encode.py:87", err, ms, plain_ms,
-                bound, lib_ms), sk
+        lib_ms, lib_out = _index_add_ms(torch, device, R, W, d, ids_vals)
+        log(f"[kernels] index_add_ yardstick vs kernel at {what}: "
+            f"max_abs_err {float((lib_out - sk).abs().max()):.4g}")
+        del lib_out
+        bound = bound_ms(d * g.element_size() + R * W * 4, d * R * 7.0)
+        shapes.append({"shape": what, "d": d, "rows": R, "width": W,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound[0], "bound_by": bound[1],
+                       "library_ms": lib_ms})
+        if len(sketches) < len(buckets):
+            sketches.append(sk)
+    return _shapes_row("sketch_encode", "src/repro_torch/csrc/sketch_encode.cu",
+                       "src/repro/kernels/sketch_encode.py:87",
+                       shapes), sketches
 
 
 def _spiky(torch, gen, device, n, n_spikes):
@@ -262,11 +304,36 @@ def smoke_scores_checks(torch, device, gen):
             f" scores and est bit-equal; recovered idx equal")
 
 
-def scores_decode_checks(torch, device, gen, cfg, sk, d, k) -> list[dict]:
+def _decode_library_ms(torch, device, cfg, sk, d):
+    """Library yardstick of the decode: gather + sign + median over rows,
+    bucket ids and signs precomputed (not timed); R is odd here, so
+    torch.median's lower middle is the median. Returns (ms, its est)."""
+    from repro_torch.core import count_sketch as cs
+    R = cfg.rows
+    ids = torch.empty((R, d), dtype=torch.int64, device=device)
+    sgn = torch.empty((R, d), dtype=torch.float32, device=device)
+    for lo in range(0, d, 1 << 24):
+        hi = min(d, lo + (1 << 24))
+        ids[:, lo:hi], sgn[:, lo:hi] = cs.hash_buckets(
+            cfg, torch.arange(lo, hi, device=device))
+    lib = {}
+
+    def lib_call():
+        lib["est"] = torch.median(torch.gather(sk, 1, ids).mul_(sgn),
+                                  dim=0).values
+
+    ms = time_ms(torch, lib_call, reps=2)
+    del ids, sgn
+    torch.cuda.empty_cache()
+    return ms, lib["est"]
+
+
+def scores_decode_checks(torch, device, gen, buckets) -> list[dict]:
     """heavymix_scores and sketch_decode: small cases (offsets, R = 1, 4,
     5, 29, widths below 512), the smoke spec's buckets (the scores
-    kernel's path), then bucket 0, bit-equal to plain; the recovery's
-    indices against the plain HEAVYMIX; times."""
+    kernel's path), then every bucket of the main path (``buckets``: (cfg,
+    sketch, d, k) each), bit-equal to plain; the recovery's indices at
+    bucket 0 against the plain HEAVYMIX; times."""
     from repro_torch.core import count_sketch as cs
     from repro_torch.core.heavymix import topk_lower_index
     from repro_torch.kernels import ops, ref
@@ -294,6 +361,7 @@ def scores_decode_checks(torch, device, gen, cfg, sk, d, k) -> list[dict]:
             f" decode at offset {off} bit-equal")
     smoke_scores_checks(torch, device, gen)
 
+    cfg, sk, d, k = buckets[0]
     R, W = cfg.rows, cfg.width
     thr = cs.l2sq_estimate(sk) / k
     sc, est = heavymix_scores(cfg, sk, thr, d)
@@ -301,12 +369,7 @@ def scores_decode_checks(torch, device, gen, cfg, sk, d, k) -> list[dict]:
     hm_err = float((est - est_p).abs().max())
     if not (torch.equal(est, est_p) and torch.equal(sc, sc_p)):
         fail(f"heavymix_scores not bit-equal at d={d}: max err {hm_err}")
-    del sc, sc_p
-    dec = sketch_decode(cfg, sk, d)
-    dec_err = float((dec - est_p).abs().max())
-    if not torch.equal(dec, est_p):
-        fail(f"sketch_decode not bit-equal at d={d}: max err {dec_err}")
-    del est_p
+    del sc, sc_p, est, est_p
     # the main path's selection (ops.heavymix_recover: decode kernel and
     # top-k of |est| at this d) against the port's plain chunked HEAVYMIX
     idx = ops.heavymix_recover(cfg, sk, k, d)[0]
@@ -315,53 +378,51 @@ def scores_decode_checks(torch, device, gen, cfg, sk, d, k) -> list[dict]:
         fail("heavymix_recover selects other coordinates than the plain "
              f"HEAVYMIX: {int((idx != idx_p).sum())} of k={k} differ")
     log(f"[kernels] d={d}: heavymix_scores est and scores bit-equal; "
-        "sketch_decode est bit-equal; recovered idx equal to the plain "
-        "HEAVYMIX")
+        "recovered idx equal to the plain HEAVYMIX")
     del idx, idx_p
     hm_ms = time_ms(torch, lambda: heavymix_scores(cfg, sk, thr, d), reps=10)
     hm_plain_ms = time_ms(
         torch, lambda: heavymix_scores_plain(cfg, sk, thr, d), reps=2)
-    dec_ms = time_ms(torch, lambda: sketch_decode(cfg, sk, d), reps=10)
-    dec_plain_ms = time_ms(torch, lambda: sketch_decode_plain(cfg, sk, d),
-                           reps=2)
-    topk_ms = time_ms(torch, lambda: topk_lower_index(dec.abs(), k), reps=3)
-    log(f"[kernels] top-k of |est| with lower-index ties (outside the "
-        f"kernel) at d={d}, k={k}: {topk_ms:.3f} ms")
-    del est, dec
-    torch.cuda.empty_cache()
-
-    # library yardstick of the decode: gather + sign + median over rows,
-    # bucket ids and signs precomputed (not timed); R is odd here, so
-    # torch.median's lower middle is the median
-    ids = torch.empty((R, d), dtype=torch.int64, device=device)
-    sgn = torch.empty((R, d), dtype=torch.float32, device=device)
-    for lo in range(0, d, 1 << 24):
-        hi = min(d, lo + (1 << 24))
-        ids[:, lo:hi], sgn[:, lo:hi] = cs.hash_buckets(
-            cfg, torch.arange(lo, hi, device=device))
-    lib = {}
-
-    def lib_call():
-        lib["est"] = torch.median(torch.gather(sk, 1, ids).mul_(sgn),
-                                  dim=0).values
-
-    dec_lib_ms = time_ms(torch, lib_call, reps=2)
-    same = torch.equal(lib["est"], sketch_decode(cfg, sk, d))
-    log(f"[kernels] gather+median yardstick equal to the decode kernel: "
-        f"{same}")
-    del ids, sgn, lib
-    torch.cuda.empty_cache()
     ops_per = R * 6.0 + R * (R - 1)   # hashes + compare-exchanges
-    return [
-        _row("heavymix_scores", "src/repro_torch/csrc/heavymix_scores.cu",
-             "src/repro/kernels/heavymix_topk.py:91", hm_err, hm_ms,
-             hm_plain_ms, bound_ms(R * W * 4 + 4 + 2 * d * 4,
-                                   d * (ops_per + 4)), None),
-        _row("sketch_decode", "src/repro_torch/csrc/sketch_decode.cu",
-             "src/repro/kernels/sketch_decode.py:85", dec_err, dec_ms,
-             dec_plain_ms, bound_ms(R * W * 4 + d * 4, d * ops_per),
-             dec_lib_ms),
-    ]
+    hm_row = _row("heavymix_scores", "src/repro_torch/csrc/heavymix_scores.cu",
+                  "src/repro/kernels/heavymix_topk.py:91", hm_err, hm_ms,
+                  hm_plain_ms, bound_ms(R * W * 4 + 4 + 2 * d * 4,
+                                        d * (ops_per + 4)), None)
+
+    shapes = []
+    for b, (cfg, sk, d, k) in enumerate(buckets):
+        R, W = cfg.rows, cfg.width
+        log(f"[kernels] sketch_decode plan at bucket {b} (d={d}, R={R}, "
+            f"W={W}): one thread a coordinate, grid-stride, 256 threads, "
+            f"{min(-(-d // 256), 132 * 16)} CTAs")
+        dec = sketch_decode(cfg, sk, d)
+        dec_p = sketch_decode_plain(cfg, sk, d)
+        dec_err = float((dec - dec_p).abs().max())
+        if not torch.equal(dec, dec_p):
+            fail(f"sketch_decode not bit-equal at bucket {b} (d={d}): max "
+                 f"err {dec_err}")
+        del dec_p
+        log(f"[kernels] sketch_decode bucket {b} d={d}: est bit-equal")
+        dec_ms = time_ms(torch, lambda: sketch_decode(cfg, sk, d), reps=10)
+        dec_plain_ms = time_ms(torch, lambda: sketch_decode_plain(cfg, sk, d),
+                               reps=2)
+        topk_ms = time_ms(torch, lambda: topk_lower_index(dec.abs(), k),
+                          reps=3)
+        log(f"[kernels] top-k of |est| with lower-index ties (outside the "
+            f"kernel) at d={d}, k={k}: {topk_ms:.3f} ms")
+        lib_ms, lib_est = _decode_library_ms(torch, device, cfg, sk, d)
+        log(f"[kernels] gather+median yardstick equal to the decode kernel "
+            f"at bucket {b}: {torch.equal(lib_est, dec)}")
+        del dec, lib_est
+        torch.cuda.empty_cache()
+        bound = bound_ms(R * W * 4 + d * 4, d * ops_per)
+        shapes.append({"shape": f"bucket {b}", "d": d, "rows": R,
+                       "width": W, "max_abs_err": dec_err, "ms": dec_ms,
+                       "plain_ms": dec_plain_ms, "bound_ms": bound[0],
+                       "bound_by": bound[1], "library_ms": lib_ms})
+    return [hm_row, _shapes_row(
+        "sketch_decode", "src/repro_torch/csrc/sketch_decode.cu",
+        "src/repro/kernels/sketch_decode.py:85", shapes)]
 
 
 def ts_checks(torch, device, gen, cfg, g) -> dict:
@@ -418,17 +479,23 @@ def ts_checks(torch, device, gen, cfg, g) -> dict:
 
 
 def kernels_phase(torch, device, ts) -> list[dict]:
-    """Every kernel at bucket 0 of the full-width step, and small cases."""
+    """Every kernel at the full-width step's shapes (the encode and decode
+    at both buckets, the TS encode at bucket 0), and small cases."""
     gen = torch.Generator(device=device).manual_seed(1)
-    part = ts.compressor.parts[0]
-    d, cfg, k = ts.compressor.spec.sizes[0], part.sketch, part.k
-    log(f"[kernels] main-path shapes: d={d} R={cfg.rows} W={cfg.width} "
-        f"k={k}")
-    g = _spiky(torch, gen, device, d, k // 4)
-    enc, sk = encode_checks(torch, device, gen, cfg, g)
-    out = [enc] + scores_decode_checks(torch, device, gen, cfg, sk, d, k)
-    del sk
-    out.append(ts_checks(torch, device, gen, cfg, g))
+    parts, sizes = ts.compressor.parts, ts.compressor.spec.sizes
+    for b, (part, d) in enumerate(zip(parts, sizes)):
+        log(f"[kernels] main-path shapes, bucket {b}: d={d} "
+            f"R={part.sketch.rows} W={part.sketch.width} k={part.k}")
+    gs = [_spiky(torch, gen, device, d, part.k // 4)
+          for part, d in zip(parts, sizes)]
+    enc, sks = encode_checks(
+        torch, device, gen, [(p.sketch, g) for p, g in zip(parts, gs)])
+    out = [enc] + scores_decode_checks(
+        torch, device, gen, [(p.sketch, sk, d, p.k) for p, sk, d in
+                             zip(parts, sks, sizes)])
+    del sks
+    out.append(ts_checks(torch, device, gen, parts[0].sketch, gs[0]))
+    del gs
     for kr in out:
         log("[kernels] " + json.dumps({key: kr[key] for key in (
             "name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",

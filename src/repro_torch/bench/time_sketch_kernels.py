@@ -1,0 +1,118 @@
+"""Time the Count-Sketch encode and decode kernels on one card at the main
+cell's bucket sizes and at several sketch widths, and check them against
+their plain versions.
+
+    python src/repro_torch/bench/time_sketch_kernels.py [--src DIR]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
+this checkout's), so two trees can be compared in one run on the card:
+unpack the other tree (``git archive``) into a directory ``.gitignore``
+lists and run this script once for each, in turns.
+
+Shapes: the two gs-SGD buckets of the full-width qwen3-4b step that
+``chip_smoke.py`` drives (d and R from that step), each sketched at its own
+width (2^20, 2^19), at the CLI's default ``SketchSpec`` width (16,384) and
+at the smoke spec's width (512): from hundreds of 32 KB tiles down to one.
+The decode is timed at the step's own widths. g is ``chip_smoke._spiky``;
+the timing (``chip_smoke.time_ms``, 10 calls after a warm-up) and the
+encode's tolerance (``ENCODE_REL_TOL`` * max|S|; the decode bit-equal) are
+``chip_smoke.py``'s. Prints one JSON line per (kernel, width, bucket); with
+``--breakdown`` also the device time of each CUDA kernel one call launches
+(``torch.profiler``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+
+
+def breakdown(torch, fn) -> dict:
+    """Device microseconds per kernel name over one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            out[e.key[:80]] = {"us": us, "calls": e.count}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--breakdown", action="store_true")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("time_sketch_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs_
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.api import SketchSpec
+    from repro_torch.core import count_sketch as cs
+    from repro_torch.kernels.sketch_decode import (sketch_decode,
+                                                   sketch_decode_plain)
+    from repro_torch.kernels.sketch_encode import (sketch_encode,
+                                                   sketch_encode_plain)
+    card = cs_.card_line()
+    dev = torch.device("cuda")
+    _, _, ts = cs_.full_width_step(torch, dev)
+    parts, sizes = ts.compressor.parts, ts.compressor.spec.sizes
+    widths = (None, SketchSpec().width,
+              cs_.smoke_spec().exchange.sketch.width)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ok = True
+    for b, (part, d) in enumerate(zip(parts, sizes)):
+        g = cs_._spiky(torch, gen, dev, d, part.k // 4)
+        for width in widths:
+            cfg = part.sketch if width is None else cs.SketchConfig(
+                rows=part.sketch.rows, width=width, seed=part.sketch.seed)
+            sk = sketch_encode(cfg, g)
+            want = sketch_encode_plain(cfg, g)
+            err = float((sk - want).abs().max())
+            lim = cs_.ENCODE_REL_TOL * float(want.abs().max())
+            del want
+            ok = ok and err <= lim
+            fns = [("sketch_encode", lambda: sketch_encode(cfg, g),
+                    {"max_abs_err": err, "limit": lim, "ok": err <= lim})]
+            if width is None:
+                est = sketch_decode(cfg, sk, d)
+                equal = torch.equal(est, sketch_decode_plain(cfg, sk, d))
+                del est
+                ok = ok and equal
+                fns.append(("sketch_decode",
+                            lambda: sketch_decode(cfg, sk, d),
+                            {"bit_equal": equal}))
+            for name, fn, check in fns:
+                if args.breakdown:
+                    print(json.dumps({"tag": args.tag, "kernel": name,
+                                      "bucket": b, "width": cfg.width,
+                                      "breakdown_us": breakdown(torch, fn)}),
+                          flush=True)
+                ms = cs_.time_ms(torch, fn, reps=10)
+                print(json.dumps({"tag": args.tag, "kernel": name,
+                                  "bucket": b, "d": d, "rows": cfg.rows,
+                                  "width": cfg.width, "ms": ms, **check,
+                                  "card": card}), flush=True)
+            del sk
+        del g
+        torch.cuda.empty_cache()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,8 +16,16 @@
 // the same grid-stride loop, hash parameters in shared memory, and
 // sketch_common.cuh's gather and register median network over 8 or 32
 // slots. It writes est only.
-// Bound: writing d * 4 bytes of est plus reading the L2-resident (R, W)
-// sketch once; the R gathers per coordinate are random 4-byte L2 reads.
+// Bound: writing d * 4 bytes of est plus reading the (R, W) sketch once
+// (0.47 ms at the main cell's bucket 0 on an H100). What holds it at
+// ~14.7 ms there is the d * R random 4-byte gathers from the L2-resident
+// sketch (~133 G/s). A redesign that holds the sketch in the shared memory
+// of 8-CTA clusters (a slice of a row each), reads it through
+// ld.shared::cluster into vals[r, j] and takes the median in a second pass
+// was measured and lost (src/repro_torch/bench/sketch_memory_probe.cu,
+// probe g; PERF.md): 28.7 ms against 14.7 ms at bucket 0, 14.7 against
+// 7.6 ms at bucket 1, because a remote shared-memory load runs at 84 G/s
+// and the scattered vals stores at ~118 G/s, both below the L2 gathers.
 
 #include "sketch_common.cuh"
 

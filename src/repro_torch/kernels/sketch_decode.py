@@ -10,8 +10,10 @@ shares with the HEAVYMIX scores kernel (``csrc/sketch_common.cuh``):
     est[j] = median_r sign_r(i) * S[r, h_r(i)],  i = (offset + j) mod 2^32
 
 Bound on the H100: writing ``est`` (4 * d bytes) plus one read of the
-(R, W) sketch, over 3.35 TB/s. The kernel gathers and sorts the same
-values as the plain version, so ``est`` is bit-equal to it.
+(R, W) sketch, over 3.35 TB/s; the random L2 gathers hold it far above
+that, and holding the sketch in cluster shared memory instead was
+measured slower (see the source note). The kernel gathers and sorts the
+same values as the plain version, so ``est`` is bit-equal to it.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ a card; on one, run them with
 (``--noconftest``: the shared conftest imports JAX, which the port's card
 machine does not need.)
 
-Tolerances: the encode kernel adds with f32 atomics in a run-dependent
-order, so it is held to the plain version at 1e-4 * max|S|; the scores
+Tolerances: the encode kernel bins and adds with shared-memory atomics in
+a run-dependent order, so it is held to the plain version at
+1e-4 * max|S|; the scores
 and decode kernels gather and sort the same values as the plain version,
 so their estimates and scores must be bit-equal. The TS encode kernel
 adds each bucket's contributors in a fixed order (bit-reproducible run to
@@ -44,9 +45,15 @@ def card():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("d,rows,width,offset", [(2000, 3, 512, 0),
-                                                 (1537, 5, 256, 4099),
-                                                 (1 << 20, 5, 1 << 14, 7)])
+@pytest.mark.parametrize("d,rows,width,offset", [
+    (2000, 3, 512, 0), (1537, 5, 256, 4099), (1 << 20, 5, 1 << 14, 7),
+    (5001, 1, 256, 2**32 - 2500),        # one tile; indices wrap past 2^32
+    (20_000, 29, 1 << 12, 2**32 - 7000),  # several rows a tile
+    (20_000, 64, 1 << 12, 3),             # the most rows the kernel takes
+    (300_000, 5, 1 << 20, 2**32 - 5),     # 128 tiles a row
+    ((1 << 25) + 4099, 5, 1 << 12, 11),   # two binning passes
+    (1 << 22, 3, 512, 2**32 - 100),       # one tile, 396 CTAs add to it
+    (5_000_000, 29, 1 << 20, 2**32 - 9)])  # passes cut to the scratch bound
 def test_encode_kernel_matches_plain(card, dtype, d, rows, width, offset):
     cfg = cs.SketchConfig(rows=rows, width=width, seed=3)
     gen = torch.Generator(device=card).manual_seed(d)
@@ -58,6 +65,22 @@ def test_encode_kernel_matches_plain(card, dtype, d, rows, width, offset):
     assert got.shape == (rows, cfg.width) and got.dtype == torch.float32
     err = float((got - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("rows,width", [(1, 256), (5, 1 << 20)])
+def test_encode_kernel_writes_every_bucket(card, rows, width):
+    """With one accumulating CTA a tile the output is not zeroed: every
+    bucket is written by its tile's CTA even where no element lands (a
+    NaN-filled block handed back by the allocator must not show through).
+    With several (one tile here), they add into zeros."""
+    cfg = cs.SketchConfig(rows=rows, width=width, seed=1)
+    junk = torch.full((rows, cfg.width), float("nan"), device=card)
+    del junk
+    g = torch.zeros(4096, device=card)
+    g[7] = 1.5
+    got = sketch_encode(cfg, g)
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, sketch_encode_plain(cfg, g))
 
 
 @pytest.mark.parametrize("rows", [1, 4, 5, 16, 17, 29])
