@@ -11,17 +11,24 @@ Phases (any failure exits non-zero and prints no result line):
                 ``nvcc`` (one process per source, all started together) and
                 load them.
 2. kernels   — call each kernel's wrapper on the card at the shapes the
-                full-width step gives it (the encode and decode at both
-                buckets, with their launch geometry, and the encode also at
-                the CLI's default sketch width; the others at bucket 0)
-                plus small odd cases, hold it against its plain PyTorch
-                version, and time kernel, plain version, library yardstick
-                and bound.
+                full-width step gives it (the encode, the decode with and
+                without its first-digit histogram and the top-k select at
+                both buckets, with their launch geometry, and the encode
+                also at the CLI's default sketch width; the others at
+                bucket 0) plus small odd cases and a scores-regime case
+                whose heavy set far outnumbers k, hold it against its plain
+                PyTorch version, and time kernel, plain version, library
+                yardstick and bound; the recovery's old route (decode +
+                ``topk_lower_index``) against its new one (decode with
+                histogram + select), and one recovery under
+                ``torch.cuda.set_sync_debug_mode("error")``.
 3. train     — the main path: three gs-SGD steps of qwen3-4b at its
                 published widths (depth cut to 2 layers), P=2 workers,
                 buckets=2, psum, AdamW, SketchSpec(rows=5, width=None,
                 k=None). Both buckets are past 2^22 coordinates, so the
-                recovery runs the decode kernel, not the scores kernel.
+                recovery runs the decode kernel (with its histogram) and
+                the select, not the scores kernel; the select launches once
+                per recovery: 12 times.
 4. profile   — one more full-width step under ``torch.profiler``: device
                 time per span (loss_and_grad / encode / allreduce / recover
                 / optimizer; each device event counted once, in the span
@@ -34,7 +41,8 @@ Phases (any failure exits non-zero and prints no result line):
 6. parity    — two steps of examples/specs/qwen3_smoke.json on the card
                 (kernels) and on the CPU (plain versions) from the same
                 params and batches: losses and selected coordinates agree.
-                Its buckets are below 2^22: the scores kernel's path.
+                Its buckets are below 2^22: the scores kernel's path (with
+                its histogram, then the select).
 7. baselines — every compressor of the registry, two smoke-spec steps on the
                 card and on the CPU from the same params and batches.
 8. cli       — ``python -m repro_torch.launch.train --spec
@@ -119,12 +127,13 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
 
 def build_phase(torch):
     from repro_torch.kernels import (build, heavymix_topk, sketch_decode,
-                                     sketch_encode, ts_encode)
+                                     sketch_encode, topk_select, ts_encode)
     names = ("sketch_encode", "heavymix_scores", "sketch_decode",
-             "ts_encode")
+             "ts_encode", "topk_select")
     t0 = time.time()
     logs = build.build_all(names)
-    for mod in (sketch_encode, heavymix_topk, sketch_decode, ts_encode):
+    for mod in (sketch_encode, heavymix_topk, sketch_decode, ts_encode,
+                topk_select):
         mod._lib()
     log(f"[build] {len(names)} kernels built and loaded in "
         f"{time.time() - t0:.1f} s (nvcc {build.nvcc_path()})")
@@ -274,34 +283,75 @@ def _spiky(torch, gen, device, n, n_spikes):
     return g
 
 
+def check_select(torch, what, key, k, hist):
+    """topk_select of ``key`` (with the kernel's first-digit histogram)
+    against ``topk_lower_index(|key|, k)``: idx equal as returned, values
+    bit-equal. Returns the largest value difference (0)."""
+    from repro_torch.core.heavymix import topk_lower_index
+    from repro_torch.kernels.topk_select import topk_select
+    v, i = topk_select(key, k, hist)
+    v_o, i_o = topk_lower_index(key.abs(), k)
+    if not torch.equal(i, i_o):
+        fail(f"topk_select at {what} (k={k}) selects other indices than "
+             f"topk_lower_index: {int((i != i_o).sum())} of {k} differ")
+    if not torch.equal(v.view(torch.int32), v_o.view(torch.int32)):
+        fail(f"topk_select at {what}: values not bit-equal")
+    return float((v - v_o).abs().max())
+
+
+def check_scores_hist(torch, what, c, s, thr, n):
+    """heavymix_scores with its histogram: scores and est bit-equal to
+    plain, histogram equal to the plain one of the same scores. Returns
+    (scores, est, hist, max |est - plain est|)."""
+    from repro_torch.kernels.heavymix_topk import (heavymix_scores_hist,
+                                                   heavymix_scores_plain)
+    from repro_torch.kernels.topk_select import radix_hist_plain
+    sc, est, hist = heavymix_scores_hist(c, s, thr, n)
+    sc_p, est_p = heavymix_scores_plain(c, s, thr, n)
+    est_err = float((est - est_p).abs().max())
+    if not (torch.equal(est, est_p) and torch.equal(sc, sc_p)):
+        fail(f"heavymix_scores at {what} (d={n}, R={c.rows}, W={c.width}) "
+             f"disagrees: max est err {est_err}")
+    if not torch.equal(hist, radix_hist_plain(sc_p)):
+        fail(f"heavymix_scores' histogram at {what} differs from the plain "
+             "histogram of the same scores")
+    return sc, est, hist, est_err
+
+
 def smoke_scores_checks(torch, device, gen):
     """heavymix_scores at the shapes its own path (parity, cli: the smoke
     spec, every bucket below 2^22) gives it, each bucket with its own k
-    and threshold: est and scores bit-equal to plain, and the recovery's
-    indices equal to the plain HEAVYMIX's."""
+    and threshold, then a scores-regime case whose heavy set outnumbers k
+    many times over (all those keys tie at 1e30): est, scores and the
+    fused histogram equal to plain, the select's idx and values equal to
+    ``topk_lower_index``'s, and the recovery's indices equal to the plain
+    HEAVYMIX's."""
     from repro_torch.core import count_sketch as cs
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.heavymix_topk import (heavymix_scores,
-                                                   heavymix_scores_plain)
     from repro_torch.kernels.sketch_encode import sketch_encode_plain
     from repro_torch.launch import train as ttrain
     comp = ttrain.build(smoke_spec(), device)[3].compressor
-    for i, (part, n) in enumerate(zip(comp.parts, comp.spec.sizes)):
-        c, k = part.sketch, part.k
+    cases = [(f"smoke bucket {i}", part.sketch, part.k, n) for i, (part, n)
+             in enumerate(zip(comp.parts, comp.spec.sizes))]
+    cases.append(("heavy set >> k", cs.SketchConfig(rows=5, width=1024,
+                                                    seed=9), 2048,
+                  (1 << 22) - 1))
+    for what, c, k, n in cases:
         s = sketch_encode_plain(c, _spiky(torch, gen, device, n, k // 4))
         thr = cs.l2sq_estimate(s) / k
-        sc, est = heavymix_scores(c, s, thr, n)
-        sc_p, est_p = heavymix_scores_plain(c, s, thr, n)
-        if not (torch.equal(est, est_p) and torch.equal(sc, sc_p)):
-            fail(f"heavymix_scores at smoke bucket {i} (d={n}, R={c.rows}, "
-                 f"W={c.width}, k={k}) disagrees: max est err "
-                 f"{float((est - est_p).abs().max())}")
+        sc, est, hist, _ = check_scores_hist(torch, what, c, s, thr, n)
+        n_heavy = int((sc >= 1e30).sum())
+        if what.startswith("heavy") and not n_heavy > 10 * k:
+            fail(f"{what}: only {n_heavy} heavy coordinates for k={k}")
+        check_select(torch, what, sc, k, hist)
         idx = ops.heavymix_recover(c, s, k, n)[0]
         if not torch.equal(idx, ref.heavymix_recover(c, s, k, n)[0]):
-            fail(f"heavymix_recover at smoke bucket {i} selects other "
-                 "coordinates than the plain HEAVYMIX")
-        log(f"[kernels] smoke bucket {i} d={n} R={c.rows} W={c.width} k={k}:"
-            f" scores and est bit-equal; recovered idx equal")
+            fail(f"heavymix_recover at {what} selects other coordinates "
+                 "than the plain HEAVYMIX")
+        log(f"[kernels] {what} d={n} R={c.rows} W={c.width} k={k} "
+            f"({n_heavy} heavy): scores, est and histogram equal to plain; "
+            "select idx and values equal to topk_lower_index's; recovered "
+            "idx equal")
 
 
 def _decode_library_ms(torch, device, cfg, sk, d):
@@ -329,100 +379,157 @@ def _decode_library_ms(torch, device, cfg, sk, d):
 
 
 def scores_decode_checks(torch, device, gen, buckets) -> list[dict]:
-    """heavymix_scores and sketch_decode: small cases (offsets, R = 1, 4,
-    5, 29, widths below 512), the smoke spec's buckets (the scores
-    kernel's path), then every bucket of the main path (``buckets``: (cfg,
-    sketch, d, k) each), bit-equal to plain; the recovery's indices at
-    bucket 0 against the plain HEAVYMIX; times."""
+    """heavymix_scores, sketch_decode and topk_select: small cases
+    (offsets, R = 1, 4, 5, 29, widths below 512), the smoke spec's buckets
+    and a heavy-set case (the scores kernel's path), then every bucket of
+    the main path (``buckets``: (cfg, sketch, d, k) each): outputs
+    bit-equal to plain, fused histograms equal to plain, the select equal
+    to ``topk_lower_index``; the recovery's indices at bucket 0 against
+    the plain HEAVYMIX, once under ``set_sync_debug_mode("error")``;
+    times."""
     from repro_torch.core import count_sketch as cs
     from repro_torch.core.heavymix import topk_lower_index
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.heavymix_topk import (heavymix_scores,
+    from repro_torch.kernels.heavymix_topk import (heavymix_scores_hist,
                                                    heavymix_scores_plain)
     from repro_torch.kernels.sketch_decode import (sketch_decode,
+                                                   sketch_decode_hist,
                                                    sketch_decode_plain)
     from repro_torch.kernels.sketch_encode import sketch_encode_plain
+    from repro_torch.kernels.topk_select import (radix_hist_plain,
+                                                 topk_select,
+                                                 topk_select_plain)
     for rows, n, width, off in ((1, 3000, 512, 0), (4, 3000, 300, 4099),
                                 (5, 3001, 512, 4099), (29, 5000, 200, 17)):
         c = cs.SketchConfig(rows=rows, width=width, seed=rows)
         x = torch.randn(n, generator=gen, device=device)
         s = sketch_encode_plain(c, x)
         thr = cs.l2sq_estimate(s) / 40
-        sc, est = heavymix_scores(c, s, thr, n)
-        sc_p, est_p = heavymix_scores_plain(c, s, thr, n)
-        if not (torch.equal(est, est_p) and torch.equal(sc, sc_p)):
-            fail(f"heavymix_scores small R={rows} disagrees: max err "
-                 f"{float((est - est_p).abs().max())}")
+        check_scores_hist(torch, f"small R={rows}", c, s, thr, n)
         e = sketch_decode(c, s, n, index_offset=off)
         if not torch.equal(e, sketch_decode_plain(c, s, n, off)):
             fail(f"sketch_decode small R={rows} W={c.width} off={off} "
                  "disagrees with its plain version")
-        log(f"[kernels] small R={rows} W={c.width} d={n}: scores bit-equal;"
-            f" decode at offset {off} bit-equal")
+        log(f"[kernels] small R={rows} W={c.width} d={n}: scores and est "
+            f"bit-equal, histogram equal; decode at offset {off} bit-equal")
     smoke_scores_checks(torch, device, gen)
 
     cfg, sk, d, k = buckets[0]
     R, W = cfg.rows, cfg.width
     thr = cs.l2sq_estimate(sk) / k
-    sc, est = heavymix_scores(cfg, sk, thr, d)
-    sc_p, est_p = heavymix_scores_plain(cfg, sk, thr, d)
-    hm_err = float((est - est_p).abs().max())
-    if not (torch.equal(est, est_p) and torch.equal(sc, sc_p)):
-        fail(f"heavymix_scores not bit-equal at d={d}: max err {hm_err}")
-    del sc, sc_p, est, est_p
-    # the main path's selection (ops.heavymix_recover: decode kernel and
-    # top-k of |est| at this d) against the port's plain chunked HEAVYMIX
+    sc, est, _, hm_err = check_scores_hist(torch, f"bucket 0's d={d}", cfg,
+                                           sk, thr, d)
+    del sc, est
+    # the main path's selection (ops.heavymix_recover: the decode kernel
+    # with its histogram and the select at this d) against the port's plain
+    # chunked HEAVYMIX, then once more with any host sync an error
     idx = ops.heavymix_recover(cfg, sk, k, d)[0]
     idx_p = ref.heavymix_recover(cfg, sk, k, d)[0]
     if not torch.equal(idx, idx_p):
         fail("heavymix_recover selects other coordinates than the plain "
              f"HEAVYMIX: {int((idx != idx_p).sum())} of k={k} differ")
-    log(f"[kernels] d={d}: heavymix_scores est and scores bit-equal; "
-        "recovered idx equal to the plain HEAVYMIX")
-    del idx, idx_p
-    hm_ms = time_ms(torch, lambda: heavymix_scores(cfg, sk, thr, d), reps=10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx_s = ops.heavymix_recover(cfg, sk, k, d)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.equal(idx_s, idx_p):
+        fail("heavymix_recover under set_sync_debug_mode differs")
+    log(f"[kernels] d={d}: heavymix_scores est, scores and histogram equal "
+        "to plain; recovered idx equal to the plain HEAVYMIX; a recovery "
+        "under set_sync_debug_mode('error') raised nothing")
+    del idx, idx_p, idx_s
+    hm_ms = time_ms(torch, lambda: heavymix_scores_hist(cfg, sk, thr, d),
+                    reps=10)
     hm_plain_ms = time_ms(
         torch, lambda: heavymix_scores_plain(cfg, sk, thr, d), reps=2)
+    log(f"[kernels] heavymix_scores (with its histogram) at d={d}: "
+        f"{hm_ms:.3f} ms, max est err {hm_err}")
     ops_per = R * 6.0 + R * (R - 1)   # hashes + compare-exchanges
     hm_row = _row("heavymix_scores", "src/repro_torch/csrc/heavymix_scores.cu",
                   "src/repro/kernels/heavymix_topk.py:91", hm_err, hm_ms,
-                  hm_plain_ms, bound_ms(R * W * 4 + 4 + 2 * d * 4,
+                  hm_plain_ms, bound_ms(R * W * 4 + 4 + 2 * d * 4 + 2048 * 4,
                                         d * (ops_per + 4)), None)
 
-    shapes = []
+    dec_shapes, sel_shapes = [], []
     for b, (cfg, sk, d, k) in enumerate(buckets):
         R, W = cfg.rows, cfg.width
         log(f"[kernels] sketch_decode plan at bucket {b} (d={d}, R={R}, "
             f"W={W}): one thread a coordinate, grid-stride, 256 threads, "
             f"{min(-(-d // 256), 132 * 16)} CTAs")
-        dec = sketch_decode(cfg, sk, d)
+        est, hist = sketch_decode_hist(cfg, sk, d)
         dec_p = sketch_decode_plain(cfg, sk, d)
-        dec_err = float((dec - dec_p).abs().max())
-        if not torch.equal(dec, dec_p):
+        dec_err = float((est - dec_p).abs().max())
+        if not torch.equal(est, dec_p):
             fail(f"sketch_decode not bit-equal at bucket {b} (d={d}): max "
                  f"err {dec_err}")
+        if not torch.equal(hist, radix_hist_plain(dec_p)):
+            fail(f"sketch_decode's histogram at bucket {b} differs from the "
+                 "plain histogram of the same est")
         del dec_p
-        log(f"[kernels] sketch_decode bucket {b} d={d}: est bit-equal")
-        dec_ms = time_ms(torch, lambda: sketch_decode(cfg, sk, d), reps=10)
+        log(f"[kernels] sketch_decode bucket {b} d={d}: est bit-equal, "
+            f"histogram equal to plain ({int((hist > 0).sum())} of 2048 bins "
+            "used)")
+        sel_err = check_select(torch, f"bucket {b}", est, k, hist)
+        log(f"[kernels] topk_select bucket {b} d={d} k={k}: idx equal to "
+            "topk_lower_index's, values bit-equal")
+        dech_ms = time_ms(torch, lambda: sketch_decode_hist(cfg, sk, d),
+                          reps=10)
         dec_plain_ms = time_ms(torch, lambda: sketch_decode_plain(cfg, sk, d),
                                reps=2)
-        topk_ms = time_ms(torch, lambda: topk_lower_index(dec.abs(), k),
+        sel_ms = time_ms(torch, lambda: topk_select(est, k, hist), reps=10)
+        sel_plain_ms = time_ms(
+            torch, lambda: topk_select_plain(est, k, hist), reps=2)
+        topk_ms = time_ms(torch, lambda: topk_lower_index(est.abs(), k),
                           reps=3)
-        log(f"[kernels] top-k of |est| with lower-index ties (outside the "
-            f"kernel) at d={d}, k={k}: {topk_ms:.3f} ms")
+        key = est.abs()
+        lib_topk_ms = time_ms(torch, lambda: torch.topk(key, k, sorted=False),
+                              reps=3)
+        del key
+
+        def old_route():
+            e = sketch_decode(cfg, sk, d)
+            return topk_lower_index(e.abs(), k)
+
+        def new_route():
+            e, h = sketch_decode_hist(cfg, sk, d)
+            return topk_select(e, k, h)
+
+        old_ms = time_ms(torch, old_route, reps=3)
+        new_ms = time_ms(torch, new_route, reps=3)
+        log(f"[kernels] bucket {b} (d={d}, k={k}): decode with histogram "
+            f"{dech_ms:.3f} ms; select {sel_ms:.3f} ms; "
+            f"topk_lower_index of |est| {topk_ms:.3f} ms; torch.topk "
+            f"(sorted=False) {lib_topk_ms:.3f} ms; old route (decode + "
+            f"topk_lower_index) {old_ms:.3f} ms, new route (decode with "
+            f"histogram + select) {new_ms:.3f} ms")
         lib_ms, lib_est = _decode_library_ms(torch, device, cfg, sk, d)
         log(f"[kernels] gather+median yardstick equal to the decode kernel "
-            f"at bucket {b}: {torch.equal(lib_est, dec)}")
-        del dec, lib_est
+            f"at bucket {b}: {torch.equal(lib_est, est)}")
+        del est, hist, lib_est
         torch.cuda.empty_cache()
-        bound = bound_ms(R * W * 4 + d * 4, d * ops_per)
-        shapes.append({"shape": f"bucket {b}", "d": d, "rows": R,
-                       "width": W, "max_abs_err": dec_err, "ms": dec_ms,
-                       "plain_ms": dec_plain_ms, "bound_ms": bound[0],
-                       "bound_by": bound[1], "library_ms": lib_ms})
-    return [hm_row, _shapes_row(
-        "sketch_decode", "src/repro_torch/csrc/sketch_decode.cu",
-        "src/repro/kernels/sketch_decode.py:85", shapes)]
+        bound = bound_ms(R * W * 4 + d * 4 + 2048 * 4, d * ops_per)
+        dec_shapes.append({"shape": f"bucket {b}", "d": d, "rows": R,
+                           "width": W, "max_abs_err": dec_err, "ms": dech_ms,
+                           "plain_ms": dec_plain_ms, "bound_ms": bound[0],
+                           "bound_by": bound[1], "library_ms": lib_ms})
+        # read the keys and the histogram once, write k int64 indices and
+        # k f32 values; one compare a key per digit pass
+        bound = bound_ms(d * 4 + 2048 * 4 + k * 12, d * 3.0)
+        sel_shapes.append({"shape": f"bucket {b}", "d": d, "k": k,
+                           "max_abs_err": sel_err, "ms": sel_ms,
+                           "plain_ms": sel_plain_ms, "bound_ms": bound[0],
+                           "bound_by": bound[1], "library_ms": lib_topk_ms,
+                           "topk_lower_index_ms": topk_ms,
+                           "old_route_ms": old_ms, "new_route_ms": new_ms})
+    return [hm_row,
+            _shapes_row("sketch_decode",
+                        "src/repro_torch/csrc/sketch_decode.cu",
+                        "src/repro/kernels/sketch_decode.py:85", dec_shapes),
+            _shapes_row("topk_select", "src/repro_torch/csrc/topk_select.cu",
+                        "jax.lax.top_k, src/repro/core/heavymix.py:65,88,93",
+                        sel_shapes)]
 
 
 def ts_checks(torch, device, gen, cfg, g) -> dict:
@@ -706,7 +813,8 @@ def parity_phase(torch, card="cuda") -> dict:
         for i, (x, y) in enumerate(zip(a, b)):
             if not torch.equal(x == 0, (y == 0).cpu()):
                 fail(f"selected coordinates differ at step {s} bucket {i}")
-    check_launches("parity", counts, ("sketch_encode", "heavymix_scores"),
+    check_launches("parity", counts, ("sketch_encode", "heavymix_scores",
+                                      "topk_select"),
                    ("sketch_decode", "ts_encode"))
     log("[parity] losses within rtol "
         f"{PARITY_LOSS_RTOL}; selected coordinates equal every step")
@@ -779,8 +887,15 @@ def main() -> int:
     log(f"[kernels] phase took {time.time() - t0:.1f} s")
     t0 = time.time()
     state, stream, counts, _ = train_phase(torch, cfg, opt, ts)
-    check_launches("train", counts, ("sketch_encode", "sketch_decode"),
+    check_launches("train", counts, ("sketch_encode", "sketch_decode",
+                                     "topk_select"),
                    ("heavymix_scores", "ts_encode"))
+    recoveries = TRAIN_P * ts.n_buckets * TRAIN_STEPS
+    if counts["topk_select"] != recoveries:
+        fail(f"topk_select launched {counts['topk_select']} times on the "
+             f"train path, not once per recovery ({recoveries})")
+    log(f"[train] topk_select launches {counts['topk_select']} = "
+        f"{TRAIN_P} workers x {ts.n_buckets} buckets x {TRAIN_STEPS} steps")
     log(f"[train] phase took {time.time() - t0:.1f} s")
     state = profile_phase(torch, ts, state, stream)
     del state
@@ -790,7 +905,8 @@ def main() -> int:
     state, stream, ts_counts, _ = train_phase(torch, cfg, opt, ts_step,
                                               tag="train_ts")
     check_launches("train_ts", ts_counts, ("ts_encode",),
-                   ("sketch_encode", "sketch_decode", "heavymix_scores"))
+                   ("sketch_encode", "sketch_decode", "heavymix_scores",
+                    "topk_select"))
     log(f"[train_ts] phase took {time.time() - t0:.1f} s")
     state = profile_phase(torch, ts_step, state, stream, tag="profile_ts")
     del state, ts_step
@@ -799,7 +915,8 @@ def main() -> int:
     parity_counts = parity_phase(torch)
     log(f"[parity] phase took {time.time() - t0:.1f} s")
     launches = {"sketch_encode": counts, "sketch_decode": counts,
-                "ts_encode": ts_counts, "heavymix_scores": parity_counts}
+                "topk_select": counts, "ts_encode": ts_counts,
+                "heavymix_scores": parity_counts}
     for kr in kernels:
         kr["launches"] = launches[kr["name"]][kr["name"]]
     t0 = time.time()

@@ -18,12 +18,17 @@
 //   g  the decode design D2 (sketch slices in 8-CTA clusters' shared
 //      memory, ld.shared::cluster into vals[r, j], then a median pass)
 //      against the direct decode, both bucket shapes, est bit for bit
+//   h  random 4-byte gathers from the L2-resident sketch (20 MiB at bucket
+//      0, 10 MiB at bucket 1) with 1, 2 and 4 coordinates a thread in
+//      flight (all their R gathers issued before any is used): the gathers
+//      alone, and the whole direct decode (median, est written), est bit
+//      for bit against one coordinate a thread
 //
 // Build and run on the card (prints one JSON object a line):
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o build/sketch_memory_probe src/repro_torch/bench/sketch_memory_probe.cu
-//   build/sketch_memory_probe [PROBES]     (PROBES: letters, default abcdefg)
+//   build/sketch_memory_probe [PROBES]     (PROBES: letters, default abcdefgh)
 //
 // Each rate is the mean over several timed launches (CUDA events) after a
 // warm-up launch.
@@ -353,6 +358,53 @@ __global__ void d2_median(const float* __restrict__ vals, int rows, int64_t n,
   }
 }
 
+// ---------------------------------------------------------------- h
+// C coordinates a thread in flight: j0, j0 + stride, ... The C * R
+// gathers are all issued before any is used. mode 0: the gathers alone
+// (summed into one word a thread, so none is dropped); mode 1: the direct
+// decode (the median of each coordinate written to est).
+template <int C>
+__global__ void gather_mlp(const float* __restrict__ sk, int64_t width,
+                           const uint32_t* __restrict__ hp, int rows,
+                           int shift, int64_t d, int mode,
+                           float* __restrict__ est) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  float acc = 0.0f;
+  for (int64_t j0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j0 < d;
+       j0 += stride * C) {
+    float v[C][8];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int64_t j = j0 + c * stride;
+      const uint32_t i = (uint32_t)j;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r < rows && j < d) {
+          const uint32_t hb = hp[4 * r] * i + hp[4 * r + 1];
+          const uint32_t hs = hp[4 * r + 2] * i + hp[4 * r + 3];
+          const float x = sk[r * width + (hb >> shift)];
+          v[c][r] = (hs >> 31) ? -x : x;
+        } else {
+          v[c][r] = INFINITY;
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int64_t j = j0 + c * stride;
+      if (mode == 0) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          if (r < rows && j < d) acc += v[c][r];
+        }
+      } else if (j < d) {
+        est[j] = median8(v[c], rows);
+      }
+    }
+  }
+  if (mode == 0) est[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+
 __global__ void count_unequal(const float* a, const float* b, int64_t n,
                               unsigned long long* bad) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -434,7 +486,7 @@ int active_clusters(K kernel, int cs, int threads, size_t smem) {
 
 int main(int argc, char** argv) {
   // argv[1]: the probes to run (default all), e.g. "bc"
-  const char* only = argc > 1 ? argv[1] : "abcdefg";
+  const char* only = argc > 1 ? argv[1] : "abcdefgh";
   auto want = [&](char c) { return strchr(only, c) != nullptr; };
   int dev = 0, sms = 0, clk_khz = 0;
   CK(cudaSetDevice(dev));
@@ -724,6 +776,76 @@ int main(int argc, char** argv) {
       CK(cudaFree(est));
       CK(cudaFree(ref));
       CK(cudaFree(vals));
+    }
+    CK(cudaFree(hp));
+    CK(cudaFree(bad));
+  }
+  // h: the gathers' memory-level parallelism, both bucket shapes
+  if (want('h')) {
+    const int rows = 5;
+    const struct { int64_t d; int log2w; } shapes[] = {{388956160, 20},
+                                                       {201864704, 19}};
+    uint32_t hp_h[4 * rows];
+    uint32_t st = 12345u;
+    for (int t = 0; t < 4 * rows; ++t) {
+      st = st * 1664525u + 1013904223u;
+      hp_h[t] = mix(st) | ((t % 2 == 0) ? 1u : 0u);
+    }
+    uint32_t* hp;
+    CK(cudaMalloc(&hp, sizeof(hp_h)));
+    CK(cudaMemcpy(hp, hp_h, sizeof(hp_h), cudaMemcpyHostToDevice));
+    unsigned long long* bad;
+    CK(cudaMalloc(&bad, 8));
+    for (auto& sh : shapes) {
+      const int64_t width = 1ll << sh.log2w, d = sh.d;
+      const int shift = 32 - sh.log2w, grid = sms * 16, reps = 3;
+      float *sk, *est, *ref;
+      CK(cudaMalloc(&sk, rows * width * 4));
+      CK(cudaMalloc(&est, d * 4));
+      CK(cudaMalloc(&ref, d * 4));
+      fill_random<<<sms * 8, 256>>>(sk, rows * width, 7u);
+      direct_decode<<<grid, 256>>>(sk, width, hp, rows, shift, d, ref);
+      CK(cudaDeviceSynchronize());
+      for (int mode = 0; mode < 2; ++mode) {
+        for (int c : {1, 2, 4}) {
+          auto run = [&]() {
+            if (c == 1) {
+              gather_mlp<1><<<grid, 256>>>(sk, width, hp, rows, shift, d,
+                                           mode, est);
+            } else if (c == 2) {
+              gather_mlp<2><<<grid, 256>>>(sk, width, hp, rows, shift, d,
+                                           mode, est);
+            } else {
+              gather_mlp<4><<<grid, 256>>>(sk, width, hp, rows, shift, d,
+                                           mode, est);
+            }
+          };
+          run();
+          CK(cudaDeviceSynchronize());
+          unsigned long long nbad = 0;
+          if (mode == 1) {
+            CK(cudaMemset(bad, 0, 8));
+            count_unequal<<<sms * 8, 256>>>(est, ref, d, bad);
+            CK(cudaMemcpy(&nbad, bad, 8, cudaMemcpyDeviceToHost));
+          }
+          Timer t;
+          t.start();
+          for (int i = 0; i < reps; ++i) run();
+          const float ms = t.stop_ms(reps);
+          const double gathers = (double)d * rows;
+          printf("{\"probe\": \"h_gather_mlp\", \"what\": \"%s\", "
+                 "\"coords_per_thread\": %d, \"d\": %lld, \"rows\": %d, "
+                 "\"table_bytes\": %lld, \"gathers\": %.0f, \"ms\": "
+                 "%.4f, \"ggathers_per_s\": %.2f, \"est_not_bit_equal\": "
+                 "%llu}\n",
+                 mode ? "decode" : "gathers only", c, (long long)d, rows,
+                 (long long)(rows * width * 4), gathers, ms,
+                 gathers / (ms * 1e6), nbad);
+        }
+      }
+      CK(cudaFree(sk));
+      CK(cudaFree(est));
+      CK(cudaFree(ref));
     }
     CK(cudaFree(hp));
     CK(cudaFree(bad));

@@ -1,6 +1,6 @@
-"""Time the Count-Sketch encode and decode kernels on one card at the main
-cell's bucket sizes and at several sketch widths, and check them against
-their plain versions.
+"""Time the Count-Sketch encode and decode kernels and the HEAVYMIX
+recovery on one card at the main cell's bucket sizes and at several sketch
+widths, and check them against their plain versions.
 
     python src/repro_torch/bench/time_sketch_kernels.py [--src DIR]
 
@@ -13,7 +13,15 @@ Shapes: the two gs-SGD buckets of the full-width qwen3-4b step that
 ``chip_smoke.py`` drives (d and R from that step), each sketched at its own
 width (2^20, 2^19), at the CLI's default ``SketchSpec`` width (16,384) and
 at the smoke spec's width (512): from hundreds of 32 KB tiles down to one.
-The decode is timed at the step's own widths. g is ``chip_smoke._spiky``;
+The decode is timed at the step's own widths. The recovery
+(``ops.heavymix_recover``, as the timed tree has it) and the old route
+(decode + ``core.heavymix.topk_lower_index`` of |est|) are timed at the
+step's widths and at 16,384, with the bucket's k; where the tree has the
+radix select (``kernels/topk_select.py``), also the select alone. In such
+a tree the decode kernel always counts the select's histogram, so timing
+``sketch_decode`` in a tree without the select and in one with it gives
+the decode alone and with its histogram. The recovery's indices are
+checked against the old route's. g is ``chip_smoke._spiky``;
 the timing (``chip_smoke.time_ms``, 10 calls after a warm-up) and the
 encode's tolerance (``ENCODE_REL_TOL`` * max|S|; the decode bit-equal) are
 ``chip_smoke.py``'s. Prints one JSON line per (kernel, width, bucket); with
@@ -49,6 +57,27 @@ def breakdown(torch, fn) -> dict:
     return out
 
 
+def recover_fns(torch, ops, sd, topk_lower_index, cfg, sk, d, k):
+    """(name, call, check) of the recovery's old route (decode + top-k of
+    |est| outside any kernel) and of the tree's ``ops.heavymix_recover``;
+    with the radix select, also the select alone."""
+    def old_route():
+        est = sd.sketch_decode(cfg, sk, d)
+        return topk_lower_index(est.abs(), k)[1]
+
+    idx_old = old_route()
+    idx_new = ops.heavymix_recover(cfg, sk, k, d)[0]
+    out = [("recover_old_route", old_route, {"k": k}),
+           ("heavymix_recover", lambda: ops.heavymix_recover(cfg, sk, k, d),
+            {"k": k, "idx_equal": torch.equal(idx_old, idx_new)})]
+    if hasattr(sd, "sketch_decode_hist"):
+        from repro_torch.kernels.topk_select import topk_select
+        est, hist = sd.sketch_decode_hist(cfg, sk, d)
+        out.append(("topk_select", lambda: topk_select(est, k, hist),
+                    {"k": k}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
@@ -64,6 +93,9 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.api import SketchSpec
     from repro_torch.core import count_sketch as cs
+    from repro_torch.core.heavymix import topk_lower_index
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sketch_decode as sd
     from repro_torch.kernels.sketch_decode import (sketch_decode,
                                                    sketch_decode_plain)
     from repro_torch.kernels.sketch_encode import (sketch_encode,
@@ -97,6 +129,10 @@ def main() -> int:
                 fns.append(("sketch_decode",
                             lambda: sketch_decode(cfg, sk, d),
                             {"bit_equal": equal}))
+            if width in (None, SketchSpec().width):
+                fns += recover_fns(torch, ops, sd, topk_lower_index, cfg, sk,
+                                   d, part.k)
+                ok = ok and all(f[2].get("idx_equal", True) for f in fns)
             for name, fn, check in fns:
                 if args.breakdown:
                     print(json.dumps({"tag": args.tag, "kernel": name,

@@ -20,6 +20,7 @@ main path went through the kernels.
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
@@ -44,3 +45,9 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
                 "(--device cpu) to run the plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, for the kernels' launch planners."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -4,12 +4,13 @@ Port of ``repro/kernels/ops.py``. Dispatch is per tensor device
 (``kernels.dispatch``): CUDA tensors launch the hand-written kernels, CPU
 tensors run the plain PyTorch versions.
 
-``heavymix_recover`` goes through a kernel and a top-k with the
-reference's lower-index tie-break, on either device, so the CPU tests run
-the same Python path the card runs: ``sketch_decode`` where the reference
-ranks by |est| (d > 2^22 and d > 4k), ``heavymix_scores`` below that. It
-selects what ``core.heavymix.heavymix`` selects, index for index, in both
-regimes.
+``heavymix_recover`` goes through a kernel that writes the keys and counts
+their first radix digit, then the radix select with the reference's
+lower-index tie-break (``kernels.topk_select``), on either device, so the
+CPU tests run the same Python path the card runs: ``sketch_decode`` where
+the reference ranks by |est| (d > 2^22 and d > 4k), ``heavymix_scores``
+below that. It selects what ``core.heavymix.heavymix`` selects, index for
+index, in both regimes; on the card it syncs with the host nowhere.
 """
 
 from __future__ import annotations
@@ -18,12 +19,14 @@ import torch
 
 from repro_torch.core import count_sketch as cs
 from repro_torch.core.count_sketch import SketchConfig
-from repro_torch.core.heavymix import _CHUNK, topk_lower_index
-from repro_torch.kernels.heavymix_topk import heavymix_scores
+from repro_torch.core.heavymix import _CHUNK
+from repro_torch.kernels.heavymix_topk import heavymix_scores_hist
 from repro_torch.kernels.sketch_decode import (sketch_decode,
-                                               sketch_decode_bucketed)
+                                               sketch_decode_bucketed,
+                                               sketch_decode_hist)
 from repro_torch.kernels.sketch_encode import (sketch_encode,
                                                sketch_encode_bucketed)
+from repro_torch.kernels.topk_select import topk_select
 
 
 def encode(cfg: SketchConfig, g: torch.Tensor, *,
@@ -51,16 +54,17 @@ def heavymix_recover(cfg: SketchConfig, sketch: torch.Tensor, k: int, d: int
     scores are computed. Below that it ranks by the scores kernel's boosted
     scores, where every heavy coordinate scores 1e30 in f32 and the lower
     index wins among them; the threshold stays a device tensor (no host
-    sync before the kernel).
+    sync before the kernel). Either kernel also counts the select's first
+    digit, and ``topk_select`` ranks |est| or the (non-negative) scores.
     """
     sk = sketch.to(torch.float32)
     if d > _CHUNK and d > 4 * k:
-        est = sketch_decode(cfg, sk, int(d))
-        _, idx = topk_lower_index(est.abs(), k)
+        est, hist = sketch_decode_hist(cfg, sk, int(d))
+        _, idx = topk_select(est, k, hist)
         return idx, est[idx]
     thr = cs.l2sq_estimate(sk) / k
-    scores, est = heavymix_scores(cfg, sk, thr, int(d))
-    _, idx = topk_lower_index(scores, k)
+    scores, est, hist = heavymix_scores_hist(cfg, sk, thr, int(d))
+    _, idx = topk_select(scores, k, hist)
     return idx, est[idx]
 
 

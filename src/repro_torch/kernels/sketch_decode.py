@@ -14,6 +14,13 @@ Bound on the H100: writing ``est`` (4 * d bytes) plus one read of the
 that, and holding the sketch in cluster shared memory instead was
 measured slower (see the source note). The kernel gathers and sorts the
 same values as the plain version, so ``est`` is bit-equal to it.
+
+In the loop that writes ``est`` each CTA also counts key bits 30..20 of
+|est| (the first digit of the HEAVYMIX top-k's radix select,
+``kernels/topk_select.py``) in shared memory and adds them into one
+(2048,) int32 histogram, so the select reads ``est`` once less.
+``sketch_decode_hist`` returns it; ``sketch_decode`` (the reference's
+API) launches the same kernel and drops it.
 """
 
 from __future__ import annotations
@@ -28,13 +35,15 @@ from repro_torch.core.count_sketch import SketchConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch
 from repro_torch.kernels.sketch_encode import hash_on_device
+from repro_torch.kernels.topk_select import RADIX_BINS, radix_hist_plain
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = build.load("sketch_decode")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.sketch_decode_launch.argtypes = [p, i64, p, i32, i32, i64, i64, p, p]
+    lib.sketch_decode_launch.argtypes = [p, i64, p, i32, i32, i64, i64, p, p,
+                                         p]
     lib.sketch_decode_launch.restype = i32
     return lib
 
@@ -55,6 +64,22 @@ def sketch_decode(cfg: SketchConfig, sketch: torch.Tensor, d: int, *,
     d = int(d)
     if not resolve_dispatch(sketch.device.type):
         return sketch_decode_plain(cfg, sketch, d, int(index_offset))
+    return _launch(cfg, sketch, d, int(index_offset))[0]
+
+
+def sketch_decode_hist(cfg: SketchConfig, sketch: torch.Tensor, d: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(est (d,) f32, the (2048,) int32 histogram of key bits 30..20 of
+    |est|) for ``kernels.topk_select``; one kernel launch on the card."""
+    d = int(d)
+    if not resolve_dispatch(sketch.device.type):
+        est = sketch_decode_plain(cfg, sketch, d)
+        return est, radix_hist_plain(est)
+    return _launch(cfg, sketch, d, 0)
+
+
+def _launch(cfg: SketchConfig, sketch: torch.Tensor, d: int, offset: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     lib = _lib()
     if sketch.device.type != "cuda":
         raise ValueError(f"sketch_decode kernel needs a CUDA tensor, got "
@@ -64,17 +89,19 @@ def sketch_decode(cfg: SketchConfig, sketch: torch.Tensor, d: int, *,
                          f"{(cfg.rows, cfg.width)}")
     sk = sketch.to(torch.float32).contiguous()
     est = torch.empty((d,), dtype=torch.float32, device=sk.device)
+    hist = torch.zeros(RADIX_BINS, dtype=torch.int32, device=sk.device)
     if d == 0:
-        return est
+        return est, hist
     hp = hash_on_device(cfg, str(sk.device))
     stream = torch.cuda.current_stream(sk.device).cuda_stream
     rc = lib.sketch_decode_launch(
         sk.data_ptr(), cfg.width, hp.data_ptr(), cfg.rows,
-        32 - cfg.log2_width, int(index_offset), d, est.data_ptr(), stream)
+        32 - cfg.log2_width, offset, d, est.data_ptr(), hist.data_ptr(),
+        stream)
     if rc != 0:
         raise RuntimeError(f"sketch_decode launch failed: cudaError {rc}")
     LAUNCHES["sketch_decode"] += 1
-    return est
+    return est, hist
 
 
 def sketch_decode_bucketed(cfgs, sketches, sizes) -> torch.Tensor:

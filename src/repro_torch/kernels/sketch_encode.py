@@ -34,7 +34,7 @@ import torch
 from repro_torch.core import count_sketch as cs
 from repro_torch.core.count_sketch import SketchConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch
+from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch, sm_count
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -121,11 +121,6 @@ def hash_on_device(cfg: SketchConfig, device: str) -> torch.Tensor:
         np.ascontiguousarray(cfg.hash_params).view(np.int32)).to(device)
 
 
-@functools.lru_cache(maxsize=8)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = build.load("sketch_encode")
@@ -165,7 +160,7 @@ def sketch_encode(cfg: SketchConfig, g: torch.Tensor, *,
     if d == 0:
         return torch.zeros((cfg.rows, cfg.width), dtype=torch.float32,
                            device=g.device)
-    plan = encode_plan(cfg.rows, cfg.log2_width, d, _sms(g.device))
+    plan = encode_plan(cfg.rows, cfg.log2_width, d, sm_count(g.device))
     # one accumulating CTA a tile writes each bucket once; several add
     # into zeros
     alloc = torch.zeros if plan.splits > 1 else torch.empty

@@ -11,7 +11,11 @@ Tolerances: the encode kernel bins and adds with shared-memory atomics in
 a run-dependent order, so it is held to the plain version at
 1e-4 * max|S|; the scores
 and decode kernels gather and sort the same values as the plain version,
-so their estimates and scores must be bit-equal. The TS encode kernel
+so their estimates and scores must be bit-equal, and the first-digit
+histograms they count on request must equal the plain histogram of the
+same keys. The top-k radix select picks exact keys: indices equal as
+returned and values bit-equal to its plain version and to
+``topk_lower_index``. The TS encode kernel
 adds each bucket's contributors in a fixed order (bit-reproducible run to
 run) but another order than the plain ``index_add_``: 1e-4 * max|S|.
 """
@@ -25,9 +29,13 @@ from repro_torch.core.heavymix import topk_lower_index
 from repro_torch.kernels import ops
 from repro_torch.kernels.dispatch import LAUNCHES
 from repro_torch.kernels.heavymix_topk import (heavymix_scores,
+                                               heavymix_scores_hist,
                                                heavymix_scores_plain)
 from repro_torch.kernels.sketch_decode import (sketch_decode,
+                                               sketch_decode_hist,
                                                sketch_decode_plain)
+from repro_torch.kernels.topk_select import (radix_hist_plain, topk_select,
+                                             topk_select_plain)
 from repro_torch.kernels.sketch_encode import (sketch_encode,
                                                sketch_encode_plain)
 from repro_torch.kernels.ts_encode import ts_encode, ts_encode_plain
@@ -168,3 +176,76 @@ def test_ts_encode_kernel_matches_plain(card, dtype, d, rows, width):
     want = ts_encode_plain(cfg, g)
     err = float((got - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("d,rows,width", [(20_000, 5, 1024), (20_000, 17, 256),
+                                          (5_000_003, 5, 1 << 14)])
+def test_fused_histograms_equal_plain(card, d, rows, width):
+    """The decode and scores kernels with their histogram on: outputs
+    bit-equal to plain, histogram equal to the plain one of the same keys."""
+    cfg = cs.SketchConfig(rows=rows, width=width, seed=rows)
+    gen = torch.Generator(device=card).manual_seed(d)
+    sk = torch.randn((rows, cfg.width), generator=gen, device=card)
+    est, hist = sketch_decode_hist(cfg, sk, d)
+    assert torch.equal(est, sketch_decode_plain(cfg, sk, d))
+    assert torch.equal(hist, radix_hist_plain(est))
+    thr = cs.l2sq_estimate(sk) / 1000
+    sc, e, h = heavymix_scores_hist(cfg, sk, thr, d)
+    sc_p, e_p = heavymix_scores_plain(cfg, sk, thr, d)
+    assert torch.equal(sc, sc_p) and torch.equal(e, e_p)
+    assert torch.equal(h, radix_hist_plain(sc_p))
+
+
+def _keys(kind, n, card):
+    gen = torch.Generator(device=card).manual_seed(n)
+    if kind == "est":      # medians of sketch cells: many repeated values
+        cells = torch.randn(n // 64, generator=gen, device=card)
+        return cells[torch.randint(0, cells.numel(), (n,), generator=gen,
+                                   device=card)]
+    if kind == "equal":
+        return torch.full((n,), -0.5, device=card)
+    # HEAVYMIX scores with |H| >> k: half the keys tie at exactly 1e30
+    s = torch.randn(n, generator=gen, device=card).abs()
+    return torch.where(torch.rand(n, generator=gen, device=card) < 0.5,
+                       s + 1e30, s)
+
+
+@pytest.mark.parametrize("kind", ["est", "equal", "ties_1e30"])
+@pytest.mark.parametrize("n,k", [(5_000_001, 20_000), (5_000_001, 1),
+                                 (5_000_001, 4_999_999), (3000, 2999)])
+def test_select_kernel_equals_plain(card, kind, n, k):
+    """The select at d ~ 5M from the first digit's histogram: idx equal as
+    returned, values bit-equal, one launch a call."""
+    x = _keys(kind, n, card)
+    hist = radix_hist_plain(x)
+    want_v, want_i = topk_select_plain(x, k, hist)
+    lo_v, lo_i = topk_lower_index(x.abs(), k)
+    assert torch.equal(want_i, lo_i) and torch.equal(want_v, lo_v)
+    before = LAUNCHES["topk_select"]
+    v, i = topk_select(x, k, hist)
+    assert LAUNCHES["topk_select"] == before + 1
+    assert torch.equal(i, want_i)
+    assert torch.equal(v.view(torch.int32), want_v.view(torch.int32))
+
+
+def test_recover_syncs_with_host_nowhere(card):
+    """ops.heavymix_recover in both regimes raises nothing under
+    torch.cuda.set_sync_debug_mode("error") (after a first call has put
+    the hash parameters on the card) and selects what the CPU selects."""
+    gen = torch.Generator().manual_seed(2)
+    for d, k, width in (((1 << 22) + 5000, 2048, 1024), (60_000, 300, 512)):
+        cfg = cs.SketchConfig(rows=5, width=width, seed=4)
+        sk = cs.encode(cfg, torch.randn(d, generator=gen))
+        sk_g = sk.to(card)
+        ops.heavymix_recover(cfg, sk_g, k, d)
+        torch.cuda.synchronize()
+        before = LAUNCHES["topk_select"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            idx, est = ops.heavymix_recover(cfg, sk_g, k, d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert LAUNCHES["topk_select"] == before + 1
+        idx_c, est_c = ops.heavymix_recover(cfg, sk, k, d)
+        assert torch.equal(idx.cpu(), idx_c)
+        assert torch.equal(est.cpu(), est_c)
