@@ -21,7 +21,13 @@ Phases (any failure exits non-zero and prints no result line):
                 yardstick and bound; the recovery's old route (decode +
                 ``topk_lower_index``) against its new one (decode with
                 histogram + select), and one recovery under
-                ``torch.cuda.set_sync_debug_mode("error")``.
+                ``torch.cuda.set_sync_debug_mode("error")``. The TS encode
+                at both buckets and the CLI's default width, with the plan's
+                kernel and (where that is the one-pass kernel) the R-pass
+                kernel; the TS route's recovery at both buckets (the TS-map
+                scores kernel with its histogram, then the select) against
+                its plain version and its old route (``ts.decode`` +
+                ``heavymix(estimates=)``), once under the sync check.
 3. train     — the main path: three gs-SGD steps of qwen3-4b at its
                 published widths (depth cut to 2 layers), P=2 workers,
                 buckets=2, psum, AdamW, SketchSpec(rows=5, width=None,
@@ -35,9 +41,10 @@ Phases (any failure exits non-zero and prints no result line):
                 that holds its launch) and the device's idle share. Not
                 counted.
 5. train_ts  — three steps of the same cell with gs-SGD's TS-sketch encoder
-                (``compressor_kw`` ``encoder="ts"``): the TS encode kernel;
-                then one more step under the profiler, as in 4 (not
-                counted).
+                (``compressor_kw`` ``encoder="ts"``): the TS encode kernel,
+                and the recovery through the TS-map scores kernel and the
+                select (once per recovery: 12 times); then one more step
+                under the profiler, as in 4 (not counted).
 6. parity    — two steps of examples/specs/qwen3_smoke.json on the card
                 (kernels) and on the CPU (plain versions) from the same
                 params and batches: losses and selected coordinates agree.
@@ -455,9 +462,10 @@ def scores_decode_checks(torch, device, gen, buckets) -> list[dict]:
     dec_shapes, sel_shapes = [], []
     for b, (cfg, sk, d, k) in enumerate(buckets):
         R, W = cfg.rows, cfg.width
+        sms = torch.cuda.get_device_properties(sk.device).multi_processor_count
         log(f"[kernels] sketch_decode plan at bucket {b} (d={d}, R={R}, "
             f"W={W}): one thread a coordinate, grid-stride, 256 threads, "
-            f"{min(-(-d // 256), 132 * 16)} CTAs")
+            f"{min(-(-d // 256), sms * 16)} CTAs")
         est, hist = sketch_decode_hist(cfg, sk, d)
         dec_p = sketch_decode_plain(cfg, sk, d)
         dec_err = float((est - dec_p).abs().max())
@@ -532,62 +540,202 @@ def scores_decode_checks(torch, device, gen, buckets) -> list[dict]:
                         sel_shapes)]
 
 
-def ts_checks(torch, device, gen, cfg, g) -> dict:
-    """ts_encode: small cases (f32/bf16/f16; rows with n_r > W), then
-    bucket 0's TS geometry in f32 and bf16: held to
-    the plain version at ENCODE_REL_TOL * max|S|, and bit-equal between
-    two launches (fixed order, no atomics)."""
+def ts_checks(torch, device, gen, buckets) -> tuple[dict, list]:
+    """ts_encode: small cases (f32/bf16/f16; rows with n_r > W; geometries
+    that take the one-pass kernel, each also through the R-pass kernel),
+    then every bucket of the main path (``buckets``: (cfg, g) each; bucket 0
+    also in bf16) and bucket 0's g at the CLI's default width: held to the
+    plain version at ENCODE_REL_TOL * max|S| and bit-equal between two
+    launches (fixed order, no atomics), for the plan's kernel and, where
+    the plan picks the one-pass kernel, the R-pass kernel too. Returns its
+    row and the TS sketch of each main-path bucket."""
+    from repro_torch.api import SketchSpec
+    from repro_torch.core import count_sketch as cs
     from repro_torch.core.ts_sketch import TSketchConfig, buckets_at, signs_at
-    from repro_torch.kernels.ts_encode import ts_encode, ts_encode_plain
+    from repro_torch.kernels.ts_encode import (onepass_plan, rows_plan,
+                                               ts_encode, ts_encode_plain,
+                                               ts_encode_plan)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
 
-    def check(c, x, what):
-        got = ts_encode(c, x)
+    def check(c, x, what, plan=None):
+        got = ts_encode(c, x, plan)
         want = ts_encode_plain(c, x)
         err = float((got - want).abs().max())
         lim = ENCODE_REL_TOL * float(want.abs().max())
+        kernel = (plan or ts_encode_plan(c, sms)).kernel
         if not err <= lim:
-            fail(f"ts_encode {what} disagrees: {err} > {lim}")
-        if not torch.equal(got, ts_encode(c, x)):
-            fail(f"ts_encode {what} differs between two launches")
-        log(f"[kernels] ts_encode {what}: max_abs_err {err:.4g} (limit "
-            f"{lim:.4g}); two launches bit-equal")
-        return got, want, err
+            fail(f"ts_encode ({kernel}) {what} disagrees: {err} > {lim}")
+        if not torch.equal(got, ts_encode(c, x, plan)):
+            fail(f"ts_encode ({kernel}) {what} differs between two launches")
+        log(f"[kernels] ts_encode ({kernel} kernel) {what}: max_abs_err "
+            f"{err:.4g} (limit {lim:.4g}); two launches bit-equal")
+        return got, err
 
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         for n, rows, width in ((100_000, 5, 512), (70_000, 5, 16),
-                               (1537, 1, 300)):
+                               (1537, 1, 300), (3_000_001, 5, 1 << 16),
+                               (600_001, 3, 1 << 14)):
             c = TSketchConfig(d=n, rows=rows, width=width, seed=5)
             x = torch.randn(n, generator=gen, device=device).to(dt)
-            check(c, x, f"small d={n} R={rows} W={c.width} {dt}")
-    d = g.shape[0]
-    tcfg = TSketchConfig(d=d, rows=cfg.rows, width=cfg.width, seed=cfg.seed)
-    R, W = tcfg.rows, tcfg.width
-    log(f"[kernels] TS geometry at bucket 0: d_pad={tcfg.d_pad} n_r="
-        f"{[1 << (tcfg.bits - a) for a in tcfg.log_m]}")
-    check(tcfg, g.to(torch.bfloat16), f"d={d} bf16")
-    got, want, err = check(tcfg, g, f"d={d} f32")
-    del want
-    ms = time_ms(torch, lambda: ts_encode(tcfg, g), reps=10)
-    plain_ms = time_ms(torch, lambda: ts_encode_plain(tcfg, g), reps=2)
+            what = f"small d={n} R={rows} W={c.width} {dt}"
+            check(c, x, what)
+            one = onepass_plan(c)
+            if one is not None:
+                check(c, x, what, one if ts_encode_plan(c, sms).kernel ==
+                      "rows" else rows_plan(c))
+    cfg0, g0 = buckets[0]
+    cases = [(f"bucket {b}", cfg, g) for b, (cfg, g) in enumerate(buckets)]
+    cases.append(("CLI default width at bucket 0's d", cs.SketchConfig(
+        rows=cfg0.rows, width=SketchSpec().width, seed=cfg0.seed), g0))
+    shapes, sketches = [], []
+    for what, cfg, g in cases:
+        d = g.shape[0]
+        tcfg = TSketchConfig(d=d, rows=cfg.rows, width=cfg.width,
+                             seed=cfg.seed)
+        R, W = tcfg.rows, tcfg.width
+        plan = ts_encode_plan(tcfg, sms)
+        log(f"[kernels] ts_encode plan at {what} (d={d}, R={R}, W={W}, "
+            f"d_pad={tcfg.d_pad}, n_r={[1 << (tcfg.bits - a) for a in tcfg.log_m]}"
+            f"): {plan}")
+        if what == "bucket 0":
+            check(tcfg, g.to(torch.bfloat16), f"{what} d={d} bf16")
+        got, err = check(tcfg, g, f"{what} d={d} f32")
+        shape = {"shape": what, "d": d, "rows": R, "width": W,
+                 "kernel": plan.kernel, "ctas": plan.ctas,
+                 "threads": plan.threads}
+        ms = time_ms(torch, lambda: ts_encode(tcfg, g), reps=10)
+        if plan.kernel == "onepass":
+            # the R-pass kernel at the same shape, timed between two runs
+            # of the plan's kernel
+            rp = rows_plan(tcfg)
+            check(tcfg, g, f"{what} d={d} f32", rp)
+            shape["rows_kernel_ms"] = time_ms(
+                torch, lambda: ts_encode(tcfg, g, rp), reps=10)
+            shape["ms_runs"] = [ms, time_ms(torch, lambda: ts_encode(tcfg, g),
+                                            reps=10)]
+            ms = sum(shape["ms_runs"]) / 2
+        plain_ms = time_ms(torch, lambda: ts_encode_plain(tcfg, g), reps=2)
 
-    def ids_vals(lo, hi):
-        i = torch.arange(lo, hi, device=device)
-        return buckets_at(tcfg, i), signs_at(tcfg, i) * g[lo:hi]
+        def ids_vals(lo, hi):
+            i = torch.arange(lo, hi, device=device)
+            return buckets_at(tcfg, i), signs_at(tcfg, i) * g[lo:hi]
 
-    lib_ms, lib_out = _index_add_ms(torch, device, R, W, d, ids_vals)
-    log(f"[kernels] index_add_ yardstick vs ts kernel: max_abs_err "
-        f"{float((lib_out - got).abs().max()):.4g}")
-    # per (row, element): bucket map (add, and, and, shift, shift, or, and),
-    # sign (mul, add, shift), sign-apply and add
-    bound = bound_ms(d * g.element_size() + R * W * 4, d * R * 12.0)
-    return _row("ts_encode", "src/repro_torch/csrc/ts_encode.cu",
-                "src/repro/kernels/ts_encode.py:73", err, ms, plain_ms,
-                bound, lib_ms)
+        lib_ms, lib_out = _index_add_ms(torch, device, R, W, d, ids_vals)
+        log(f"[kernels] index_add_ yardstick vs ts kernel at {what}: "
+            f"max_abs_err {float((lib_out - got).abs().max()):.4g}")
+        del lib_out
+        # per (row, element): bucket map (add, and, and, shift, shift, or,
+        # and), sign (mul, add, shift), sign-apply and add
+        bound = bound_ms(d * g.element_size() + R * W * 4, d * R * 12.0)
+        shape.update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "library_ms": lib_ms})
+        log(f"[kernels] ts_encode {what}: {plan.kernel} kernel {ms:.3f} ms"
+            + (f", R-pass kernel {shape['rows_kernel_ms']:.3f} ms"
+               if "rows_kernel_ms" in shape else "")
+            + f"; bound {bound[0]:.4f} ms")
+        shapes.append(shape)
+        if len(sketches) < len(buckets):
+            sketches.append((tcfg, got))
+    return _shapes_row("ts_encode", "src/repro_torch/csrc/ts_encode.cu",
+                       "src/repro/kernels/ts_encode.py:73", shapes), sketches
+
+
+def ts_recover_checks(torch, buckets) -> dict:
+    """The TS route's recovery at every bucket of the main path
+    (``buckets``: (TS config, TS sketch, d, k) each, the sketch from the
+    spiky g, whose heavy set far outnumbers k): the TS-map scores and est
+    bit-equal to their plain version (``ts.decode`` and the reference's
+    boost), the fused histogram equal to the plain one, and
+    ``ops.ts_heavymix_recover``'s idx equal to the plain route's
+    (``ts.decode`` + ``heavymix(estimates=)``), once under
+    ``set_sync_debug_mode("error")``; times of the kernel and of both
+    routes."""
+    from repro_torch.core import count_sketch as cs
+    from repro_torch.core import heavymix as hm
+    from repro_torch.core import ts_sketch as tsk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.heavymix_topk import (heavymix_scores_ts_hist,
+                                                   heavymix_scores_ts_plain)
+    from repro_torch.kernels.topk_select import radix_hist_plain, topk_select
+    shapes = []
+    for b, (tcfg, sk, d, k) in enumerate(buckets):
+        R, W = tcfg.rows, tcfg.width
+        ccfg = cs.SketchConfig(rows=R, width=W, seed=tcfg.seed)
+        thr = cs.l2sq_estimate(sk) / k
+        sc, est, hist = heavymix_scores_ts_hist(tcfg, sk, thr, d)
+        sc_p, est_p = heavymix_scores_ts_plain(tcfg, sk, thr, d)
+        err = float((est - est_p).abs().max())
+        if not (torch.equal(est, est_p) and torch.equal(sc, sc_p)):
+            fail(f"heavymix_scores_ts at bucket {b} (d={d}) disagrees with "
+                 f"its plain version: max est err {err}")
+        if not torch.equal(hist, radix_hist_plain(sc_p)):
+            fail(f"heavymix_scores_ts' histogram at bucket {b} differs from "
+                 "the plain histogram of the same scores")
+        n_heavy = int((sc >= 1e30).sum())
+        if not n_heavy > 2 * k:
+            fail(f"TS recovery at bucket {b}: only {n_heavy} heavy "
+                 f"coordinates for k={k}")
+        del sc_p, est_p
+        idx = ops.ts_heavymix_recover(tcfg, sk, k, d)[0]
+
+        def old_route():
+            e = tsk.decode(tcfg, sk, d)
+            return hm.heavymix(ccfg, sk, k, d, estimates=e)[0]
+
+        idx_p = old_route()
+        if not torch.equal(idx, idx_p):
+            fail(f"ts_heavymix_recover at bucket {b} selects other "
+                 f"coordinates than ts.decode + heavymix(estimates=): "
+                 f"{int((idx != idx_p).sum())} of k={k} differ")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            idx_s = ops.ts_heavymix_recover(tcfg, sk, k, d)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not torch.equal(idx_s, idx_p):
+            fail("ts_heavymix_recover under set_sync_debug_mode differs")
+        del idx, idx_p, idx_s
+        log(f"[kernels] TS recovery bucket {b} d={d} k={k} ({n_heavy} "
+            "heavy): scores and est bit-equal to plain, histogram equal; "
+            "idx equal to ts.decode + heavymix(estimates=); a recovery under "
+            "set_sync_debug_mode('error') raised nothing")
+        ms = time_ms(torch, lambda: heavymix_scores_ts_hist(tcfg, sk, thr, d),
+                     reps=10)
+        plain_ms = time_ms(
+            torch, lambda: heavymix_scores_ts_plain(tcfg, sk, thr, d), reps=2)
+        sel_ms = time_ms(torch, lambda: topk_select(sc, k, hist), reps=10)
+        new_ms = time_ms(torch, lambda: ops.ts_heavymix_recover(tcfg, sk, k, d),
+                         reps=3)
+        old_ms = time_ms(torch, old_route, reps=2)
+        del sc, est, hist
+        torch.cuda.empty_cache()
+        # per coordinate and row: the TS map (add, and, and, shift, shift,
+        # shift, add, and) and sign (mul, add, and, negate); the median's
+        # compare-exchanges; the boost and the histogram key
+        ops_per = R * 12.0 + R * (R - 1) + 4
+        bound = bound_ms(R * W * 4 + 4 + 2 * d * 4 + 2048 * 4, d * ops_per)
+        log(f"[kernels] TS recovery bucket {b}: heavymix_scores_ts with its "
+            f"histogram {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
+            f"{bound[0]:.4f} ms); select {sel_ms:.3f} ms; new route "
+            f"(ts_heavymix_recover) {new_ms:.3f} ms, old route (ts.decode + "
+            f"heavymix(estimates=)) {old_ms:.3f} ms")
+        shapes.append({"shape": f"bucket {b}", "d": d, "rows": R, "width": W,
+                       "k": k, "n_heavy": n_heavy, "max_abs_err": err,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                       "bound_by": bound[1], "library_ms": None,
+                       "select_ms": sel_ms, "new_route_ms": new_ms,
+                       "old_route_ms": old_ms})
+    return _shapes_row("heavymix_scores_ts",
+                       "src/repro_torch/csrc/heavymix_scores.cu",
+                       "src/repro/kernels/heavymix_topk.py:91", shapes)
 
 
 def kernels_phase(torch, device, ts) -> list[dict]:
-    """Every kernel at the full-width step's shapes (the encode and decode
-    at both buckets, the TS encode at bucket 0), and small cases."""
+    """Every kernel at the full-width step's shapes (the encodes, the
+    decode, the TS-map scores and the select at both buckets), and small
+    cases."""
     gen = torch.Generator(device=device).manual_seed(1)
     parts, sizes = ts.compressor.parts, ts.compressor.spec.sizes
     for b, (part, d) in enumerate(zip(parts, sizes)):
@@ -601,8 +749,14 @@ def kernels_phase(torch, device, ts) -> list[dict]:
         torch, device, gen, [(p.sketch, sk, d, p.k) for p, sk, d in
                              zip(parts, sks, sizes)])
     del sks
-    out.append(ts_checks(torch, device, gen, parts[0].sketch, gs[0]))
+    ts_row, ts_sks = ts_checks(torch, device, gen,
+                               [(p.sketch, g) for p, g in zip(parts, gs)])
     del gs
+    torch.cuda.empty_cache()
+    out += [ts_row, ts_recover_checks(
+        torch, [(tcfg, sk, d, p.k) for (tcfg, sk), d, p in
+                zip(ts_sks, sizes, parts)])]
+    del ts_sks
     for kr in out:
         log("[kernels] " + json.dumps({key: kr[key] for key in (
             "name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -744,6 +898,8 @@ def profile_phase(torch, ts, state, stream, tag="profile"):
     log(f"[{tag}] " + json.dumps(out))
     log(f"[{tag}] spans + outside + unlinked = {parts_ms:.3f} ms = device "
         "busy (each device event counted once)")
+    log(f"[{tag}] recover span {split['span_device_ms']['recover']:.3f} ms "
+        f"of {busy_ms:.3f} ms busy; step wall {wall_ms:.3f} ms")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:16]
     for name, ms in top:
         log(f"[{tag}] kernel {ms:10.3f} ms  {name[:110]}")
@@ -815,7 +971,7 @@ def parity_phase(torch, card="cuda") -> dict:
                 fail(f"selected coordinates differ at step {s} bucket {i}")
     check_launches("parity", counts, ("sketch_encode", "heavymix_scores",
                                       "topk_select"),
-                   ("sketch_decode", "ts_encode"))
+                   ("sketch_decode", "ts_encode", "heavymix_scores_ts"))
     log("[parity] losses within rtol "
         f"{PARITY_LOSS_RTOL}; selected coordinates equal every step")
     return counts
@@ -889,7 +1045,7 @@ def main() -> int:
     state, stream, counts, _ = train_phase(torch, cfg, opt, ts)
     check_launches("train", counts, ("sketch_encode", "sketch_decode",
                                      "topk_select"),
-                   ("heavymix_scores", "ts_encode"))
+                   ("heavymix_scores", "heavymix_scores_ts", "ts_encode"))
     recoveries = TRAIN_P * ts.n_buckets * TRAIN_STEPS
     if counts["topk_select"] != recoveries:
         fail(f"topk_select launched {counts['topk_select']} times on the "
@@ -904,9 +1060,15 @@ def main() -> int:
     ts_step = full_width_ts_step(torch, device, ts, opt)
     state, stream, ts_counts, _ = train_phase(torch, cfg, opt, ts_step,
                                               tag="train_ts")
-    check_launches("train_ts", ts_counts, ("ts_encode",),
-                   ("sketch_encode", "sketch_decode", "heavymix_scores",
-                    "topk_select"))
+    check_launches("train_ts", ts_counts, ("ts_encode", "heavymix_scores_ts",
+                                           "topk_select"),
+                   ("sketch_encode", "sketch_decode", "heavymix_scores"))
+    if ts_counts["topk_select"] != recoveries:
+        fail(f"topk_select launched {ts_counts['topk_select']} times on the "
+             f"train_ts path, not once per recovery ({recoveries})")
+    log(f"[train_ts] topk_select launches {ts_counts['topk_select']} = "
+        f"{TRAIN_P} workers x {ts_step.n_buckets} buckets x {TRAIN_STEPS} "
+        "steps")
     log(f"[train_ts] phase took {time.time() - t0:.1f} s")
     state = profile_phase(torch, ts_step, state, stream, tag="profile_ts")
     del state, ts_step
@@ -916,6 +1078,7 @@ def main() -> int:
     log(f"[parity] phase took {time.time() - t0:.1f} s")
     launches = {"sketch_encode": counts, "sketch_decode": counts,
                 "topk_select": counts, "ts_encode": ts_counts,
+                "heavymix_scores_ts": ts_counts,
                 "heavymix_scores": parity_counts}
     for kr in kernels:
         kr["launches"] = launches[kr["name"]][kr["name"]]

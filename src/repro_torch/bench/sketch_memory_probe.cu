@@ -23,12 +23,18 @@
 //      flight (all their R gathers issued before any is used): the gathers
 //      alone, and the whole direct decode (median, est written), est bit
 //      for bit against one coordinate a thread
+//   i  the TS encode's one-pass read pattern alone (csrc/ts_encode.cu): at
+//      bucket 0 (W = 2^20, n_max = 256, G_min = 4096), 512 CTAs of 512
+//      threads each read X consecutive floats at every multiple of G_min
+//      in every block of W (X = 8 as the kernel, 16 and 32 with the blocks
+//      split over 2 and 4 CTAs), with and without a barrier every 2
+//      blocks; against one streaming read of the same 1.56 GB
 //
 // Build and run on the card (prints one JSON object a line):
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o build/sketch_memory_probe src/repro_torch/bench/sketch_memory_probe.cu
-//   build/sketch_memory_probe [PROBES]     (PROBES: letters, default abcdefgh)
+//   build/sketch_memory_probe [PROBES]     (PROBES: letters, default abcdefghi)
 //
 // Each rate is the mean over several timed launches (CUDA events) after a
 // warm-up launch.
@@ -484,9 +490,48 @@ int active_clusters(K kernel, int cs, int threads, size_t smem) {
   return n;
 }
 
+// ---------------------------------------------------------------- i
+// CTA (column set cs, block segment seg) reads the X floats at c0 + G_min y
+// (c0 = X cs, y < n_max) of every block j of its segment, one float4 a
+// thread and step; a barrier every sync_every blocks (0: none).
+template <int X>
+__global__ void onepass_read(const float* __restrict__ g, int64_t nblk,
+                             int log2w, int gmin_log, int nmax, int segs,
+                             int sync_every, float* out) {
+  constexpr int kq = X / 4;
+  const int colsets = gridDim.x / segs;
+  const int cs = blockIdx.x % colsets, seg = blockIdx.x / colsets;
+  const int64_t jlo = nblk * seg / segs, jhi = nblk * (seg + 1) / segs;
+  const int64_t c0 = (int64_t)cs * X;
+  float acc = 0.0f;
+#pragma unroll 2
+  for (int64_t j = jlo; j < jhi; ++j) {
+    for (int k = threadIdx.x; k < nmax * kq; k += blockDim.x) {
+      const int y = k / kq, c = k % kq;
+      const float4 v = __ldcs(reinterpret_cast<const float4*>(
+          g + (j << log2w) + c0 + 4 * c + ((int64_t)y << gmin_log)));
+      acc += (v.x + v.y) + (v.z + v.w);
+    }
+    if (sync_every && j % sync_every == 0) __syncthreads();
+  }
+  out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+
+__global__ void stream_read(const float4* __restrict__ g, int64_t n4,
+                            float* out) {
+  float acc = 0.0f;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    const float4 v = __ldcs(g + i);
+    acc += (v.x + v.y) + (v.z + v.w);
+  }
+  out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+
 int main(int argc, char** argv) {
   // argv[1]: the probes to run (default all), e.g. "bc"
-  const char* only = argc > 1 ? argv[1] : "abcdefgh";
+  const char* only = argc > 1 ? argv[1] : "abcdefghi";
   auto want = [&](char c) { return strchr(only, c) != nullptr; };
   int dev = 0, sms = 0, clk_khz = 0;
   CK(cudaSetDevice(dev));
@@ -849,6 +894,60 @@ int main(int argc, char** argv) {
     }
     CK(cudaFree(hp));
     CK(cudaFree(bad));
+  }
+  // i: the TS encode's one-pass read pattern
+  if (want('i')) {
+    const int64_t d = 388956160;
+    const int log2w = 20, nmax = 256, gmin_log = 12, reps = 5;
+    const int64_t nblk = (d + (1 << log2w) - 1) >> log2w;
+    float* g;
+    CK(cudaMalloc(&g, nblk << log2w << 2));  // whole blocks: no tail mask
+    fill_random<<<sms * 8, 256>>>(g, nblk << log2w, 3u);
+    CK(cudaDeviceSynchronize());
+    const double bytes = (double)(nblk << log2w) * 4;
+    auto report = [&](const char* what, int x, int segs, int sync_every,
+                      float ms) {
+      printf("{\"probe\": \"i_onepass_read\", \"what\": \"%s\", "
+             "\"cols\": %d, \"segments\": %d, \"sync_every\": %d, "
+             "\"bytes\": %.0f, \"ms\": %.4f, \"tb_per_s\": %.3f}\n",
+             what, x, segs, sync_every, bytes, ms, bytes / (ms * 1e9));
+    };
+    {
+      const int grid = sms * 3;  // 512 threads each: out holds 2^18 floats
+      stream_read<<<grid, 512>>>(reinterpret_cast<const float4*>(g),
+                                 (nblk << log2w) / 4, out);
+      CK(cudaDeviceSynchronize());
+      Timer t;
+      t.start();
+      for (int i = 0; i < reps; ++i)
+        stream_read<<<grid, 512>>>(reinterpret_cast<const float4*>(g),
+                                   (nblk << log2w) / 4, out);
+      report("stream", 0, 0, 0, t.stop_ms(reps));
+    }
+    for (int sync_every : {0, 2}) {
+      for (int x : {8, 16, 32}) {
+        const int segs = x / 8, grid = ((1 << gmin_log) / x) * segs;
+        auto run = [&]() {
+          if (x == 8) {
+            onepass_read<8><<<grid, 512>>>(g, nblk, log2w, gmin_log, nmax,
+                                           segs, sync_every, out);
+          } else if (x == 16) {
+            onepass_read<16><<<grid, 512>>>(g, nblk, log2w, gmin_log, nmax,
+                                            segs, sync_every, out);
+          } else {
+            onepass_read<32><<<grid, 512>>>(g, nblk, log2w, gmin_log, nmax,
+                                            segs, sync_every, out);
+          }
+        };
+        run();
+        CK(cudaDeviceSynchronize());
+        Timer t;
+        t.start();
+        for (int i = 0; i < reps; ++i) run();
+        report("onepass pattern", x, segs, sync_every, t.stop_ms(reps));
+      }
+    }
+    CK(cudaFree(g));
   }
   CK(cudaFree(out));
   return 0;

@@ -21,7 +21,13 @@ radix select (``kernels/topk_select.py``), also the select alone. In such
 a tree the decode kernel always counts the select's histogram, so timing
 ``sketch_decode`` in a tree without the select and in one with it gives
 the decode alone and with its histogram. The recovery's indices are
-checked against the old route's. g is ``chip_smoke._spiky``;
+checked against the old route's. The TS encode (``ts_encode``, the
+plan's kernel of the timed tree) and the TS route's recovery (old route:
+``ts.decode`` + ``heavymix(estimates=)``; where the tree has it,
+``ops.ts_heavymix_recover``, the TS-map scores kernel + the select, its
+indices checked against the old route's) are timed at the step's widths
+and at 16,384, the encode held to its plain version. g is
+``chip_smoke._spiky``;
 the timing (``chip_smoke.time_ms``, 10 calls after a warm-up) and the
 encode's tolerance (``ENCODE_REL_TOL`` * max|S|; the decode bit-equal) are
 ``chip_smoke.py``'s. Prints one JSON line per (kernel, width, bucket); with
@@ -76,6 +82,42 @@ def recover_fns(torch, ops, sd, topk_lower_index, cfg, sk, d, k):
         out.append(("topk_select", lambda: topk_select(est, k, hist),
                     {"k": k}))
     return out
+
+
+def ts_fns(torch, ops, cs_, g, cfg, d, k):
+    """(name, call, check) of the TS encode and of the TS route's recovery
+    (old route, and ``ops.ts_heavymix_recover`` where the tree has it) at
+    the exact sketch geometry ``cfg``; returns also whether all checks
+    held."""
+    from repro_torch.core import heavymix as hm
+    from repro_torch.core import ts_sketch as tsk
+    from repro_torch.kernels.ts_encode import ts_encode, ts_encode_plain
+    tcfg = tsk.TSketchConfig(d=d, rows=cfg.rows, width=cfg.width,
+                             seed=cfg.seed)
+    sk = ts_encode(tcfg, g)
+    want = ts_encode_plain(tcfg, g)
+    err = float((sk - want).abs().max())
+    lim = cs_.ENCODE_REL_TOL * float(want.abs().max())
+    del want
+    bit_equal = torch.equal(sk, ts_encode(tcfg, g))
+
+    def old_route():
+        est = tsk.decode(tcfg, sk, d)
+        return hm.heavymix(cfg, sk, k, d, estimates=est)[0]
+
+    out = [("ts_encode", lambda: ts_encode(tcfg, g),
+            {"max_abs_err": err, "limit": lim, "ok": err <= lim,
+             "two_launches_bit_equal": bit_equal}),
+           ("ts_recover_old_route", old_route, {"k": k})]
+    ok = err <= lim and bit_equal
+    if hasattr(ops, "ts_heavymix_recover"):
+        equal = torch.equal(old_route(),
+                            ops.ts_heavymix_recover(tcfg, sk, k, d)[0])
+        ok = ok and equal
+        out.append(("ts_heavymix_recover",
+                    lambda: ops.ts_heavymix_recover(tcfg, sk, k, d),
+                    {"k": k, "idx_equal": equal}))
+    return out, ok
 
 
 def main() -> int:
@@ -133,6 +175,9 @@ def main() -> int:
                 fns += recover_fns(torch, ops, sd, topk_lower_index, cfg, sk,
                                    d, part.k)
                 ok = ok and all(f[2].get("idx_equal", True) for f in fns)
+                ts_f, ts_ok = ts_fns(torch, ops, cs_, g, cfg, d, part.k)
+                fns += ts_f
+                ok = ok and ts_ok
             for name, fn, check in fns:
                 if args.breakdown:
                     print(json.dumps({"tag": args.tag, "kernel": name,

@@ -23,8 +23,10 @@ where the reference calls the pure-jnp ``heavymix.heavymix``; the two
 select the same indices in the same order, below and above the
 reference's chunked threshold d > 2^22 (pinned in
 tests/test_torch_compression.py and tests/test_torch_kernels.py).
-``encoder="ts"`` sketches with ``kernels.ts_encode`` and recovers from the
-TS decode's estimates (``heavymix(estimates=...)``), as the reference.
+``encoder="ts"`` sketches with ``kernels.ts_encode`` and recovers through
+``kernels.ops.ts_heavymix_recover`` (the TS-map scores kernel and the same
+select), which selects what the reference's ``heavymix(...,
+estimates=ts.decode(...))`` selects.
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ import torch
 from repro_torch.core import allreduce as ar
 from repro_torch.core import count_sketch as cs
 from repro_torch.core import error_feedback as ef
-from repro_torch.core import heavymix as hm
 from repro_torch.core import ts_sketch as ts
 from repro_torch.core.heavymix import topk_lower_index
 from repro_torch.kernels import ops as kops
@@ -196,9 +197,8 @@ class _SketchBased:
         """HEAVYMIX's k indices from one worker's copy of the summed
         sketch (the TS route recovers from the TS decode's estimates)."""
         if self.encoder == "ts":
-            est = ts.decode(self._ts_cfg(d), sketch_sum, d)
-            return hm.heavymix(self.sketch, sketch_sum, self.k, d,
-                               estimates=est)[0]
+            return kops.ts_heavymix_recover(self._ts_cfg(d), sketch_sum,
+                                            self.k, d)[0]
         return kops.heavymix_recover(self.sketch, sketch_sum, self.k, d)[0]
 
     def _recover(self, sketch_sum: torch.Tensor, u: torch.Tensor, d: int, *,

@@ -1,12 +1,14 @@
-// Device helpers shared by the port's kernels: the Count-Sketch gather and
-// median-of-R of the decode and HEAVYMIX scores kernels (sketch_decode.cu,
+// Device helpers shared by the port's kernels: the gather and median-of-R
+// of the decode and HEAVYMIX scores kernels (sketch_decode.cu,
 // heavymix_scores.cu), the input conversion of the encoders
 // (sketch_encode.cu, ts_encode.cu), and the grid of a grid-stride loop.
 //
-// est(i) = median_r sign_r(i) * S[r, h_r(i)]   (even R: mean of the two
-//                                               middle values)
-// with the multiply-shift hashes of repro/core/count_sketch.py in uint32
-// arithmetic (wrap-around mod 2^32, as the reference).
+// est(i) = median_r sign_r(i) * S[r, bucket_r(i)]   (even R: mean of the
+//                                                   two middle values)
+// The bucket and sign map is a template parameter: ExactMap, the
+// multiply-shift hashes of repro/core/count_sketch.py in uint32 arithmetic
+// (wrap-around mod 2^32, as the reference), or TsMap (ts_map.cuh), the
+// TS-sketch's digit transpose of repro/core/ts_sketch.py.
 //
 // The R gathered values fill N slots (N = 8 or 32, a compile-time
 // constant) padded with +inf. A compare-exchange network with
@@ -34,7 +36,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
-// Copies the (rows, 4) hash parameters [a, b, c, d] into shared memory.
+// Copies a map's (rows, 4) row parameters into shared memory.
 __device__ __forceinline__ void load_hash(uint32_t* sh,
                                           const uint32_t* __restrict__ hp,
                                           int rows) {
@@ -42,27 +44,43 @@ __device__ __forceinline__ void load_hash(uint32_t* sh,
   __syncthreads();
 }
 
+// The exact sketch's map: multiply-shift hashes of the coordinate. p: the
+// row's (a, b, c, d); bucket = (a * i + b) >> (32 - log2 W), sign = the top
+// bit of c * i + d.
+struct ExactMap {
+  int shift;  // 32 - log2(W)
+  __device__ __forceinline__ uint32_t bucket(const uint32_t* p,
+                                             uint32_t i) const {
+    const uint32_t hb = p[0] * i + p[1];
+    return shift >= 32 ? 0u : (hb >> shift);
+  }
+  __device__ __forceinline__ uint32_t sign_bit(const uint32_t* p,
+                                               uint32_t i) const {
+    return (p[2] * i + p[3]) & 0x80000000u;
+  }
+};
+
+template <class Map>
 __device__ __forceinline__ float gather(const float* __restrict__ sk,
                                         const uint32_t* sh, int r,
-                                        uint32_t i, int shift,
+                                        uint32_t i, const Map& map,
                                         int64_t width) {
-  const uint32_t hb = sh[4 * r] * i + sh[4 * r + 1];
-  const uint32_t hs = sh[4 * r + 2] * i + sh[4 * r + 3];
-  const uint32_t bucket = shift >= 32 ? 0u : (hb >> shift);
-  const float v = sk[(int64_t)r * width + bucket];
-  return (hs >> 31) ? -v : v;
+  const uint32_t* p = sh + 4 * r;
+  const float v = sk[(int64_t)r * width + map.bucket(p, i)];
+  return map.sign_bit(p, i) ? -v : v;
 }
 
 // Median over the rows of coordinate i's R signed bucket values.
-template <int N>
+template <int N, class Map>
 __device__ __forceinline__ float median_estimate(const float* __restrict__ sk,
                                                  const uint32_t* sh,
                                                  int rows, uint32_t i,
-                                                 int shift, int64_t width) {
+                                                 const Map& map,
+                                                 int64_t width) {
   float v[N];
 #pragma unroll
   for (int r = 0; r < N; ++r) {
-    v[r] = r < rows ? gather(sk, sh, r, i, shift, width) : INFINITY;
+    v[r] = r < rows ? gather(sk, sh, r, i, map, width) : INFINITY;
   }
 #pragma unroll
   for (int a = 0; a < N - 1; ++a) {
@@ -84,10 +102,11 @@ __device__ __forceinline__ float median_estimate(const float* __restrict__ sk,
   return (rows & 1) ? hi : 0.5f * (lo + hi);
 }
 
-// Grid for a grid-stride loop over n items: at most ~16 blocks per SM.
-inline unsigned grid_for(int64_t n, int threads) {
+// Grid for a grid-stride loop over n items on a card of sms SMs: at most
+// 16 blocks an SM.
+inline unsigned grid_for(int64_t n, int threads, int sms) {
   int64_t blocks = (n + threads - 1) / threads;
-  const int64_t cap = 132 * 16;
+  const int64_t cap = (int64_t)(sms > 0 ? sms : 1) * 16;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   return (unsigned)blocks;

@@ -52,7 +52,8 @@ decode_kernel(const float* __restrict__ sk, int64_t width,
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d;
        j += stride) {
     const float e = sketch_common::median_estimate<N>(
-        sk, sh, rows, (uint32_t)(offset + j), shift, width);
+        sk, sh, rows, (uint32_t)(offset + j), sketch_common::ExactMap{shift},
+        width);
     est[j] = e;
     radix_select::hist_add(h,
                            radix_select::key_bits(e) >> radix_select::kShift1);
@@ -63,15 +64,17 @@ decode_kernel(const float* __restrict__ sk, int64_t width,
 }  // namespace
 
 // hist: a zeroed (2048,) u32 array that receives the histogram of bits
-// 30..20 of |est|. Returns cudaGetLastError() after the launch.
+// 30..20 of |est|; sms: the card's SM count (the grid). Returns
+// cudaGetLastError() after the launch.
 extern "C" int sketch_decode_launch(const void* sketch, int64_t width,
                                     const void* hash_params, int rows,
                                     int shift, int64_t offset, int64_t d,
-                                    void* est, void* hist, void* stream) {
+                                    void* est, void* hist, int sms,
+                                    void* stream) {
   if (rows < 1 || rows > sketch_common::kMaxRows) {
     return (int)cudaErrorInvalidValue;
   }
-  const unsigned g = sketch_common::grid_for(d, kThreads);
+  const unsigned g = sketch_common::grid_for(d, kThreads, sms);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sk = static_cast<const float*>(sketch);
   const uint32_t* hp = static_cast<const uint32_t*>(hash_params);

@@ -11,6 +11,11 @@ CPU tests run the same Python path the card runs: ``sketch_decode`` where
 the reference ranks by |est| (d > 2^22 and d > 4k), ``heavymix_scores``
 below that. It selects what ``core.heavymix.heavymix`` selects, index for
 index, in both regimes; on the card it syncs with the host nowhere.
+
+``ts_heavymix_recover`` is the TS route's recovery (``GsSGD(encoder="ts")``):
+the scores kernel with the TS-sketch's map, then the same select. It selects
+what ``core.heavymix.heavymix(..., estimates=ts_sketch.decode(...))``
+selects: the boosted-score top-k at every d.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ import torch
 from repro_torch.core import count_sketch as cs
 from repro_torch.core.count_sketch import SketchConfig
 from repro_torch.core.heavymix import _CHUNK
-from repro_torch.kernels.heavymix_topk import heavymix_scores_hist
+from repro_torch.core.ts_sketch import TSketchConfig
+from repro_torch.kernels.heavymix_topk import (heavymix_scores_hist,
+                                               heavymix_scores_ts_hist)
 from repro_torch.kernels.sketch_decode import (sketch_decode,
                                                sketch_decode_bucketed,
                                                sketch_decode_hist)
@@ -64,6 +71,25 @@ def heavymix_recover(cfg: SketchConfig, sketch: torch.Tensor, k: int, d: int
         return idx, est[idx]
     thr = cs.l2sq_estimate(sk) / k
     scores, est, hist = heavymix_scores_hist(cfg, sk, thr, int(d))
+    _, idx = topk_select(scores, k, hist)
+    return idx, est[idx]
+
+
+def ts_heavymix_recover(tcfg: TSketchConfig, sketch: torch.Tensor, k: int,
+                        d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """HEAVYMIX recovery from a summed TS sketch -> (idx (k,), est (k,)).
+
+    The reference (``repro/core/compression.py``, ``encoder="ts"``) decodes
+    every coordinate (``ts.decode``) and passes the estimates to
+    ``heavymix(..., estimates=)``, which takes no chunked route: at every d
+    it ranks the boosted scores |est| + 1e30 * [est^2 >= l2sq / k], so when
+    the heavy set outnumbers k the lowest-index heavy coordinates win. The
+    TS-map scores kernel writes est and those scores and counts the select's
+    first digit; the threshold stays a device tensor (no host sync).
+    """
+    sk = sketch.to(torch.float32)
+    thr = cs.l2sq_estimate(sk) / k
+    scores, est, hist = heavymix_scores_ts_hist(tcfg, sk, thr, int(d))
     _, idx = topk_select(scores, k, hist)
     return idx, est[idx]
 

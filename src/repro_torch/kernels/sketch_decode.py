@@ -33,7 +33,7 @@ import torch
 from repro_torch.core import count_sketch as cs
 from repro_torch.core.count_sketch import SketchConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch
+from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch, sm_count
 from repro_torch.kernels.sketch_encode import hash_on_device
 from repro_torch.kernels.topk_select import RADIX_BINS, radix_hist_plain
 
@@ -43,7 +43,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("sketch_decode")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.sketch_decode_launch.argtypes = [p, i64, p, i32, i32, i64, i64, p, p,
-                                         p]
+                                         i32, p]
     lib.sketch_decode_launch.restype = i32
     return lib
 
@@ -97,7 +97,7 @@ def _launch(cfg: SketchConfig, sketch: torch.Tensor, d: int, offset: int
     rc = lib.sketch_decode_launch(
         sk.data_ptr(), cfg.width, hp.data_ptr(), cfg.rows,
         32 - cfg.log2_width, offset, d, est.data_ptr(), hist.data_ptr(),
-        stream)
+        sm_count(sk.device), stream)
     if rc != 0:
         raise RuntimeError(f"sketch_decode launch failed: cudaError {rc}")
     LAUNCHES["sketch_decode"] += 1

@@ -133,7 +133,16 @@ def _wrapper_calls():
         "ts_encode": lambda: ts_encode.ts_encode(
             TSketchConfig(d=100, rows=3, width=256),
             torch.empty(100, **meta)),
+        "heavymix_scores_ts": lambda: heavymix_topk.heavymix_scores_ts_hist(
+            TSketchConfig(d=100, rows=3, width=256),
+            torch.empty((3, 256), **meta), torch.empty((), **meta), 100),
     }
+
+
+# Every C entry point the kernel modules bind, by library.
+_ENTRIES = ("sketch_encode_launch", "heavymix_scores_launch",
+            "heavymix_scores_ts_launch", "sketch_decode_launch",
+            "ts_encode_launch", "ts_encode_onepass_launch")
 
 
 _KERNEL_MODULES = (sketch_encode, heavymix_topk, sketch_decode, ts_encode)
@@ -155,7 +164,7 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
 
     calls = _wrapper_calls()
     assert set(calls) == {"sketch_encode", "heavymix_scores",
-                          "sketch_decode", "ts_encode"}
+                          "sketch_decode", "ts_encode", "heavymix_scores_ts"}
     monkeypatch.setattr(build, "load", missing)
     clear()
     for name, call in calls.items():
@@ -164,7 +173,7 @@ def test_kernel_wrappers_never_fall_back(monkeypatch):
     # with a library at hand, a tensor that is neither CPU nor CUDA is
     # refused before any launch
     monkeypatch.setattr(build, "load", lambda name: SimpleNamespace(**{
-        f"{n}_launch": SimpleNamespace() for n in calls}))
+        e: SimpleNamespace() for e in _ENTRIES}))
     clear()
     for name, call in calls.items():
         with pytest.raises(ValueError, match="needs a CUDA tensor"):

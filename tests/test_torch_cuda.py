@@ -15,22 +15,28 @@ so their estimates and scores must be bit-equal, and the first-digit
 histograms they count on request must equal the plain histogram of the
 same keys. The top-k radix select picks exact keys: indices equal as
 returned and values bit-equal to its plain version and to
-``topk_lower_index``. The TS encode kernel
-adds each bucket's contributors in a fixed order (bit-reproducible run to
-run) but another order than the plain ``index_add_``: 1e-4 * max|S|.
+``topk_lower_index``. The TS encode kernels (one-pass and R-pass)
+add each bucket's contributors in a fixed order (bit-reproducible run to
+run) but another order than the plain ``index_add_``: 1e-4 * max|S|. The
+TS-map scores kernel gathers and sorts the same values as ``ts.decode``:
+est and scores bit-equal, and the TS recovery selects the plain route's
+indices.
 """
 
 import pytest
 import torch
 
 from repro_torch.core import count_sketch as cs
+from repro_torch.core import heavymix as hm
 from repro_torch.core import ts_sketch as ts
 from repro_torch.core.heavymix import topk_lower_index
 from repro_torch.kernels import ops
 from repro_torch.kernels.dispatch import LAUNCHES
 from repro_torch.kernels.heavymix_topk import (heavymix_scores,
                                                heavymix_scores_hist,
-                                               heavymix_scores_plain)
+                                               heavymix_scores_plain,
+                                               heavymix_scores_ts_hist,
+                                               heavymix_scores_ts_plain)
 from repro_torch.kernels.sketch_decode import (sketch_decode,
                                                sketch_decode_hist,
                                                sketch_decode_plain)
@@ -38,7 +44,8 @@ from repro_torch.kernels.topk_select import (radix_hist_plain, topk_select,
                                              topk_select_plain)
 from repro_torch.kernels.sketch_encode import (sketch_encode,
                                                sketch_encode_plain)
-from repro_torch.kernels.ts_encode import ts_encode, ts_encode_plain
+from repro_torch.kernels.ts_encode import (onepass_plan, rows_plan,
+                                           ts_encode, ts_encode_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -249,3 +256,91 @@ def test_recover_syncs_with_host_nowhere(card):
         idx_c, est_c = ops.heavymix_recover(cfg, sk, k, d)
         assert torch.equal(idx.cpu(), idx_c)
         assert torch.equal(est.cpu(), est_c)
+
+
+@pytest.mark.parametrize("kernel", ["onepass", "rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d,rows,width", [
+    (3_000_001, 5, 1 << 16), (600_001, 3, 1 << 14), (1 << 22, 2, 1 << 14),
+    (5_000_003, 6, 1 << 17), (20_000_001, 4, 1 << 17),
+    (9_000_001, 5, 1 << 15)])
+def test_ts_encode_each_plan(card, kernel, dtype, d, rows, width):
+    """Both TS encode kernels at geometries the one-pass kernel takes
+    (n_max 32..256, 2..6 rows, d far below d_pad or equal to it): within
+    1e-4 * max|S| of plain and bit-equal between two launches."""
+    cfg = ts.TSketchConfig(d=d, rows=rows, width=width, seed=4)
+    plan = onepass_plan(cfg) if kernel == "onepass" else rows_plan(cfg)
+    assert plan is not None
+    gen = torch.Generator(device=card).manual_seed(d)
+    g = torch.randn(d, generator=gen, device=card).to(dtype)
+    got = ts_encode(cfg, g, plan)
+    assert torch.equal(got, ts_encode(cfg, g, plan))
+    want = ts_encode_plain(cfg, g)
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def test_ts_encode_onepass_unaligned_g(card):
+    """A g whose base is not 16-byte aligned (a slice at an odd offset):
+    the one-pass kernel reads it element by element."""
+    cfg = ts.TSketchConfig(d=3_000_001, rows=5, width=1 << 16, seed=2)
+    gen = torch.Generator(device=card).manual_seed(2)
+    g = torch.randn(3_000_002, generator=gen, device=card)[1:]
+    got = ts_encode(cfg, g, onepass_plan(cfg))
+    want = ts_encode_plain(cfg, g)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _ts_sketch(card, d, rows, width, seed):
+    cfg = ts.TSketchConfig(d=d, rows=rows, width=width, seed=seed)
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return cfg, torch.randn((rows, cfg.width), generator=gen, device=card)
+
+
+@pytest.mark.parametrize("d,rows,width", [
+    (20_000, 3, 256), (20_000, 4, 1024), (70_000, 5, 16), (5_000_003, 5,
+                                                            1 << 14),
+    (20_000, 17, 512)])
+def test_ts_scores_kernel_bit_equal(card, d, rows, width):
+    """The TS-map scores: est and scores bit-equal to ``ts.decode`` and the
+    reference's boost, the histogram equal, one launch counted as
+    heavymix_scores_ts."""
+    cfg, sk = _ts_sketch(card, d, rows, width, rows)
+    thr = cs.l2sq_estimate(sk) / 1000
+    before = dict(LAUNCHES)
+    sc, est, hist = heavymix_scores_ts_hist(cfg, sk, thr, d)
+    assert LAUNCHES["heavymix_scores_ts"] == before.get(
+        "heavymix_scores_ts", 0) + 1
+    assert LAUNCHES["heavymix_scores"] == before.get("heavymix_scores", 0)
+    sc_p, est_p = heavymix_scores_ts_plain(cfg, sk, thr, d)
+    assert torch.equal(est, est_p) and torch.equal(sc, sc_p)
+    assert torch.equal(hist, radix_hist_plain(sc_p))
+
+
+def test_ts_recover_matches_plain_route(card):
+    """At d ~ 5M, heavy set >> k: ops.ts_heavymix_recover selects what
+    ts.decode + heavymix(estimates=) selects, on the card and on the CPU."""
+    d, k = 5_000_003, 20_000
+    cfg, sk = _ts_sketch(card, d, 5, 1 << 14, 8)
+    ccfg = cs.SketchConfig(rows=5, width=1 << 14, seed=8)
+    idx, est = ops.ts_heavymix_recover(cfg, sk, k, d)
+    want = hm.heavymix(ccfg, sk, k, d, estimates=ts.decode(cfg, sk, d))
+    assert torch.equal(idx, want[0]) and torch.equal(est, want[1])
+    idx_c, est_c = ops.ts_heavymix_recover(cfg, sk.cpu(), k, d)
+    assert torch.equal(idx.cpu(), idx_c) and torch.equal(est.cpu(), est_c)
+
+
+def test_ts_recover_syncs_with_host_nowhere(card):
+    d, k = 5_000_003, 20_000
+    cfg, sk = _ts_sketch(card, d, 5, 1 << 14, 9)
+    ops.ts_heavymix_recover(cfg, sk, k, d)
+    torch.cuda.synchronize()
+    before = LAUNCHES["topk_select"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, _ = ops.ts_heavymix_recover(cfg, sk, k, d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert LAUNCHES["topk_select"] == before + 1
+    assert torch.equal(idx, ops.ts_heavymix_recover(cfg, sk, k, d)[0])
