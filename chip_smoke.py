@@ -28,6 +28,10 @@ Phases (any failure exits non-zero and prints no result line):
                 scores kernel with its histogram, then the select) against
                 its plain version and its old route (``ts.decode`` +
                 ``heavymix(estimates=)``), once under the sync check.
+                NaN: bucket 1's sketch with NaN planted, through the decode,
+                the scores and the TS-map scores kernels (bits equal to
+                plain, NaN at the same coordinates) and the select (the
+                reference's order, NaN first).
 3. train     — the main path: three gs-SGD steps of qwen3-4b at its
                 published widths (depth cut to 2 layers), P=2 workers,
                 buckets=2, psum, AdamW, SketchSpec(rows=5, width=None,
@@ -45,17 +49,36 @@ Phases (any failure exits non-zero and prints no result line):
                 and the recovery through the TS-map scores kernel and the
                 select (once per recovery: 12 times); then one more step
                 under the profiler, as in 4 (not counted).
-6. parity    — two steps of examples/specs/qwen3_smoke.json on the card
+6. train_interleave — the same full-width cell at buckets=4 with the
+                chunked backward and the fused encode (bwd_chunks=2,
+                fuse_encode=True): the partial encodes timed at the
+                fragment sizes the cell gives them against the whole-bucket
+                encode; three steps, counted (sketch_encode 14 times a step:
+                7 fragments x 2 workers; the decode for buckets 0-2, the
+                scores kernel for bucket 3, the select for each; no plain
+                version called); one more step with each fused sketch held
+                against the whole-bucket encode of the same u; one
+                profiled step (profile_interleave: split, idle share, peak
+                memory); then three steps of the same cell with
+                bwd_chunks=None from the same seed (train_bucketed4): the
+                first losses equal, the later ones within
+                INTERLEAVE_LOSS_RTOL, and after the three steps the same
+                selected coordinates (EF zero pattern) and the params within
+                INTERLEAVE_PARAM_RTOL / _ATOL; one profiled step of it
+                (profile_bucketed4).
+7. parity    — two steps of examples/specs/qwen3_smoke.json on the card
                 (kernels) and on the CPU (plain versions) from the same
                 params and batches: losses and selected coordinates agree.
                 Its buckets are below 2^22: the scores kernel's path (with
                 its histogram, then the select).
-7. baselines — every compressor of the registry, two smoke-spec steps on the
+8. baselines — every compressor of the registry, two smoke-spec steps on the
                 card and on the CPU from the same params and batches.
-8. cli       — ``python -m repro_torch.launch.train --spec
-                examples/specs/qwen3_smoke.json`` on the card.
+9. cli       — ``python -m repro_torch.launch.train --spec
+                examples/specs/qwen3_smoke.json`` on the card, then the same
+                with ``--buckets 4 --bwd-chunks 2 --fuse-encode``.
 
-Every path that launches kernels (train, train_ts, parity) runs with every
+Every path that launches kernels (train, train_ts, train_interleave,
+parity) runs with every
 launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts.
 
@@ -91,6 +114,25 @@ ENCODE_REL_TOL = 1e-4   # |kernel - plain| / max|S|: the encoders add in
 PARITY_LOSS_RTOL = 1e-3  # card vs CPU: f32 matmuls and sketch sums in
 #                          another order, then AdamW (the CPU port matches
 #                          the JAX package at 1e-4)
+INTERLEAVE_LOSS_RTOL = 1e-5  # interleaved (fused) vs bucketed step on the
+#                          card, after the first step (whose losses are
+#                          equal: the same forward). The fused sketch is
+#                          within ENCODE_REL_TOL * max|S| of the whole-bucket
+#                          encode, so the runs' estimates differ by at most
+#                          2e-4 * max|S|, and only coordinates in that band
+#                          of the k-th key can change places in the
+#                          selection; the rest is the same ops on the same
+#                          values (the selected coordinates' exact values are
+#                          fetched). A swap moves one param by one AdamW step
+#                          (about lr) and the loss by about lr * |g_i|, g_i
+#                          near the k-th key: well below 1e-5 of a loss near
+#                          12. The selection and the params are compared
+#                          directly too (INTERLEAVE_PARAM_*)
+INTERLEAVE_PARAM_RTOL, INTERLEAVE_PARAM_ATOL = 1e-5, 1e-6  # params after the
+#                          counted steps, as tests/test_torch_fused_encode.py
+#                          holds fused against unfused; a swapped coordinate
+#                          moves its param by about lr, far beyond atol
+INTERLEAVE_BUCKETS, INTERLEAVE_CHUNKS = 4, 2
 
 
 def log(msg: str) -> None:
@@ -151,15 +193,19 @@ def build_phase(torch):
                 log(f"[build] {name}: {line.strip()}")
 
 
-def full_width_step(torch, device):
-    """The main path's train step (no state allocated yet)."""
+def full_width_step(torch, device, buckets=2, bwd_chunks=None,
+                    fuse_encode=False):
+    """The main path's train step (no state allocated yet); with other
+    ``buckets`` / ``bwd_chunks`` / ``fuse_encode``, the same cell with that
+    exchange schedule."""
     from repro_torch.api import ExchangeSpec, SketchSpec
     from repro_torch.configs.qwen3_4b import CONFIG
     from repro_torch.core.gs_sgd import MeshAxes, make_train_step
     from repro_torch.optim import make as make_opt
     cfg = dataclasses.replace(CONFIG, n_layers=2)
     opt = make_opt("adamw", lr=TRAIN_LR)
-    spec = ExchangeSpec(compressor="gs-sgd", buckets=2, overlap=True,
+    spec = ExchangeSpec(compressor="gs-sgd", buckets=buckets, overlap=True,
+                        bwd_chunks=bwd_chunks, fuse_encode=fuse_encode,
                         allreduce_mode="psum",
                         sketch=SketchSpec(rows=5, width=None, k=None))
     ma = MeshAxes(tp=1, data=TRAIN_P, tp_axis=None)
@@ -732,6 +778,90 @@ def ts_recover_checks(torch, buckets) -> dict:
                        "src/repro/kernels/heavymix_topk.py:91", shapes)
 
 
+def _plant_nan(torch, sk, seed):
+    """A copy of sketch ``sk`` with NaN in 12 cells of row 0 and 12 of row
+    2 (one of them -NaN)."""
+    s = sk.clone()
+    gen = torch.Generator(device=s.device).manual_seed(seed)
+    cols = torch.randint(0, s.shape[1], (2, 12), generator=gen,
+                         device=s.device)
+    s[0, cols[0]] = float("nan")
+    s[2, cols[1]] = float("nan")
+    s[2, cols[1, 0]] = -float("nan")
+    return s
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _same_values(torch, a, b) -> bool:
+    """NaN at the same places and the other values bit-equal (torch.abs on
+    the card writes NaN as 0x7FFFFFFF; the select returns |x|'s own bits)."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and _bits_equal(torch, a[~nan], b[~nan]))
+
+
+def nan_checks(torch, cfg, sk, d, k):
+    """A NaN among a coordinate's R values makes its estimate NaN, as
+    ``jnp.median``. On a copy of a main-path bucket's sketch with NaN
+    planted: the decode, the scores and the TS-map scores kernels give the
+    plain version's bits (NaN at the same coordinates) and its histogram;
+    the select of each one's keys gives ``topk_lower_index``'s indices and
+    values, the reference's ``jax.lax.top_k`` order (NaN first, by
+    index)."""
+    from repro_torch.core import count_sketch as cs
+    from repro_torch.core.heavymix import topk_lower_index
+    from repro_torch.core.ts_sketch import TSketchConfig
+    from repro_torch.kernels.heavymix_topk import (heavymix_scores_hist,
+                                                   heavymix_scores_plain,
+                                                   heavymix_scores_ts_hist,
+                                                   heavymix_scores_ts_plain)
+    from repro_torch.kernels.sketch_decode import (sketch_decode_hist,
+                                                   sketch_decode_plain)
+    from repro_torch.kernels.topk_select import radix_hist_plain, topk_select
+    s = _plant_nan(torch, sk, 3)
+    thr = cs.l2sq_estimate(s) / k
+    tcfg = TSketchConfig(d=d, rows=cfg.rows, width=cfg.width, seed=cfg.seed)
+    runs = (("sketch_decode", lambda: sketch_decode_hist(cfg, s, d),
+             lambda: (sketch_decode_plain(cfg, s, d),)),
+            ("heavymix_scores", lambda: heavymix_scores_hist(cfg, s, thr, d),
+             lambda: heavymix_scores_plain(cfg, s, thr, d)),
+            ("heavymix_scores_ts",
+             lambda: heavymix_scores_ts_hist(tcfg, s, thr, d),
+             lambda: heavymix_scores_ts_plain(tcfg, s, thr, d)))
+    for name, kernel, plain in runs:
+        got = kernel()
+        want = plain()
+        for a, b in zip(got[:-1], want):
+            if not _bits_equal(torch, a, b):
+                fail(f"{name} on a sketch with NaN (d={d}) is not bit-equal "
+                     f"to plain: NaN at {int(torch.isnan(a).sum())} against "
+                     f"{int(torch.isnan(b).sum())} coordinates")
+        key, hist = got[0], got[-1]
+        if not torch.equal(hist, radix_hist_plain(want[0])):
+            fail(f"{name}'s histogram on a sketch with NaN differs from plain")
+        n_nan = int(torch.isnan(want[0]).sum())
+        if not 0 < n_nan < k:
+            fail(f"{name}: {n_nan} NaN keys, want between 0 and k={k}")
+        v, i = topk_select(key, k, hist)
+        v_o, i_o = topk_lower_index(want[0].abs(), k)
+        if not (torch.equal(i, i_o) and _same_values(torch, v, v_o)):
+            fail(f"topk_select of {name}'s keys with NaN differs from "
+                 "topk_lower_index")
+        nan_idx = torch.nonzero(torch.isnan(want[0])).reshape(-1)
+        if not (bool(torch.isnan(v[:n_nan]).all())
+                and torch.equal(i[:n_nan], nan_idx)):
+            fail(f"topk_select of {name}'s keys does not rank the NaN keys "
+                 "first, by index")
+        log(f"[kernels] NaN: {name} at d={d} R={cfg.rows} W={cfg.width}: "
+            f"{n_nan} NaN estimates, bits equal to plain, histogram equal; "
+            f"the select (k={k}) equal to topk_lower_index, NaN first")
+        del got, want, key, hist, v, i, v_o, i_o
+    del s
+
+
 def kernels_phase(torch, device, ts) -> list[dict]:
     """Every kernel at the full-width step's shapes (the encodes, the
     decode, the TS-map scores and the select at both buckets), and small
@@ -748,6 +878,7 @@ def kernels_phase(torch, device, ts) -> list[dict]:
     out = [enc] + scores_decode_checks(
         torch, device, gen, [(p.sketch, sk, d, p.k) for p, sk, d in
                              zip(parts, sks, sizes)])
+    nan_checks(torch, parts[1].sketch, sks[1], sizes[1], parts[1].k)
     del sks
     ts_row, ts_sks = ts_checks(torch, device, gen,
                                [(p.sketch, g) for p, g in zip(parts, gs)])
@@ -774,8 +905,10 @@ def check_launches(tag, counts, launched, not_launched=()):
                  "path, which should not run it")
 
 
-def train_phase(torch, cfg, opt, ts, tag="train"):
-    """Three full-width steps; counts set to 0 just before, read after."""
+def train_phase(torch, cfg, opt, ts, tag="train") -> dict:
+    """Three full-width steps; counts set to 0 just before, read after.
+    Returns the state, the stream, the counts, the step seconds, the losses
+    and the peak device memory."""
     from repro_torch.data import LMStream
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.train import train_loop
@@ -785,7 +918,8 @@ def train_phase(torch, cfg, opt, ts, tag="train"):
                       global_batch=TRAIN_BATCH, seed=0)
     sizes = ts.compressor.spec.sizes
     log(f"[{tag}] qwen3-4b widths, {cfg.n_layers} layers: d={ts.d_local} "
-        f"buckets {list(sizes)} "
+        f"buckets {list(sizes)} bwd_chunks {ts.bwd_chunks} fuse_encode "
+        f"{ts.fuse_encode} "
         f"(k, W) {[(c.k, c.sketch.width) for c in ts.compressor.parts]} "
         f"encoder {ts.compressor.parts[0].encoder} "
         f"P={ts.nworkers} batch {TRAIN_BATCH} seq {TRAIN_SEQ}")
@@ -803,7 +937,8 @@ def train_phase(torch, cfg, opt, ts, tag="train"):
         f"({peak / 2**30:.2f} GiB); launches {counts}")
     if not all(math.isfinite(x) for x in hist):
         fail(f"non-finite loss on the {tag} path: {hist}")
-    return state, stream, counts, times
+    return {"state": state, "stream": stream, "counts": counts,
+            "times": times, "losses": hist, "peak": peak}
 
 
 def full_width_ts_step(torch, device, ts, opt):
@@ -822,8 +957,8 @@ def full_width_ts_step(torch, device, ts, opt):
                            device=device)
 
 
-PHASES = ("loss_and_grad", "encode", "allreduce", "recover", "exchange",
-          "optimizer")
+PHASES = ("loss_and_grad", "forward", "backward", "encode", "allreduce",
+          "recover", "exchange", "optimizer")
 
 
 def span_split(events) -> dict:
@@ -873,6 +1008,7 @@ def profile_phase(torch, ts, state, stream, tag="profile"):
     batch = shard_batch(stream.global_batch_at(TRAIN_STEPS, ts.device),
                         ts.nworkers)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -894,7 +1030,8 @@ def profile_phase(torch, ts, state, stream, tag="profile"):
     if abs(parts_ms - busy_ms) > 1e-6 * max(busy_ms, 1.0):
         fail(f"{tag}: spans add up to {parts_ms} ms of {busy_ms} ms busy")
     out = {"step_wall_ms": wall_ms, **split,
-           "idle_share": max(0.0, 1 - busy_ms / wall_ms)}
+           "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
     log(f"[{tag}] " + json.dumps(out))
     log(f"[{tag}] spans + outside + unlinked = {parts_ms:.3f} ms = device "
         "busy (each device event counted once)")
@@ -906,6 +1043,227 @@ def profile_phase(torch, ts, state, stream, tag="profile"):
     if busy_ms <= 0:
         log(f"[{tag}] the profiler saw no device time: not measured")
     return state
+
+
+def fragment_encode_checks(torch, device, ts) -> list[dict]:
+    """The fused encode's launches at the fragment sizes the interleaved
+    cell gives them: each fragment of each bucket encoded at its offset in
+    the bucket, the partials summed (the merge), held against the plain
+    whole-bucket encode at ENCODE_REL_TOL * max|S|; times of each partial
+    encode, of the merge's adds and of the whole-bucket encode."""
+    from repro_torch.kernels.sketch_encode import (sketch_encode,
+                                                   sketch_encode_plain)
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = []
+    for b, (part, d, fr) in enumerate(zip(ts.compressor.parts,
+                                          ts.compressor.spec.sizes,
+                                          ts.plan.fragments())):
+        cfg, R, W = part.sketch, part.sketch.rows, part.sketch.width
+        g = _spiky(torch, gen, device, d, max(1, part.k // 4))
+        want = sketch_encode_plain(cfg, g)
+        lim = ENCODE_REL_TOL * float(want.abs().max())
+        parts = [sketch_encode(cfg, g[o:o + n], index_offset=o)
+                 for o, n in fr]
+
+        def merge():
+            out = parts[0]
+            for p in parts[1:]:
+                out = out + p
+            return out
+
+        err = float((merge() - want).abs().max())
+        if not err <= lim:
+            fail(f"the partial encodes of bucket {b} sum to {err} from the "
+                 f"plain whole-bucket encode (limit {lim})")
+        del want
+        frag_ms = [time_ms(torch, lambda o=o, n=n: sketch_encode(
+            cfg, g[o:o + n], index_offset=o), reps=10) for o, n in fr]
+        whole_ms = time_ms(torch, lambda: sketch_encode(cfg, g), reps=10)
+        merge_ms = time_ms(torch, merge, reps=10) if len(fr) > 1 else 0.0
+        bounds = [bound_ms(n * 4 + R * W * 4, n * R * 7.0)[0] for _, n in fr]
+        row = {"bucket": b, "d": d, "rows": R, "width": W,
+               "fragments": [{"offset": o, "n": n, "ms": ms, "bound_ms": bd}
+                             for (o, n), ms, bd in zip(fr, frag_ms, bounds)],
+               "partials_ms": sum(frag_ms), "merge_ms": merge_ms,
+               "whole_ms": whole_ms,
+               "whole_bound_ms": bound_ms(d * 4 + R * W * 4, d * R * 7.0)[0],
+               "max_abs_err": err}
+        log(f"[train_interleave] encode bucket {b} (d={d}, R={R}, W={W}): "
+            f"{len(fr)} partial(s) {[round(x, 4) for x in frag_ms]} ms = "
+            f"{sum(frag_ms):.4f} ms + merge {merge_ms:.4f} ms, whole-bucket "
+            f"encode {whole_ms:.4f} ms; partials sum within {err:.4g} of "
+            f"plain (limit {lim:.4g})")
+        rows.append(row)
+        del g, parts
+        torch.cuda.empty_cache()
+    return rows
+
+
+class plain_calls:
+    """Counts the calls of every kernel's plain version while it is open
+    (the wrappers call them by their module's global name)."""
+
+    NAMES = {"sketch_encode": ("sketch_encode_plain",),
+             "sketch_decode": ("sketch_decode_plain", "radix_hist_plain"),
+             "heavymix_topk": ("heavymix_scores_plain",
+                               "heavymix_scores_ts_plain", "radix_hist_plain"),
+             "topk_select": ("topk_select_plain",),
+             "ts_encode": ("ts_encode_plain",)}
+
+    def __enter__(self):
+        import importlib
+        self.counts, self.saved = {}, []
+        for mod_name, names in self.NAMES.items():
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            for name in names:
+                f = getattr(mod, name)
+
+                def counted(*a, _f=f, _n=name, **kw):
+                    self.counts[_n] = self.counts.get(_n, 0) + 1
+                    return _f(*a, **kw)
+
+                setattr(mod, name, counted)
+                self.saved.append((mod, name, f))
+        return self.counts
+
+    def __exit__(self, *exc):
+        for mod, name, f in self.saved:
+            setattr(mod, name, f)
+
+
+def fused_sketch_check(torch, ts, state, stream):
+    """One more interleaved step (not counted) in which every bucket's
+    merged sketch is held against the whole-bucket encode of the same u
+    (``GsSGD.stage_encode_merge``, wrapped for this step only), within
+    ENCODE_REL_TOL * max|S|."""
+    from repro_torch.core import compression as comp
+    from repro_torch.launch.train import shard_batch
+    orig = comp.GsSGD.stage_encode_merge
+    sizes = list(ts.compressor.spec.sizes)
+    seen = {}
+
+    def checked(self, pieces):
+        u, sk = orig(self, pieces)
+        whole = self._encode_workers(u)
+        err = float((sk.to(torch.float32) - whole).abs().max())
+        lim = ENCODE_REL_TOL * float(whole.abs().max())
+        seen[sizes.index(u.shape[-1])] = (len(pieces), err, lim)
+        return u, sk
+
+    comp.GsSGD.stage_encode_merge = checked
+    try:
+        batch = shard_batch(stream.global_batch_at(TRAIN_STEPS + 1, ts.device),
+                            ts.nworkers)
+        state, m = ts.fn(state, batch)
+        float(m["loss"])
+    finally:
+        comp.GsSGD.stage_encode_merge = orig
+    if sorted(seen) != list(range(len(sizes))):
+        fail(f"the fused merge ran for buckets {sorted(seen)} only")
+    for b, (n, err, lim) in sorted(seen.items()):
+        log(f"[train_interleave] fused sketch bucket {b} ({n} fragment(s)): "
+            f"max_abs_err {err:.4g} against the whole-bucket encode of the "
+            f"same u (limit {lim:.4g} = {ENCODE_REL_TOL} * max|S|)")
+        if not err <= lim:
+            fail(f"fused sketch of bucket {b} differs from the whole-bucket "
+                 f"encode: {err} > {lim}")
+    return state
+
+
+def _snapshot(state) -> dict:
+    """Worker 0's params and every worker's EF zero pattern (the last
+    step's selected coordinates), copied to the host."""
+    return {"params": {k: v[0].cpu() for k, v in state["params"].items()},
+            "selected": [(e == 0).cpu() for e in state["ef"]]}
+
+
+def compare_snapshots(got, want) -> None:
+    """The interleaved run's params and selection against the bucketed
+    run's after the same counted steps: the selected coordinates equal,
+    the params within INTERLEAVE_PARAM_RTOL / _ATOL."""
+    n_sel = sum(int(s.sum()) for s in want["selected"])
+    sel_diff = sum(int((a != b).sum())
+                   for a, b in zip(got["selected"], want["selected"]))
+    bad, worst = 0, 0.0
+    for k, b in want["params"].items():
+        diff = (got["params"][k] - b).abs()
+        bad += int((diff > INTERLEAVE_PARAM_ATOL
+                    + INTERLEAVE_PARAM_RTOL * b.abs()).sum())
+        worst = max(worst, float(diff.max()))
+    log(f"[train_interleave] after {TRAIN_STEPS} steps: selected "
+        f"coordinates {n_sel} (EF zero pattern), {sel_diff} differ; params "
+        f"max_abs_diff {worst:.4g}, {bad} beyond rtol "
+        f"{INTERLEAVE_PARAM_RTOL} / atol {INTERLEAVE_PARAM_ATOL}")
+    if sel_diff:
+        fail(f"the interleaved run selected other coordinates than the "
+             f"bucketed run: {sel_diff} of {n_sel} differ")
+    if bad:
+        fail(f"the interleaved run's params differ from the bucketed run's "
+             f"at {bad} coordinates (max {worst})")
+
+
+def train_interleave_phase(torch, device) -> dict:
+    """The full-width cell at buckets=4 with the chunked backward and the
+    fused encode, against the same cell's bucketed step (see the module
+    docstring, phase 6). Returns the launch counts and the fragment rows."""
+    cfg, opt, ts = full_width_step(torch, device, buckets=INTERLEAVE_BUCKETS,
+                                   bwd_chunks=INTERLEAVE_CHUNKS,
+                                   fuse_encode=True)
+    frags = ts.plan.fragments()
+    n_frags = sum(len(f) for f in frags)
+    log(f"[train_interleave] plan: sizes {list(ts.plan.sizes)}, readiness "
+        f"{list(ts.plan.readiness)}, order {list(ts.plan.order)}, chunks "
+        f"{list(ts.plan.chunks)}; fragments {frags} ({n_frags} a worker)")
+    frag_rows = fragment_encode_checks(torch, device, ts)
+    with plain_calls() as plain:
+        run = train_phase(torch, cfg, opt, ts, tag="train_interleave")
+    counts = run["counts"]
+    want_enc = n_frags * ts.nworkers * TRAIN_STEPS
+    if counts.get("sketch_encode") != want_enc:
+        fail(f"sketch_encode launched {counts.get('sketch_encode')} times on "
+             f"the interleaved path, not {want_enc} ({n_frags} fragments x "
+             f"{ts.nworkers} workers x {TRAIN_STEPS} steps)")
+    check_launches("train_interleave", counts,
+                   ("sketch_decode", "heavymix_scores", "topk_select"),
+                   ("ts_encode", "heavymix_scores_ts"))
+    recoveries = ts.nworkers * ts.n_buckets * TRAIN_STEPS
+    if counts.get("topk_select") != recoveries:
+        fail(f"topk_select launched {counts.get('topk_select')} times on the "
+             f"interleaved path, not once per recovery ({recoveries})")
+    if plain:
+        fail(f"plain versions called on the interleaved path: {plain}")
+    log(f"[train_interleave] sketch_encode launches {want_enc} "
+        f"= {n_frags} fragments x {ts.nworkers} workers x {TRAIN_STEPS} "
+        "steps; no plain version called")
+    snap = _snapshot(run["state"])
+    state = fused_sketch_check(torch, ts, run.pop("state"), run["stream"])
+    state = profile_phase(torch, ts, state, run["stream"],
+                          tag="profile_interleave")
+    del state
+    torch.cuda.empty_cache()
+    _, _, ts_b = full_width_step(torch, device, buckets=INTERLEAVE_BUCKETS)
+    base = train_phase(torch, cfg, opt, ts_b, tag="train_bucketed4")
+    compare_snapshots(snap, _snapshot(base["state"]))
+    del snap
+    state = profile_phase(torch, ts_b, base.pop("state"), base["stream"],
+                          tag="profile_bucketed4")
+    del state, ts_b
+    torch.cuda.empty_cache()
+    li, lb = run["losses"], base["losses"]
+    log(f"[train_interleave] losses interleaved {li} / bucketed {lb}; "
+        f"steps after the first {run['times'][1:]} / {base['times'][1:]} s; "
+        f"peak memory {run['peak']} / {base['peak']} bytes "
+        f"({(run['peak'] - base['peak']) / 2**30:+.3f} GiB)")
+    if li[0] != lb[0]:
+        fail(f"the first interleaved loss {li[0]!r} differs from the "
+             f"bucketed step's {lb[0]!r}")
+    if not _close(lb[1:], li[1:], INTERLEAVE_LOSS_RTOL):
+        fail(f"interleaved losses {li} differ from the bucketed step's {lb} "
+             f"beyond rtol {INTERLEAVE_LOSS_RTOL}")
+    log(f"[train_interleave] first losses equal; later ones within rtol "
+        f"{INTERLEAVE_LOSS_RTOL} (largest relative difference "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(li, lb)):.3g})")
+    return {"counts": counts, "fragments": frag_rows}
 
 
 def smoke_runs(torch, spec, steps=2, card="cuda"):
@@ -998,12 +1356,13 @@ def baselines_phase(torch, card="cuda"):
         f"within rtol {PARITY_LOSS_RTOL}")
 
 
-def cli_phase():
+def cli_phase(extra=()):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--spec",
-           os.path.join("examples", "specs", "qwen3_smoke.json")]
+           os.path.join("examples", "specs", "qwen3_smoke.json"), *extra]
+    log(f"[cli] {' '.join(cmd[1:])}")
     t0 = time.time()
     r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                        text=True, timeout=600)
@@ -1042,7 +1401,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[kernels] phase took {time.time() - t0:.1f} s")
     t0 = time.time()
-    state, stream, counts, _ = train_phase(torch, cfg, opt, ts)
+    run = train_phase(torch, cfg, opt, ts)
+    state, stream, counts = run["state"], run["stream"], run["counts"]
+    del run
     check_launches("train", counts, ("sketch_encode", "sketch_decode",
                                      "topk_select"),
                    ("heavymix_scores", "heavymix_scores_ts", "ts_encode"))
@@ -1058,8 +1419,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.time()
     ts_step = full_width_ts_step(torch, device, ts, opt)
-    state, stream, ts_counts, _ = train_phase(torch, cfg, opt, ts_step,
-                                              tag="train_ts")
+    run = train_phase(torch, cfg, opt, ts_step, tag="train_ts")
+    state, stream, ts_counts = run["state"], run["stream"], run["counts"]
+    del run
     check_launches("train_ts", ts_counts, ("ts_encode", "heavymix_scores_ts",
                                            "topk_select"),
                    ("sketch_encode", "sketch_decode", "heavymix_scores"))
@@ -1071,7 +1433,11 @@ def main() -> int:
         "steps")
     log(f"[train_ts] phase took {time.time() - t0:.1f} s")
     state = profile_phase(torch, ts_step, state, stream, tag="profile_ts")
-    del state, ts_step
+    del state, ts_step, ts
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    inter = train_interleave_phase(torch, device)
+    log(f"[train_interleave] phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
     parity_counts = parity_phase(torch)
@@ -1082,10 +1448,14 @@ def main() -> int:
                 "heavymix_scores": parity_counts}
     for kr in kernels:
         kr["launches"] = launches[kr["name"]][kr["name"]]
+        kr["launches_interleave"] = inter["counts"].get(kr["name"], 0)
+        if kr["name"] == "sketch_encode":
+            kr["interleave_fragments"] = inter["fragments"]
     t0 = time.time()
     baselines_phase(torch)
     log(f"[baselines] phase took {time.time() - t0:.1f} s")
     cli_phase()
+    cli_phase(("--buckets", "4", "--bwd-chunks", "2", "--fuse-encode"))
     log(f"[done] in {time.time() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

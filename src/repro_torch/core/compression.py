@@ -267,6 +267,54 @@ class GsSGD(_SketchBased):
         u = ef.add(acc, g)
         return u, self._encode_workers(u).to(self.wire_dtype)
 
+    # The fused encode of the backward interleave: stage 1 split into
+    # per-fragment partial encodes, so each backward chunk's gradient is
+    # sketched the moment it is emitted. It rests on two linearities: the
+    # EF add is elementwise (slicing commutes with it exactly), and with
+    # offset hashing the partial sketches of a tiling sum to the whole
+    # bucket's sketch.
+
+    @property
+    def can_fuse(self) -> bool:
+        """Fragment-wise encode available? The TS encoder's map has no
+        offset form: only the exact multiply-shift encoder fuses."""
+        return self.encoder == "exact"
+
+    def stage_encode_partial(self, acc_piece: torch.Tensor,
+                             g_piece: torch.Tensor, offset: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Stage 1, one fragment: EF add + each worker's partial encode of
+        the bucket slice [offset, offset + n) of (P, n) ``g_piece``.
+        Returns (u_piece (P, n), partial f32 sketches (P, R, W))."""
+        u_piece = ef.add(acc_piece, g_piece)
+        sk = torch.stack([kops.encode(self.sketch, u_piece[p],
+                                      offset=int(offset))
+                          for p in range(u_piece.shape[0])])
+        return u_piece, sk
+
+    def stage_encode_merge(self, pieces) -> tuple[torch.Tensor, torch.Tensor]:
+        """Assemble fragments into the bucket's (u, wire sketch).
+
+        ``pieces``: [(offset, u_piece, partial sketch)] tiling the bucket
+        from 0 (any order). The partials are summed in f32 in ascending
+        offset order, then cast to ``wire_dtype``, as ``stage_encode``
+        encodes then casts. Raises on a gap or an overlap.
+        """
+        pieces = sorted(pieces, key=lambda p: p[0])
+        off = 0
+        for o, u_piece, _ in pieces:
+            if int(o) != off:
+                raise ValueError(
+                    "fused encode fragments do not tile the bucket: "
+                    f"expected offset {off}, got {int(o)}")
+            off += u_piece.shape[-1]
+        u = (pieces[0][1] if len(pieces) == 1
+             else torch.cat([p[1] for p in pieces], dim=-1))
+        sk = pieces[0][2]
+        for _, _, part in pieces[1:]:
+            sk = sk + part
+        return u, sk.to(self.wire_dtype)
+
     def stage_reduce(self, sk: torch.Tensor, *, nworkers: int,
                      include: torch.Tensor | None = None):
         """Stage 2 (communication): merge the sketches over workers.

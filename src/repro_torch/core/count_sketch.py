@@ -13,8 +13,9 @@ masked to 32 bits after every multiply and add; the multiply is split in
 bit-identical to the reference's uint32 arithmetic.
 
 Median of R rows: for even R the estimate is the mean of the two middle
-values (``jnp.median``'s rule). ``torch.median`` returns the lower middle
-value instead, so it is never used here.
+values (``jnp.median``'s rule), and NaN if any of the R values is NaN.
+``torch.median`` returns the lower middle value instead, so it is never
+used here.
 
 These are the plain PyTorch paths; the CUDA kernels live in
 ``repro_torch.kernels``.
@@ -126,12 +127,16 @@ def encode(cfg: SketchConfig, g: torch.Tensor, offset: int = 0) -> torch.Tensor:
 
 
 def median_rows(x: torch.Tensor) -> torch.Tensor:
-    """Median over dim 0; for an even count the mean of the two middles."""
+    """Median over dim 0; for an even count the mean of the two middles.
+    NaN wherever any of the values is NaN, as ``jnp.median`` (``torch.sort``
+    puts NaN last, so the sorted middle alone would drop it)."""
     n = x.shape[0]
     srt = torch.sort(x, dim=0).values
     if n % 2 == 1:
-        return srt[n // 2]
-    return 0.5 * (srt[n // 2 - 1] + srt[n // 2])
+        med = srt[n // 2]
+    else:
+        med = 0.5 * (srt[n // 2 - 1] + srt[n // 2])
+    return torch.where(torch.isnan(x).any(0), float("nan"), med)
 
 
 def decode_at(cfg: SketchConfig, sketch: torch.Tensor,

@@ -14,16 +14,28 @@ loss+grad per worker -> pack_segs -> exchange (monolithic, or bucketed
 with the skewed schedule encode(0); reduce(i); encode(i+1); recover(i))
 -> g_mean = upd / P -> optimizer.
 
-Spans: each phase of the step runs under ``torch.profiler.record_function``
-(``loss_and_grad``, ``encode/b{i}``, ``allreduce/b{i}``, ``recover/b{i}``,
-``exchange`` for the monolithic exchange, ``optimizer``) — the reference's
-span names. Outside a profiler they cost one small host object each; under
-``torch.profiler.profile`` each span's device time is the sum of the
-kernels launched inside it (``chip_smoke.py`` reads them).
+With ``bwd_chunks=K`` the backward is cut into K chunks
+(``model.chunked_loss_vjp``): the forward runs for every worker, then
+``exchange_interleaved`` drives the backward itself, chunk by chunk, and
+starts each bucket's encode and sketch all-reduce at the event that
+completes its gradient, recovering one bucket behind. With
+``fuse_encode`` each emitted gradient slice is EF-added and partially
+encoded at once (Count-Sketch linearity) and the bucket's partial sketches
+are summed at its event. On one device every stage runs in program order
+on one stream; nothing overlaps yet.
 
-Left to later slices: microbatch accumulation, gradient clipping, the
-chunked backward and readiness interleave (``bwd_chunks``,
-``fuse_encode``), tp > 1 and fsdp.
+Spans: each phase of the step runs under ``torch.profiler.record_function``
+(``loss_and_grad``, or ``forward``, ``backward/chunk{j}`` and
+``backward/top`` for a chunked backward; ``encode/b{i}``,
+``allreduce/b{i}``, ``recover/b{i}``, ``exchange`` for the monolithic
+exchange, ``optimizer``): the reference's span names. A fused partial
+encode runs under its bucket's ``encode/b{i}``. Outside a profiler they
+cost one small host object each; under ``torch.profiler.profile`` each
+span's device time is the sum of the kernels launched inside it
+(``chip_smoke.py`` reads them).
+
+Left to later slices: microbatch accumulation, gradient clipping, tp > 1
+and fsdp.
 """
 
 from __future__ import annotations
@@ -35,14 +47,16 @@ from typing import Any, Callable
 import torch
 from torch.profiler import record_function as span
 
+from repro_torch.api.spec import check_exchange_config
 from repro_torch.core import allreduce as ar
 from repro_torch.core import compression as comp
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import model as mdl
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.flatten import (SEG_NAMES, FlatSpec, bucket_sizes,
-                                        init_flat_params, make_flat_spec,
-                                        pack_segs, unpack_segs)
+from repro_torch.models.flatten import (SEG_NAMES, BucketPlan, FlatSpec,
+                                        bucket_plan, init_flat_params,
+                                        make_flat_spec, pack_segs,
+                                        unpack_segs)
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -134,6 +148,186 @@ def exchange_bucketed(bc: comp.BucketedCompressor, ef_state, g_flat, *,
     return upd, ef_new, stats
 
 
+def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
+                         ef_state, bwd_steps, top_grads, *,
+                         nworkers: int, include=None,
+                         fuse_encode: bool = False):
+    """Readiness-driven bucketed exchange interleaved with backward chunks.
+
+    Port of ``repro/core/gs_sgd.py:exchange_interleaved``, on the worker
+    axis: ``bwd_steps`` / ``top_grads`` are every worker's chunked backward
+    (``worker_backward``) and emit (P, ...) gradient slices, chunk K-1
+    first, the top segments last, at the packed offsets of ``plan.emits``.
+    After each emission event every bucket whose packed range is complete
+    (``plan.readiness``) is encoded and its sketch all-reduced, and the
+    recovery runs one bucket behind:
+
+        bwd(K-1); enc(b); red(b); bwd(K-2); enc(b'); red(b'); rec(b); ...
+
+    Each bucket's chain is the same ops as ``exchange_bucketed``'s, so the
+    numbers are the bucketed exchange's for any chunk count (bit-exact at
+    one chunk). The reference also folds a PRNG key per bucket for the
+    faithful fill, which the port does not have yet (greedy fill only).
+
+    fuse_encode: each emitted slice is EF-added and partially encoded the
+    moment it is emitted (``stage_encode_partial`` at its offset inside the
+    bucket); at the bucket's event the partial sketches are summed
+    (``stage_encode_merge``). A bucket whose compressor cannot fuse (the TS
+    encoder, a dense baseline) assembles its slices and encodes them at its
+    event. Returns (upd_sum (P, d), ef_new, BucketedCommStats).
+    """
+    parts, spec = bc.parts, bc.spec
+    n = spec.n
+    by_event: dict[int, list[int]] = {}
+    for i in plan.order:
+        by_event.setdefault(plan.readiness[i], []).append(i)
+    emits: dict[int, list[tuple[int, int]]] = {}  # event -> (offset, length)
+    for off, m, ev in plan.emits:
+        emits.setdefault(ev, []).append((off, m))
+
+    fusable = [bool(fuse_encode and getattr(p, "can_fuse", False))
+               for p in parts]
+    frags: list[list] = [[] for _ in range(n)]  # (off-in-bucket, u, sketch)
+    # (packed offset, (P, m) slice); kept only for buckets that assemble
+    pieces: list[tuple[int, torch.Tensor]] = []
+    keep_pieces = not all(fusable)
+
+    def fuse_piece(off: int, arr: torch.Tensor) -> None:
+        """Partial-encode the overlap of one emitted slice with every
+        fusable bucket, at its offset inside that bucket."""
+        for i, lo, hi in plan.overlaps(off, arr.shape[-1]):
+            if not fusable[i]:
+                continue
+            o = spec.offsets[i]
+            with span(f"encode/b{i}"):
+                u_piece, sk = parts[i].stage_encode_partial(
+                    ef_state[i][:, lo - o:hi - o], arr[:, lo - off:hi - off],
+                    lo - o)
+            frags[i].append((lo - o, u_piece, sk))
+
+    def emit(ev: int, grads) -> None:
+        """Emit event ``ev``'s gradient slices, (P, ...) each, at the
+        plan's packed offsets."""
+        for (off, m), g in zip(emits[ev], grads):
+            if g.numel() != nworkers * m:
+                raise ValueError(f"event {ev} emitted {tuple(g.shape)} at "
+                                 f"offset {off}; the plan has {m} a worker")
+            if not m:
+                continue
+            arr = g.reshape(nworkers, m)
+            if keep_pieces:
+                pieces.append((off, arr))
+            fuse_piece(off, arr)
+
+    def assemble(i: int) -> torch.Tensor:
+        o, sz = spec.offsets[i], spec.sizes[i]
+        got = []
+        for off, arr in pieces:
+            lo, hi = max(o, off), min(o + sz, off + arr.shape[-1])
+            if lo < hi:
+                got.append((lo, arr[:, lo - off:hi - off]))
+        got.sort(key=lambda t: t[0])
+        if sum(a.shape[-1] for _, a in got) != sz:
+            raise ValueError(
+                f"bucket {i} (offset {o}, size {sz}) is not covered by the "
+                "emitted gradient slices at its readiness event")
+        return got[0][1] if len(got) == 1 else torch.cat(
+            [a for _, a in got], dim=-1)
+
+    us: list = [None] * n
+    sk_sum: list = [None] * n
+    scale: list = [None] * n
+    outs: list = [None] * n
+    launched: list[int] = []
+
+    def recover(i: int) -> None:
+        with span(f"recover/b{i}"):
+            outs[i] = parts[i].stage_recover(
+                us[i], sk_sum[i], scale[i], nworkers=nworkers,
+                include=include)
+        us[i] = sk_sum[i] = None
+
+    n_chunks = len(bwd_steps)
+    for ev in range(plan.n_events):
+        if ev < n_chunks:
+            with span(f"backward/chunk{ev}"):
+                _, d_cs, d_cr = bwd_steps[ev]()
+            emit(ev, (d_cs, d_cr))
+            del d_cs, d_cr
+        if ev == n_chunks - 1:  # top segments finalize with the last chunk
+            with span("backward/top"):
+                d_ts, d_tr = top_grads()
+            emit(n_chunks, (d_ts, d_tr))
+            del d_ts, d_tr
+        for i in by_event.get(ev, []):
+            with span(f"encode/b{i}"):
+                if fusable[i]:
+                    us[i], sk = parts[i].stage_encode_merge(frags[i])
+                    frags[i] = []
+                else:
+                    us[i], sk = parts[i].stage_encode(ef_state[i],
+                                                      assemble(i))
+            with span(f"allreduce/b{i}"):
+                sk_sum[i], scale[i] = parts[i].stage_reduce(
+                    sk, nworkers=nworkers, include=include)
+            del sk
+            launched.append(i)
+            while len(launched) > 1:  # recover, one bucket behind
+                recover(launched.pop(0))
+    for i in launched:
+        recover(i)
+    upd = spec.join([outs[i][0] for i in range(n)])
+    ef_new = tuple(outs[i][1] for i in range(n))
+    stats = comp.BucketedCommStats(tuple(outs[i][2] for i in range(n)),
+                                   label=bc.name + "|interleaved")
+    return upd, ef_new, stats
+
+
+def worker_backward(vjps):
+    """Every worker's chunked backward as one: ``vjps`` holds each
+    worker's ``(bwd_steps, top_grads)`` from ``model.chunked_loss_vjp``.
+    Returns the same contract on the worker axis: step j runs step j of
+    every worker and returns ``((a, b), d_cs (P, b-a, f_cs), d_cr (P,
+    b-a, f_cr))``; ``top_grads()`` returns ``(d_top_s (P, f), d_top_r (P,
+    f))``."""
+    def make_step(j: int):
+        def run():
+            outs = [steps[j]() for steps, _ in vjps]
+            return (outs[0][0], torch.stack([o[1] for o in outs]),
+                    torch.stack([o[2] for o in outs]))
+        return run
+
+    def top_grads():
+        tops = [top() for _, top in vjps]
+        return (torch.stack([t[0] for t in tops]),
+                torch.stack([t[1] for t in tops]))
+
+    return [make_step(j) for j in range(len(vjps[0][0]))], top_grads
+
+
+def flat_of_chunks(bwd_steps, top_grads, d_local: int) -> torch.Tensor:
+    """The post-accumulation fallback of a chunked backward: drain the
+    steps and reassemble ``pack_segs`` order (top_s, top_r, cycle rows
+    ascending per segment) as (P, d_local)."""
+    cs_parts, cr_parts = [], []
+    for step in bwd_steps:
+        (a, _), d_cs, d_cr = step()
+        cs_parts.append((a, d_cs))
+        cr_parts.append((a, d_cr))
+    d_ts, d_tr = top_grads()
+    nw = d_ts.shape[0]
+
+    def rows(ps):
+        return [p.reshape(nw, -1) for _, p in sorted(ps, key=lambda t: t[0])]
+
+    g = torch.cat([d_ts.reshape(nw, -1), d_tr.reshape(nw, -1)]
+                  + rows(cs_parts) + rows(cr_parts), dim=-1)
+    if g.shape[-1] != d_local:
+        raise ValueError(f"chunked gradients cover {g.shape[-1]} of "
+                         f"{d_local} coordinates")
+    return g
+
+
 # ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
@@ -153,6 +347,9 @@ class TrainStep:
     device: torch.device
     n_buckets: int = 1
     overlap: bool = True
+    bwd_chunks: int = 0           # backward chunks (0 = monolithic backward)
+    plan: BucketPlan | None = None  # readiness plan (bucketed exchange)
+    fuse_encode: bool = False     # fragment-wise encode in the interleave
 
     def init_state(self, opt: Optimizer, generator: torch.Generator) -> dict:
         """Fresh state: params drawn from ``generator``, replicated to P."""
@@ -225,16 +422,20 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         microbatch, buckets = spec.microbatch, spec.buckets
         overlap, bwd_chunks = spec.overlap, spec.bwd_chunks
         fuse_encode = spec.fuse_encode
+    check_exchange_config(
+        microbatch=microbatch, bwd_chunks=bwd_chunks,
+        fuse_encode=fuse_encode,
+        compressor=compressor_name if compressor_name else "dense",
+        buckets=buckets, overlap=overlap)
     if microbatch is not None:
         raise _unsupported("microbatch accumulation")
     if clip_norm is not None:
         raise _unsupported("gradient clipping")
-    if bwd_chunks is not None or fuse_encode:
-        raise _unsupported("the chunked backward (bwd_chunks/fuse_encode)")
 
     comp_axes = ma.dp_axes
     nworkers = ma.dp_size if comp_axes else 1
     compressor = None
+    plan = None
     bucketed = bool(buckets is not None and comp_axes)
     if comp_axes and (compressor_name not in (None, "dense") or bucketed):
         if compressor_name in (None, "dense"):
@@ -242,8 +443,15 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         else:
             compressor = comp.make(compressor_name, **(compressor_kw or {}))
         if bucketed:
-            compressor = comp.bucketize(compressor,
-                                        bucket_sizes(shapes, buckets))
+            plan = bucket_plan(shapes, buckets, bwd_chunks or 1)
+            compressor = comp.bucketize(compressor, plan.sizes)
+
+    # The readiness interleave needs a staged bucketed compressor and the
+    # pipelined schedule; otherwise a chunked backward still runs, but the
+    # exchange sees the gradient only after the whole backward.
+    interleave = (bwd_chunks is not None and plan is not None and overlap
+                  and all(hasattr(c, "stage_encode")
+                          for c in compressor.parts))
 
     def loss_and_grad(params: dict, batch: dict
                       ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -264,13 +472,42 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
             del segs, loss
         return torch.stack(losses), g_flat
 
+    def forward(params: dict, batch: dict):
+        """Every worker's chunked forward: per-worker loss (P,) and the
+        workers' backward as one (``worker_backward``). All P graphs stay
+        alive until the backward has run."""
+        losses, vjps = [], []
+        for p in range(nworkers):
+            segs = {k: params[k][p] for k in SEG_NAMES}
+            wb = {k: batch[k][p] for k in ("tokens", "labels")}
+            loss, steps, top = mdl.chunked_loss_vjp(
+                cfg, fs, segs, wb, chunks=bwd_chunks, dtype=dtype,
+                remat=remat)
+            losses.append(loss)
+            vjps.append((steps, top))
+        return torch.stack(losses), worker_backward(vjps)
+
     def train_step(state: dict, batch: dict,
                    include: torch.Tensor | None = None) -> tuple[dict, dict]:
         params, opt_state, ef, step = (state["params"], state["opt"],
                                        state["ef"], state["step"])
-        with span("loss_and_grad"):
-            losses, g_flat = loss_and_grad(params, batch)
-        if isinstance(compressor, comp.BucketedCompressor):
+        g_flat = None
+        if bwd_chunks is not None:
+            with span("forward"):
+                losses, (bwd_steps, top_grads) = forward(params, batch)
+            if not interleave:
+                with span("backward"):
+                    g_flat = flat_of_chunks(bwd_steps, top_grads, d_local)
+        else:
+            with span("loss_and_grad"):
+                losses, g_flat = loss_and_grad(params, batch)
+        if interleave:
+            kw = {} if include is None else {"include": include}
+            upd, ef_new, _ = exchange_interleaved(
+                compressor, plan, ef, bwd_steps, top_grads,
+                nworkers=nworkers, fuse_encode=fuse_encode, **kw)
+            del bwd_steps, top_grads
+        elif isinstance(compressor, comp.BucketedCompressor):
             kw = {} if include is None else {"include": include}
             upd, ef_new, _ = exchange_bucketed(
                 compressor, ef, g_flat, nworkers=nworkers, overlap=overlap,
@@ -305,4 +542,5 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                      n_buckets=(compressor.spec.n
                                 if isinstance(compressor,
                                               comp.BucketedCompressor) else 1),
-                     overlap=overlap)
+                     overlap=overlap, bwd_chunks=(bwd_chunks or 0),
+                     plan=plan, fuse_encode=fuse_encode)

@@ -7,7 +7,7 @@ is left to a later slice.
 Tie-break: ``jax.lax.top_k`` breaks ties toward the LOWER index, and
 ``torch.topk`` promises no order among ties. Heavy scores collapse to
 exactly 1e30 in f32, so ties are common; ``topk_lower_index`` reproduces
-the reference's order exactly.
+the reference's order exactly, NaN keys included (they rank first).
 """
 
 from __future__ import annotations
@@ -20,27 +20,37 @@ _BIG = 1e30  # priority boost guaranteeing heavy coords beat all fillers
 _CHUNK = 1 << 22  # coords per selection chunk (hierarchical top-k)
 
 
+def _order_key(score: torch.Tensor) -> torch.Tensor:
+    """The int32 key whose integer order is ``jax.lax.top_k``'s order of
+    the f32 ``score``: IEEE total order, so NaN ranks above +inf, -0 below
+    +0, and -NaN below -inf. For non-negative floats the key is their bits,
+    the radix select's key (``kernels/topk_select.key_bits``)."""
+    b = score.to(torch.float32).contiguous().view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
 def topk_lower_index(score: torch.Tensor, k: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` of a 1-d tensor: values descending, ties by the
-    lower index.
+    """``jax.lax.top_k`` of a 1-d f32 tensor: values descending, ties by
+    the lower index, NaN first (``_order_key``).
 
-    O(d): the k-th largest value v comes from ``torch.topk`` (its values
-    are right whatever its tie order); every index scoring above v is
-    kept, and the lowest-index entries equal to v fill the rest. A stable
-    descending sort of the k survivors, taken in ascending index order,
-    then orders them as the reference does.
+    O(d): the k-th largest key v comes from ``torch.topk`` over the keys
+    (its values are right whatever its tie order); every index keyed above
+    v is kept, and the lowest-index entries equal to v fill the rest. A
+    stable descending sort of the k survivors, taken in ascending index
+    order, then orders them as the reference does.
     """
     n = score.shape[0]
     k = int(k)
+    key = _order_key(score)
     if k >= n:
-        order = torch.sort(score, descending=True, stable=True).indices
+        order = torch.sort(key, descending=True, stable=True).indices
         return score[order], order
-    kth = torch.topk(score, k, sorted=False).values.min()
-    above = torch.nonzero(score > kth).reshape(-1)
-    ties = torch.nonzero(score == kth).reshape(-1)[:k - above.numel()]
+    kth = torch.topk(key, k, sorted=False).values.min()
+    above = torch.nonzero(key > kth).reshape(-1)
+    ties = torch.nonzero(key == kth).reshape(-1)[:k - above.numel()]
     cand = torch.sort(torch.cat([above, ties])).values
-    order = torch.sort(score[cand], descending=True, stable=True).indices
+    order = torch.sort(key[cand], descending=True, stable=True).indices
     idx = cand[order]
     return score[idx], idx
 

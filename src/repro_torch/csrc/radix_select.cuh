@@ -4,7 +4,8 @@
 //
 // The ranking key of a float x is the bits of |x|: bit 31 cleared, so -0
 // ranks as +0. For non-negative floats (+0, subnormals, normals, +inf)
-// uint order is value order; NaN keys are outside the contract. The select
+// uint order is value order, and a NaN key (above 0x7F800000) ranks above
+// +inf, as jax.lax.top_k ranks |NaN|. The select
 // takes the 31 key bits as three MSD digits of 11, 11 and 9 bits:
 //
 //   digit 1 = bits 30..20 (2048 bins)   digit 2 = bits 19..9 (2048 bins)

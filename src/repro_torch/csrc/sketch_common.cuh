@@ -16,6 +16,10 @@
 // compile-time indices too, so the slots stay in registers. A
 // runtime-indexed array would live in local memory: at R = 5 an insertion
 // sort in such an array took 1.43x as long on an H100 (PERF.md).
+//
+// NaN: fminf/fmaxf return the non-NaN operand, so the network alone would
+// drop a NaN value. The estimate is NaN (0x7FC00000, the plain version's
+// NaN) when any of the R values is NaN, as jnp.median gives.
 
 #pragma once
 
@@ -78,9 +82,11 @@ __device__ __forceinline__ float median_estimate(const float* __restrict__ sk,
                                                  const Map& map,
                                                  int64_t width) {
   float v[N];
+  bool any_nan = false;
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     v[r] = r < rows ? gather(sk, sh, r, i, map, width) : INFINITY;
+    any_nan |= isnan(v[r]);
   }
 #pragma unroll
   for (int a = 0; a < N - 1; ++a) {
@@ -99,6 +105,7 @@ __device__ __forceinline__ float median_estimate(const float* __restrict__ sk,
     if (t == lo_at) lo = v[t];
     if (t == hi_at) hi = v[t];
   }
+  if (any_nan) return __int_as_float(0x7FC00000);
   return (rows & 1) ? hi : 0.5f * (lo + hi);
 }
 

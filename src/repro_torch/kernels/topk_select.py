@@ -6,10 +6,11 @@ its kernels (``repro/core/heavymix.py:65, :88, :93``).
 ``topk_select(x, k, hist)`` returns what
 ``core.heavymix.topk_lower_index(x.abs(), k)`` returns: the k
 largest |x|, values descending, ties broken by the lower index (for
-non-negative keys, such as HEAVYMIX scores, |x| is x). Keys must not be NaN.
+non-negative keys, such as HEAVYMIX scores, |x| is x).
 
 The ranking key is the bits of |x| (bit 31 cleared): for non-negative
-floats, +0, subnormals and +inf included, integer order is value order.
+floats, +0, subnormals and +inf included, integer order is value order,
+and a NaN key ranks above +inf, as ``jax.lax.top_k`` ranks |NaN|.
 Both versions run an MSD radix select over the 31 key bits in digits of
 11, 11 and 9 bits (``csrc/radix_select.cuh``):
 
@@ -133,7 +134,7 @@ def topk_select_plain(x: torch.Tensor, k: int, hist: torch.Tensor
 def topk_select(x: torch.Tensor, k: int, hist: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``jax.lax.top_k(|x|, k)``: (values (k,) f32 descending, indices (k,)
-    int64), ties to the lower index. ``x``: (n,) f32, no NaN. ``hist``:
+    int64), ties to the lower index, NaN first. ``x``: (n,) f32. ``hist``:
     the (2048,) int32 histogram of key bits 30..20 from the kernel that
     wrote ``x`` (``sketch_decode_hist``, ``heavymix_scores_hist``).
 

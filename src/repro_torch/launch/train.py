@@ -11,6 +11,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --spec examples/specs/qwen3_smoke.json
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --smoke \
       --workers 2 --steps 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --spec examples/specs/qwen3_smoke.json \
+      --buckets 4 --bwd-chunks 2 --fuse-encode --device cpu
 
 Not ported yet: checkpoints, ``--trace``, ``--json`` traces, the drift
 watchdog and ``--auto-tune``.
@@ -40,6 +42,11 @@ def build(spec: RunSpec, device=None):
         print(f"bucketed exchange: {ts.n_buckets} buckets "
               f"(sizes {list(sizes)}), "
               f"overlap={'on' if spec.exchange.overlap else 'off'}")
+    if ts.bwd_chunks:
+        ready = list(ts.plan.readiness) if ts.plan is not None else None
+        print(f"backward-interleaved readiness: {ts.bwd_chunks} chunk(s), "
+              f"bucket readiness {ready}, "
+              f"fuse_encode={'on' if ts.fuse_encode else 'off'}")
     return cfg, opt, ma, ts
 
 

@@ -233,6 +233,123 @@ def bucket_sizes(shapes: dict[str, tuple[int, ...]],
     return tuple(sizes)
 
 
+def chunk_plan(n_cycles: int, n_chunks: int) -> tuple[tuple[int, int], ...]:
+    """Split cycles [0, n) into <= n_chunks contiguous [a, b) chunks.
+
+    Sizes differ by at most one. The chunked backward consumes chunks in
+    REVERSE order (chunk n_chunks-1's VJP runs first), so the list is in
+    forward (cycle-index) order and emission order is its reverse (see
+    ``model.chunked_loss_vjp``).
+    """
+    k = max(1, min(int(n_chunks), int(n_cycles)))
+    base, rem = divmod(int(n_cycles), k)
+    bounds, a = [], 0
+    for i in range(k):
+        b = a + base + (1 if i < rem else 0)
+        bounds.append((a, b))
+        a = b
+    return tuple(bounds)
+
+
+def packed_offsets(shapes: dict[str, tuple[int, ...]]) -> dict[str, int]:
+    """Start offset of each segment within the ``pack_segs`` flat vector."""
+    out, off = {}, 0
+    for k in SEG_NAMES:
+        out[k] = off
+        off += math.prod(shapes[k])
+    return out
+
+
+def emission_intervals(shapes: dict[str, tuple[int, ...]],
+                       chunks: tuple[tuple[int, int], ...]
+                       ) -> tuple[tuple[int, int, int], ...]:
+    """Every gradient slice a K-chunk backward emits, in emission order, as
+    (packed offset, length, event): chunk K-1's ``cycles_s`` rows then its
+    ``cycles_r`` rows (event 0), down to chunk 0's (event K-1), then
+    ``top_s`` and ``top_r``, which finalize last (event K). ``chunks`` is
+    ``chunk_plan``'s."""
+    offs = packed_offsets(shapes)
+    f_cs = int(shapes["cycles_s"][-1])
+    f_cr = int(shapes["cycles_r"][-1])
+    out = []
+    for ev, (a, b) in enumerate(reversed(chunks)):
+        out += [(offs["cycles_s"] + a * f_cs, (b - a) * f_cs, ev),
+                (offs["cycles_r"] + a * f_cr, (b - a) * f_cr, ev)]
+    out += [(offs[k], math.prod(shapes[k]), len(chunks))
+            for k in ("top_s", "top_r")]
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    """Readiness-aware bucket partition for the backward-interleaved exchange.
+
+    ``sizes`` is exactly ``bucket_sizes(shapes, n_buckets)``, so per-bucket
+    compressor geometry (and numerics) are those of the bucketed exchange.
+    The backward emits gradients as K+1 events (``emits``, from
+    ``emission_intervals``). ``readiness[i]`` is the earliest event after
+    which bucket i's packed range is fully emitted; buckets are exchanged
+    in readiness order.
+    """
+
+    sizes: tuple[int, ...]          # packed-order bucket sizes
+    readiness: tuple[int, ...]      # per bucket: emission event index
+    n_events: int                   # n_chunks + 1 (the +1 is the top event)
+    chunks: tuple[tuple[int, int], ...]  # cycle-row [a, b) per chunk
+    emits: tuple[tuple[int, int, int], ...]  # (packed offset, length, event)
+
+    @property
+    def n(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def order(self) -> tuple[int, ...]:
+        """Exchange order: by readiness, packed index breaking ties."""
+        return tuple(sorted(range(self.n),
+                            key=lambda i: (self.readiness[i], i)))
+
+    def overlaps(self, off: int, n: int) -> list[tuple[int, int, int]]:
+        """(bucket, lo, hi) of each bucket whose packed range meets
+        [off, off + n); lo and hi are packed offsets."""
+        out, o = [], 0
+        for i, sz in enumerate(self.sizes):
+            lo, hi = max(o, off), min(o + sz, off + n)
+            if lo < hi:
+                out.append((i, lo, hi))
+            o += sz
+        return out
+
+    def fragments(self) -> tuple[tuple[tuple[int, int], ...], ...]:
+        """Per bucket, its pieces of the emitted slices as (offset in the
+        bucket, length), in emission order: the fused exchange's partial
+        encodes."""
+        starts = [sum(self.sizes[:i]) for i in range(self.n)]
+        out: list[list[tuple[int, int]]] = [[] for _ in self.sizes]
+        for off, n, _ in self.emits:
+            for i, lo, hi in self.overlaps(off, n):
+                out[i].append((lo - starts[i], hi - lo))
+        return tuple(tuple(f) for f in out)
+
+
+def bucket_plan(shapes: dict[str, tuple[int, ...]], n_buckets: int,
+                n_chunks: int) -> BucketPlan:
+    """Bucket partition + per-bucket readiness for a K-chunk backward:
+    boundaries from ``bucket_sizes``, readiness the latest emission event
+    over the bucket's packed range."""
+    sizes = bucket_sizes(shapes, n_buckets)
+    bounds = chunk_plan(int(shapes["cycles_s"][0]), n_chunks)
+    k = len(bounds)
+    emits = emission_intervals(shapes, bounds)
+    readiness = []
+    off = 0
+    for s in sizes:
+        readiness.append(max((e for lo, n, e in emits
+                              if lo < off + s and off < lo + n), default=k))
+        off += s
+    return BucketPlan(sizes=sizes, readiness=tuple(readiness),
+                      n_events=k + 1, chunks=bounds, emits=emits)
+
+
 def pack_segs(segs: dict, lead: int = 0) -> torch.Tensor:
     """Segment dict -> one flat f32 vector (the compressor's view).
 

@@ -86,3 +86,79 @@ def test_merge_is_linear():
     np.testing.assert_allclose(
         tcs.merge(tcs.encode(t, a), tcs.encode(t, b)).numpy(),
         tcs.encode(t, a + b).numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# NaN: jnp.median gives NaN when any of the values is NaN, so a NaN in g
+# makes NaN estimates wherever one of a coordinate's R buckets holds it.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("x", [
+    [[1, 5], [np.nan, 6], [2, 7]],              # odd R
+    [[1, 5], [np.nan, 6], [2, 7], [3, np.nan]],  # even R
+    [[np.nan], [np.nan], [1]]])
+def test_median_rows_nan_like_jnp(x):
+    x = np.array(x, np.float32)
+    np.testing.assert_array_equal(tcs.median_rows(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jnp.median(jnp.asarray(x), axis=0)))
+
+
+def _nan_case():
+    """d = 4,096, R = 5, W = 256, seed 0, k = 64, g[100] = NaN."""
+    g = np.random.default_rng(2).standard_normal(4096).astype(np.float32)
+    g[100] = np.nan
+    return g, 4096, 5, 256, 0, 64
+
+
+@pytest.mark.parametrize("route", ["decode", "decode_at", "ts_decode",
+                                   "heavymix_recover", "ts_heavymix_recover"])
+def test_nan_estimates_and_selection_match_reference(route):
+    """The reference's sketch of g holds one NaN a row. Estimates: NaN at
+    the reference's coordinates, the rest equal (odd R: the same middle
+    value). Recoveries: the reference's indices in its order (NaN
+    first)."""
+    from repro.core import heavymix as jhm
+    from repro.core import ts_sketch as jts
+    from repro_torch.core import ts_sketch as tts
+    from repro_torch.kernels import ops
+    g, d, rows, width, seed, k = _nan_case()
+    jc, tc = _cfgs(rows, width, seed)
+    ts_route = route.startswith("ts_")
+    if ts_route:
+        jt = jts.TSketchConfig(d=d, rows=rows, width=width, seed=seed)
+        tt = tts.TSketchConfig(d=d, rows=rows, width=width, seed=seed)
+        sk = np.asarray(jts.encode(jt, jnp.asarray(g)))
+        want_est = np.asarray(jts.decode(jt, jnp.asarray(sk), d))
+    else:
+        sk = np.asarray(jcs.encode(jc, jnp.asarray(g)))
+        want_est = np.asarray(jcs.decode(jc, jnp.asarray(sk), d))
+    assert np.isnan(sk).sum(axis=1).tolist() == [1] * rows
+    n_nan = int(np.isnan(want_est).sum())
+    assert 0 < n_nan < d and (ts_route or n_nan > k), n_nan
+    skt = torch.from_numpy(sk.copy())
+    if route == "decode":
+        got = tcs.decode(tc, skt, d).numpy()
+    elif route == "decode_at":
+        idx = np.arange(0, d, 3)
+        got = tcs.decode_at(tc, skt, torch.from_numpy(idx)).numpy()
+        want_est = np.asarray(jcs.decode_at(jc, jnp.asarray(sk),
+                                            jnp.asarray(idx)))
+    elif route == "ts_decode":
+        got = tts.decode(tt, skt, d).numpy()
+    if route in ("decode", "decode_at", "ts_decode"):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want_est))
+        np.testing.assert_array_equal(got, want_est)
+        return
+    if ts_route:
+        idx, est = ops.ts_heavymix_recover(tt, skt, k, d)
+        want, _ = jhm.heavymix(jc, jnp.asarray(sk), k, d,
+                               estimates=jnp.asarray(want_est))
+    else:
+        idx, est = ops.heavymix_recover(tc, skt, k, d)
+        want, _ = jhm.heavymix(jc, jnp.asarray(sk), k, d)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(est.numpy(), want_est[np.asarray(want)])
+    # the NaN estimates rank first (70 of them on the exact route, 42 on
+    # the TS route)
+    assert np.isnan(est.numpy()[:min(k, n_nan)]).all()

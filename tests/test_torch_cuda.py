@@ -344,3 +344,92 @@ def test_ts_recover_syncs_with_host_nowhere(card):
         torch.cuda.set_sync_debug_mode("default")
     assert LAUNCHES["topk_select"] == before + 1
     assert torch.equal(idx, ops.ts_heavymix_recover(cfg, sk, k, d)[0])
+
+
+def test_partial_encodes_sum_to_the_whole(card):
+    """The fused encode's launches: each fragment encoded at its offset in
+    the bucket (one of them short, as top_r's 2,560), each within
+    1e-4 * max|S| of plain at that offset; ``stage_encode_merge`` of the
+    (P, n) partials within the same bound of the whole-bucket encode."""
+    from repro_torch.core import compression as comp
+    c = comp.make("gs-sgd", k=4000, rows=5, width=1 << 14, seed=6)
+    gen = torch.Generator(device=card).manual_seed(6)
+    acc = 0.01 * torch.randn((2, 2_000_000), generator=gen, device=card)
+    g = torch.randn((2, 2_000_000), generator=gen, device=card)
+    cuts = (0, 1_300_000, 1_302_560, 2_000_000)
+    pieces = []
+    before = LAUNCHES["sketch_encode"]
+    for a, b in zip(cuts, cuts[1:]):
+        u, sk = c.stage_encode_partial(acc[:, a:b], g[:, a:b], a)
+        for p in range(2):
+            want = sketch_encode_plain(c.sketch, u[p], a)
+            err = float((sk[p] - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), (a, err)
+        pieces.append((a, u, sk))
+    assert LAUNCHES["sketch_encode"] == before + 2 * 3
+    u_m, sk_m = c.stage_encode_merge(pieces)
+    u_w, sk_w = c.stage_encode(acc, g)
+    assert torch.equal(u_m, u_w)
+    for p in range(2):
+        want = sketch_encode_plain(c.sketch, u_w[p])
+        lim = 1e-4 * float(want.abs().max())
+        assert float((sk_m[p] - want).abs().max()) <= lim
+        assert float((sk_m[p] - sk_w[p]).abs().max()) <= 2 * lim
+
+
+def _nan_sketch(card, rows, width, seed):
+    """(rows, width) N(0, 1) cells with NaN planted in rows 0 and 2 (one of
+    them -NaN), so a share of the coordinates meets a NaN in some row."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    sk = torch.randn((rows, width), generator=gen, device=card)
+    cols = torch.randint(0, width, (2, 12), generator=gen, device=card)
+    sk[0, cols[0]] = float("nan")
+    sk[2, cols[1]] = float("nan")
+    sk[2, cols[1, 0]] = -float("nan")
+    return sk
+
+
+@pytest.mark.parametrize("kind", ["decode", "scores", "scores_ts"])
+@pytest.mark.parametrize("rows", [4, 5])
+def test_nan_estimates_bit_equal_plain(card, kind, rows):
+    """A NaN among a coordinate's R values makes its estimate NaN (as
+    jnp.median): the decode, scores and TS-map scores kernels give plain's
+    bits, NaN at the same coordinates, and the histogram of the same keys;
+    the select of those keys ranks NaN first, as topk_lower_index (and
+    jax.lax.top_k) does."""
+    d, width, k = 300_000, 1 << 12, 2_000
+    if kind == "scores_ts":
+        cfg = ts.TSketchConfig(d=d, rows=rows, width=width, seed=rows)
+    else:
+        cfg = cs.SketchConfig(rows=rows, width=width, seed=rows)
+    sk = _nan_sketch(card, rows, cfg.width, rows)
+    thr = cs.l2sq_estimate(sk) / k
+    assert torch.isnan(thr).all()   # row norms hold the NaN too
+    if kind == "decode":
+        key, hist = sketch_decode_hist(cfg, sk, d)
+        want = sketch_decode_plain(cfg, sk, d)
+        pairs = [(key, want)]
+    elif kind == "scores":
+        key, est, hist = heavymix_scores_hist(cfg, sk, thr, d)
+        want, est_p = heavymix_scores_plain(cfg, sk, thr, d)
+        pairs = [(key, want), (est, est_p)]
+    else:
+        key, est, hist = heavymix_scores_ts_hist(cfg, sk, thr, d)
+        want, est_p = heavymix_scores_ts_plain(cfg, sk, thr, d)
+        pairs = [(key, want), (est, est_p)]
+    for got, ref in pairs:
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    n_nan = int(torch.isnan(want).sum())
+    assert 0 < n_nan < d
+    assert torch.equal(hist, radix_hist_plain(want))
+    for kk in (k, n_nan, n_nan + 7):
+        v, i = topk_select(key, kk, hist)
+        lo_v, lo_i = topk_lower_index(want.abs(), kk)
+        assert torch.equal(i, lo_i)
+        # the select returns |x|'s own bits; torch.abs on the card writes
+        # NaN as 0x7FFFFFFF: NaN at the same places, the rest bit-equal
+        nan = torch.isnan(v)
+        assert torch.equal(nan, torch.isnan(lo_v))
+        assert torch.equal(v[~nan].view(torch.int32),
+                           lo_v[~nan].view(torch.int32))
+        assert bool(nan[:min(kk, n_nan)].all())

@@ -190,3 +190,57 @@ def test_select_property_small():
         _check(np.asarray(data, dtype=np.float32), k)
 
     prop()
+
+
+# ---------------------------------------------------------------------------
+# NaN keys: jax.lax.top_k ranks NaN above +inf (IEEE total order), NaNs tied
+# by the lower index. ``topk_lower_index`` and the compressor baselines that
+# select through it must return its indices in its order.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6])
+def test_topk_lower_index_nan_keys_like_jax(k):
+    x = np.abs(np.array([1, np.nan, 3, 2, np.nan, 0.5], np.float32))
+    v, i = topk_lower_index(torch.from_numpy(x), k)
+    jv, ji = jax.lax.top_k(jnp.asarray(x), k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(v.numpy().view(np.uint32),
+                                  np.asarray(jv).view(np.uint32))
+    _check(x, k)   # the radix select ranks them the same way
+
+
+def test_topk_lower_index_signed_keys_like_jax():
+    """Signed keys in IEEE total order: +NaN > +inf > +0 > -0 > -inf > -NaN."""
+    x = np.array([1., -0.0, 0.0, np.nan, -np.nan, -np.inf, np.inf, 0.0,
+                  -0.0, np.nan], np.float32)
+    for k in range(1, x.shape[0] + 1):
+        i = topk_lower_index(torch.from_numpy(x), k)[1]
+        np.testing.assert_array_equal(
+            i.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(x), k)[1]))
+
+
+@pytest.mark.parametrize("name", ["topk", "gtopk"])
+def test_baselines_select_nan_like_the_reference(name):
+    """P = 2, d = 64, k = 8, worker 0's coordinate 5 NaN, zero EF: the
+    port's step selects the reference's coordinates (NaN first) and leaves
+    the same update and error feedback, NaN where the reference has NaN."""
+    from repro.core import compression as jcomp
+    from repro_torch.core import compression as tcomp
+    from repro_torch.core.compression import _topk_rows
+    g = np.random.default_rng(1).standard_normal((2, 64)).astype(np.float32)
+    g[0, 5] = np.nan
+    acc = np.zeros_like(g)
+    jc, tc = jcomp.make(name, k=8), tcomp.make(name, k=8)
+    j_upd, j_ef, _ = jax.vmap(
+        lambda a, b: jc.step(a, b, axis="data", nworkers=2),
+        axis_name="data")(jnp.asarray(acc), jnp.asarray(g))
+    t_upd, t_ef, _ = tc.step(torch.from_numpy(acc), torch.from_numpy(g),
+                             nworkers=2)
+    np.testing.assert_array_equal(t_upd.numpy(), np.asarray(j_upd))
+    np.testing.assert_array_equal(t_ef.numpy(), np.asarray(j_ef))
+    for p in range(2):
+        np.testing.assert_array_equal(
+            _topk_rows(torch.from_numpy(g), 8)[p].numpy(),
+            np.asarray(jax.lax.top_k(jnp.abs(jnp.asarray(g[p])), 8)[1]))
+    assert _topk_rows(torch.from_numpy(g), 8)[0, 0] == 5
