@@ -24,14 +24,20 @@ Phases (any failure exits non-zero and prints no result line):
                 ``torch.cuda.set_sync_debug_mode("error")``. The TS encode
                 at both buckets and the CLI's default width, with the plan's
                 kernel and (where that is the one-pass kernel) the R-pass
-                kernel; the TS route's recovery at both buckets (the TS-map
-                scores kernel with its histogram, then the select) against
-                its plain version and its old route (``ts.decode`` +
-                ``heavymix(estimates=)``), once under the sync check.
+                kernel; the TS route's recovery at both buckets (the row
+                transpose, then the TS-map scores kernel with its histogram
+                reading it, then the select) against its plain version and
+                its old route (``ts.decode`` + ``heavymix(estimates=)``),
+                once under the sync check; the transpose and the TS-map
+                scores also at the CLI's default width (n_r reaches W).
                 NaN: bucket 1's sketch with NaN planted, through the decode,
                 the scores and the TS-map scores kernels (bits equal to
                 plain, NaN at the same coordinates) and the select (the
-                reference's order, NaN first).
+                reference's order, NaN first). The select with its slabs
+                forced to overflow, in every CTA and in some, on bucket 0's
+                est, on the TS scores (all heavy keys tied at 1e30) and on
+                the NaN keys: equal to ``topk_lower_index``, the device
+                counter equal to the CTAs over capacity.
 3. train     — the main path: three gs-SGD steps of qwen3-4b at its
                 published widths (depth cut to 2 layers), P=2 workers,
                 buckets=2, psum, AdamW, SketchSpec(rows=5, width=None,
@@ -80,7 +86,9 @@ Phases (any failure exits non-zero and prints no result line):
 Every path that launches kernels (train, train_ts, train_interleave,
 parity) runs with every
 launch counter set to 0 just before and read just after; each kernel of
-the path must have launched, and the JSON line reports those counts.
+the path must have launched, and the JSON line reports those counts. The
+select's slab-overflow counter is zeroed before each path too and read
+after it (a host sync, outside the path).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers (bucket 0's; a kernel timed at several
@@ -450,7 +458,7 @@ def scores_decode_checks(torch, device, gen, buckets) -> list[dict]:
                                                    sketch_decode_plain)
     from repro_torch.kernels.sketch_encode import sketch_encode_plain
     from repro_torch.kernels.topk_select import (radix_hist_plain,
-                                                 topk_select,
+                                                 slab_overflows, topk_select,
                                                  topk_select_plain)
     for rows, n, width, off in ((1, 3000, 512, 0), (4, 3000, 300, 4099),
                                 (5, 3001, 512, 4099), (29, 5000, 200, 17)):
@@ -532,7 +540,12 @@ def scores_decode_checks(torch, device, gen, buckets) -> list[dict]:
                           reps=10)
         dec_plain_ms = time_ms(torch, lambda: sketch_decode_plain(cfg, sk, d),
                                reps=2)
+        slab_overflows(est.device, reset=True)
         sel_ms = time_ms(torch, lambda: topk_select(est, k, hist), reps=10)
+        sel_over = slab_overflows(est.device, reset=True) / 11
+        if b == 0:
+            select_overflow_checks(torch, [(f"est of bucket {b}", est, k,
+                                            hist)])
         sel_plain_ms = time_ms(
             torch, lambda: topk_select_plain(est, k, hist), reps=2)
         topk_ms = time_ms(torch, lambda: topk_lower_index(est.abs(), k),
@@ -553,7 +566,8 @@ def scores_decode_checks(torch, device, gen, buckets) -> list[dict]:
         old_ms = time_ms(torch, old_route, reps=3)
         new_ms = time_ms(torch, new_route, reps=3)
         log(f"[kernels] bucket {b} (d={d}, k={k}): decode with histogram "
-            f"{dech_ms:.3f} ms; select {sel_ms:.3f} ms; "
+            f"{dech_ms:.3f} ms; select {sel_ms:.3f} ms ({sel_over:g} slab "
+            "overflows a call); "
             f"topk_lower_index of |est| {topk_ms:.3f} ms; torch.topk "
             f"(sorted=False) {lib_topk_ms:.3f} ms; old route (decode + "
             f"topk_lower_index) {old_ms:.3f} ms, new route (decode with "
@@ -575,6 +589,7 @@ def scores_decode_checks(torch, device, gen, buckets) -> list[dict]:
                            "max_abs_err": sel_err, "ms": sel_ms,
                            "plain_ms": sel_plain_ms, "bound_ms": bound[0],
                            "bound_by": bound[1], "library_ms": lib_topk_ms,
+                           "slab_overflows_a_call": sel_over,
                            "topk_lower_index_ms": topk_ms,
                            "old_route_ms": old_ms, "new_route_ms": new_ms})
     return [hm_row,
@@ -681,48 +696,85 @@ def ts_checks(torch, device, gen, buckets) -> tuple[dict, list]:
                if "rows_kernel_ms" in shape else "")
             + f"; bound {bound[0]:.4f} ms")
         shapes.append(shape)
-        if len(sketches) < len(buckets):
-            sketches.append((tcfg, got))
+        sketches.append((tcfg, got))
     return _shapes_row("ts_encode", "src/repro_torch/csrc/ts_encode.cu",
                        "src/repro/kernels/ts_encode.py:73", shapes), sketches
 
 
-def ts_recover_checks(torch, buckets) -> dict:
+def ts_transpose_check(torch, what, tcfg, sk):
+    """ts_transpose against its plain version (equal); returns its
+    transposed sketch."""
+    from repro_torch.kernels.heavymix_topk import (ts_transpose,
+                                                   ts_transpose_plain)
+    st = ts_transpose(tcfg, sk)
+    if not torch.equal(st, ts_transpose_plain(tcfg, sk)):
+        fail(f"ts_transpose at {what} (R={tcfg.rows}, W={tcfg.width}) "
+             "differs from its plain version")
+    return st
+
+
+def ts_recover_checks(torch, buckets, wide) -> list[dict]:
     """The TS route's recovery at every bucket of the main path
     (``buckets``: (TS config, TS sketch, d, k) each, the sketch from the
-    spiky g, whose heavy set far outnumbers k): the TS-map scores and est
-    bit-equal to their plain version (``ts.decode`` and the reference's
-    boost), the fused histogram equal to the plain one, and
+    spiky g, whose heavy set far outnumbers k): the row-transposed sketch
+    equal to the plain transpose, the TS-map scores and est (read through
+    it) bit-equal to their plain version (``ts.decode`` and the
+    reference's boost), the fused histogram equal to the plain one, and
     ``ops.ts_heavymix_recover``'s idx equal to the plain route's
     (``ts.decode`` + ``heavymix(estimates=)``), once under
-    ``set_sync_debug_mode("error")``; times of the kernel and of both
-    routes."""
+    ``set_sync_debug_mode("error")``; times of the transpose, the kernel,
+    the select and both routes. ``wide``: (TS config, sketch, d, k) at the
+    CLI's default width, where n_r reaches W: the transpose and the scores
+    held to plain there too. Returns the rows of heavymix_scores_ts and
+    ts_transpose."""
     from repro_torch.core import count_sketch as cs
     from repro_torch.core import heavymix as hm
     from repro_torch.core import ts_sketch as tsk
     from repro_torch.kernels import ops
     from repro_torch.kernels.heavymix_topk import (heavymix_scores_ts_hist,
-                                                   heavymix_scores_ts_plain)
-    from repro_torch.kernels.topk_select import radix_hist_plain, topk_select
-    shapes = []
-    for b, (tcfg, sk, d, k) in enumerate(buckets):
+                                                   heavymix_scores_ts_plain,
+                                                   ts_transpose,
+                                                   ts_transpose_plain)
+    from repro_torch.kernels.topk_select import (radix_hist_plain,
+                                                 slab_overflows, topk_select)
+    shapes, tr_shapes = [], []
+    for b, (tcfg, sk, d, k) in enumerate(buckets + [wide]):
+        what = f"bucket {b}" if b < len(buckets) else "CLI default width"
         R, W = tcfg.rows, tcfg.width
         ccfg = cs.SketchConfig(rows=R, width=W, seed=tcfg.seed)
+        ts_transpose_check(torch, what, tcfg, sk)
+        tr_ms = time_ms(torch, lambda: ts_transpose(tcfg, sk), reps=10)
+        tr_plain_ms = time_ms(torch, lambda: ts_transpose_plain(tcfg, sk),
+                              reps=2)
+        tr_bound = bound_ms(2 * R * W * 4, 0.0)
+        log(f"[kernels] ts_transpose {what} (R={R}, W={W}, n_r="
+            f"{[1 << (tcfg.bits - a) for a in tcfg.log_m]}): equal to plain; "
+            f"{tr_ms:.4f} ms (plain {tr_plain_ms:.3f} ms, bound "
+            f"{tr_bound[0]:.4f} ms)")
+        tr_shapes.append({"shape": what, "rows": R, "width": W,
+                          "max_abs_err": 0.0, "ms": tr_ms,
+                          "plain_ms": tr_plain_ms, "bound_ms": tr_bound[0],
+                          "bound_by": tr_bound[1], "library_ms": None})
         thr = cs.l2sq_estimate(sk) / k
         sc, est, hist = heavymix_scores_ts_hist(tcfg, sk, thr, d)
         sc_p, est_p = heavymix_scores_ts_plain(tcfg, sk, thr, d)
         err = float((est - est_p).abs().max())
         if not (torch.equal(est, est_p) and torch.equal(sc, sc_p)):
-            fail(f"heavymix_scores_ts at bucket {b} (d={d}) disagrees with "
-                 f"its plain version: max est err {err}")
+            fail(f"heavymix_scores_ts at {what} (d={d}, W={W}) disagrees "
+                 f"with its plain version: max est err {err}")
         if not torch.equal(hist, radix_hist_plain(sc_p)):
-            fail(f"heavymix_scores_ts' histogram at bucket {b} differs from "
+            fail(f"heavymix_scores_ts' histogram at {what} differs from "
                  "the plain histogram of the same scores")
         n_heavy = int((sc >= 1e30).sum())
+        del sc_p, est_p
+        if b == len(buckets):
+            log(f"[kernels] heavymix_scores_ts at {what} (d={d}, W={W}): "
+                "est and scores bit-equal to plain, histogram equal")
+            del sc, est, hist
+            continue
         if not n_heavy > 2 * k:
             fail(f"TS recovery at bucket {b}: only {n_heavy} heavy "
                  f"coordinates for k={k}")
-        del sc_p, est_p
         idx = ops.ts_heavymix_recover(tcfg, sk, k, d)[0]
 
         def old_route():
@@ -751,31 +803,99 @@ def ts_recover_checks(torch, buckets) -> dict:
                      reps=10)
         plain_ms = time_ms(
             torch, lambda: heavymix_scores_ts_plain(tcfg, sk, thr, d), reps=2)
+        slab_overflows(sk.device, reset=True)
         sel_ms = time_ms(torch, lambda: topk_select(sc, k, hist), reps=10)
+        sel_over = slab_overflows(sk.device, reset=True) / 11
+        if b == 0:
+            select_overflow_checks(torch, [(
+                f"the TS scores of bucket {b} ({n_heavy} tied at 1e30)", sc,
+                k, hist)])
         new_ms = time_ms(torch, lambda: ops.ts_heavymix_recover(tcfg, sk, k, d),
                          reps=3)
         old_ms = time_ms(torch, old_route, reps=2)
         del sc, est, hist
         torch.cuda.empty_cache()
-        # per coordinate and row: the TS map (add, and, and, shift, shift,
-        # shift, add, and) and sign (mul, add, and, negate); the median's
-        # compare-exchanges; the boost and the histogram key
-        ops_per = R * 12.0 + R * (R - 1) + 4
+        # per coordinate and row: the transposed TS map (add, and, shift,
+        # compare, shift, and, or) and sign (mul, add, and, negate); the
+        # median's compare-exchanges; the boost and the histogram key
+        ops_per = R * 11.0 + R * (R - 1) + 4
         bound = bound_ms(R * W * 4 + 4 + 2 * d * 4 + 2048 * 4, d * ops_per)
         log(f"[kernels] TS recovery bucket {b}: heavymix_scores_ts with its "
-            f"histogram {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
-            f"{bound[0]:.4f} ms); select {sel_ms:.3f} ms; new route "
-            f"(ts_heavymix_recover) {new_ms:.3f} ms, old route (ts.decode + "
-            f"heavymix(estimates=)) {old_ms:.3f} ms")
-        shapes.append({"shape": f"bucket {b}", "d": d, "rows": R, "width": W,
+            f"histogram {ms:.3f} ms (the transpose {tr_ms:.4f} ms, launched "
+            f"by it; plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms); "
+            f"select {sel_ms:.3f} ms ({sel_over:g} slab overflows a call); "
+            f"new route (ts_heavymix_recover) {new_ms:.3f} ms, old route "
+            f"(ts.decode + heavymix(estimates=)) {old_ms:.3f} ms")
+        shapes.append({"shape": what, "d": d, "rows": R, "width": W,
                        "k": k, "n_heavy": n_heavy, "max_abs_err": err,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                        "bound_by": bound[1], "library_ms": None,
-                       "select_ms": sel_ms, "new_route_ms": new_ms,
-                       "old_route_ms": old_ms})
-    return _shapes_row("heavymix_scores_ts",
-                       "src/repro_torch/csrc/heavymix_scores.cu",
-                       "src/repro/kernels/heavymix_topk.py:91", shapes)
+                       "transpose_ms": tr_ms,
+                       "transpose_bound_ms": tr_bound[0],
+                       "select_ms": sel_ms,
+                       "select_slab_overflows_a_call": sel_over,
+                       "new_route_ms": new_ms, "old_route_ms": old_ms})
+    return [_shapes_row("heavymix_scores_ts",
+                        "src/repro_torch/csrc/heavymix_scores.cu",
+                        "src/repro/kernels/heavymix_topk.py:91", shapes),
+            _shapes_row("ts_transpose",
+                        "src/repro_torch/csrc/heavymix_scores.cu",
+                        "src/repro/kernels/heavymix_topk.py:91 (the TS-map "
+                        "instance's layout; the reference's ts.decode, "
+                        "src/repro/core/ts_sketch.py:150, has no Pallas "
+                        "kernel)", tr_shapes)]
+
+
+def select_overflow_checks(torch, cases):
+    """The select with slabs forced to overflow: for each (what, keys, k,
+    hist) of ``cases``, at capacity 0 (every segment with keys in the first
+    digit's bin reads them from x) and at a capacity between the CTAs'
+    fewest and most such keys in a segment (some CTAs overflow), idx equal
+    to ``topk_lower_index``'s and values with the same bits (NaN at the
+    same places), and the device counter equal to the CTAs with a segment
+    over its slots (every CTA where the bin outnumbers all the slots: then
+    the slabs are off)."""
+    from repro_torch.core.heavymix import topk_lower_index
+    from repro_torch.kernels.topk_select import (RADIX_SHIFT, key_bits,
+                                                 select_plan, slab_overflows,
+                                                 topk_select)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    segments = 8   # a CTA's segments, one a warp (csrc/topk_select.cu)
+    for what, x, k, hist in cases:
+        n = x.shape[0]
+        grid, chunk = select_plan(n, sms)
+        counts, rest = hist.tolist(), k
+        b1 = len(counts) - 1
+        while rest > counts[b1]:   # the first digit's bin of the k-th key
+            rest -= counts[b1]
+            b1 -= 1
+        inb = (key_bits(x) >> RADIX_SHIFT) == b1
+        per = torch.zeros(grid * chunk, dtype=torch.int32, device=x.device)
+        per[:n] = inb.to(torch.int32)
+        most = per.view(grid, segments, chunk // segments).sum(2).amax(1)
+        lo, hi = int(most.min()), int(most.max())
+        caps = [0] + ([(lo + hi) // 8 * 4 * segments] if hi - lo >= 8
+                      else [])
+        v_o, i_o = topk_lower_index(x.abs(), k)
+        for cap in caps:
+            slab_overflows(x.device, reset=True)
+            v, i = topk_select(x, k, hist, capacity=cap)
+            got = slab_overflows(x.device, reset=True)
+            # the slabs are off where the bin outnumbers all their slots:
+            # then every CTA reads its keys in x
+            off = counts[b1] > grid * cap
+            want = grid if off else int((most > cap // segments).sum())
+            if not (torch.equal(i, i_o) and _same_values(torch, v, v_o)):
+                fail(f"topk_select at {what} with slab capacity {cap} "
+                     "differs from topk_lower_index")
+            if got != want:
+                fail(f"topk_select at {what}, capacity {cap}: {got} CTAs "
+                     f"overflowed, {want} hold a segment over its slots")
+            log(f"[kernels] topk_select at {what} (n={n}, k={k}) with slab "
+                f"capacity {cap} ({cap // segments} a segment): {got} of "
+                f"{grid} CTAs overflowed (the most bin keys in a CTA's "
+                f"segment: {lo}..{hi}); idx equal to topk_lower_index's, "
+                "values bit-equal")
 
 
 def _plant_nan(torch, sk, seed):
@@ -858,13 +978,18 @@ def nan_checks(torch, cfg, sk, d, k):
         log(f"[kernels] NaN: {name} at d={d} R={cfg.rows} W={cfg.width}: "
             f"{n_nan} NaN estimates, bits equal to plain, histogram equal; "
             f"the select (k={k}) equal to topk_lower_index, NaN first")
+        if name == "sketch_decode":
+            select_overflow_checks(torch, [
+                (f"{name}'s keys with NaN", key, kk, hist)
+                for kk in (n_nan, k)])
         del got, want, key, hist, v, i, v_o, i_o
     del s
 
 
 def kernels_phase(torch, device, ts) -> list[dict]:
     """Every kernel at the full-width step's shapes (the encodes, the
-    decode, the TS-map scores and the select at both buckets), and small
+    decode, the TS transpose, the TS-map scores and the select at both
+    buckets; the select also with its slabs forced to overflow), and small
     cases."""
     gen = torch.Generator(device=device).manual_seed(1)
     parts, sizes = ts.compressor.parts, ts.compressor.spec.sizes
@@ -884,10 +1009,12 @@ def kernels_phase(torch, device, ts) -> list[dict]:
                                [(p.sketch, g) for p, g in zip(parts, gs)])
     del gs
     torch.cuda.empty_cache()
-    out += [ts_row, ts_recover_checks(
-        torch, [(tcfg, sk, d, p.k) for (tcfg, sk), d, p in
-                zip(ts_sks, sizes, parts)])]
-    del ts_sks
+    cases = [(tcfg, sk, d, p.k) for (tcfg, sk), d, p in
+             zip(ts_sks, sizes, parts)]
+    wide_cfg, wide_sk = ts_sks[len(parts)]
+    out += [ts_row] + ts_recover_checks(
+        torch, cases, (wide_cfg, wide_sk, sizes[0], parts[0].k))
+    del ts_sks, cases, wide_sk
     for kr in out:
         log("[kernels] " + json.dumps({key: kr[key] for key in (
             "name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -907,10 +1034,12 @@ def check_launches(tag, counts, launched, not_launched=()):
 
 def train_phase(torch, cfg, opt, ts, tag="train") -> dict:
     """Three full-width steps; counts set to 0 just before, read after.
-    Returns the state, the stream, the counts, the step seconds, the losses
-    and the peak device memory."""
+    Returns the state, the stream, the counts, the step seconds, the losses,
+    the peak device memory and the select's CTAs whose slab overflowed
+    (the device counter, zeroed before the steps and read after them)."""
     from repro_torch.data import LMStream
     from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.kernels.topk_select import slab_overflows
     from repro_torch.launch.train import train_loop
     state = ts.init_state(opt, torch.Generator(device=ts.device)
                           .manual_seed(0))
@@ -923,6 +1052,7 @@ def train_phase(torch, cfg, opt, ts, tag="train") -> dict:
         f"(k, W) {[(c.k, c.sketch.width) for c in ts.compressor.parts]} "
         f"encoder {ts.compressor.parts[0].encoder} "
         f"P={ts.nworkers} batch {TRAIN_BATCH} seq {TRAIN_SEQ}")
+    slab_overflows(ts.device, reset=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
@@ -931,14 +1061,18 @@ def train_phase(torch, cfg, opt, ts, tag="train") -> dict:
         range(TRAIN_STEPS), log_every=1, last=TRAIN_STEPS - 1)
     counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    overflows = slab_overflows(ts.device, reset=True)
     for s, (loss, t) in enumerate(zip(hist, times)):
-        log(f"[{tag}] step {s}: loss {loss:.6f}  step_s {t:.4f}")
+        log(f"[{tag}] step {s}: loss {loss!r}  step_s {t:.4f}")
     log(f"[{tag}] max_memory_allocated {peak} bytes "
-        f"({peak / 2**30:.2f} GiB); launches {counts}")
+        f"({peak / 2**30:.2f} GiB); launches {counts}; select CTAs whose "
+        f"slab overflowed: {overflows} over {counts.get('topk_select', 0)} "
+        "selects")
     if not all(math.isfinite(x) for x in hist):
         fail(f"non-finite loss on the {tag} path: {hist}")
     return {"state": state, "stream": stream, "counts": counts,
-            "times": times, "losses": hist, "peak": peak}
+            "times": times, "losses": hist, "peak": peak,
+            "slab_overflows": overflows}
 
 
 def full_width_ts_step(torch, device, ts, opt):
@@ -1001,7 +1135,8 @@ def span_split(events) -> dict:
 
 
 def profile_phase(torch, ts, state, stream, tag="profile"):
-    """One more step under torch.profiler: device time per span."""
+    """One more step under torch.profiler: device time per span. Returns
+    the state and the split (wall, busy, spans, idle share, peak)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.train import shard_batch
@@ -1042,7 +1177,7 @@ def profile_phase(torch, ts, state, stream, tag="profile"):
         log(f"[{tag}] kernel {ms:10.3f} ms  {name[:110]}")
     if busy_ms <= 0:
         log(f"[{tag}] the profiler saw no device time: not measured")
-    return state
+    return state, out
 
 
 def fragment_encode_checks(torch, device, ts) -> list[dict]:
@@ -1106,7 +1241,8 @@ class plain_calls:
     NAMES = {"sketch_encode": ("sketch_encode_plain",),
              "sketch_decode": ("sketch_decode_plain", "radix_hist_plain"),
              "heavymix_topk": ("heavymix_scores_plain",
-                               "heavymix_scores_ts_plain", "radix_hist_plain"),
+                               "heavymix_scores_ts_plain",
+                               "ts_transpose_plain", "radix_hist_plain"),
              "topk_select": ("topk_select_plain",),
              "ts_encode": ("ts_encode_plain",)}
 
@@ -1225,7 +1361,7 @@ def train_interleave_phase(torch, device) -> dict:
              f"{ts.nworkers} workers x {TRAIN_STEPS} steps)")
     check_launches("train_interleave", counts,
                    ("sketch_decode", "heavymix_scores", "topk_select"),
-                   ("ts_encode", "heavymix_scores_ts"))
+                   ("ts_encode", "heavymix_scores_ts", "ts_transpose"))
     recoveries = ts.nworkers * ts.n_buckets * TRAIN_STEPS
     if counts.get("topk_select") != recoveries:
         fail(f"topk_select launched {counts.get('topk_select')} times on the "
@@ -1237,16 +1373,16 @@ def train_interleave_phase(torch, device) -> dict:
         "steps; no plain version called")
     snap = _snapshot(run["state"])
     state = fused_sketch_check(torch, ts, run.pop("state"), run["stream"])
-    state = profile_phase(torch, ts, state, run["stream"],
-                          tag="profile_interleave")
+    state, _ = profile_phase(torch, ts, state, run["stream"],
+                             tag="profile_interleave")
     del state
     torch.cuda.empty_cache()
     _, _, ts_b = full_width_step(torch, device, buckets=INTERLEAVE_BUCKETS)
     base = train_phase(torch, cfg, opt, ts_b, tag="train_bucketed4")
     compare_snapshots(snap, _snapshot(base["state"]))
     del snap
-    state = profile_phase(torch, ts_b, base.pop("state"), base["stream"],
-                          tag="profile_bucketed4")
+    state, _ = profile_phase(torch, ts_b, base.pop("state"),
+                             base["stream"], tag="profile_bucketed4")
     del state, ts_b
     torch.cuda.empty_cache()
     li, lb = run["losses"], base["losses"]
@@ -1274,6 +1410,7 @@ def smoke_runs(torch, spec, steps=2, card="cuda"):
     from repro_torch.core.gs_sgd import make_state
     from repro_torch.data import LMStream
     from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.kernels.topk_select import slab_overflows
     from repro_torch.launch import train as ttrain
     from repro_torch.models.flatten import init_flat_params
     results, counts, params_cpu = [], {}, None
@@ -1290,6 +1427,7 @@ def smoke_runs(torch, spec, steps=2, card="cuda"):
         losses, efs = [], []
         on_card = len(results) == 1
         if on_card:
+            slab_overflows(ts.device, reset=True)
             torch.cuda.synchronize()
             LAUNCHES.clear()
         for step in range(steps):
@@ -1301,6 +1439,7 @@ def smoke_runs(torch, spec, steps=2, card="cuda"):
         if on_card:
             torch.cuda.synchronize()
             counts = dict(LAUNCHES)
+            counts["slab_overflows"] = slab_overflows(ts.device, reset=True)
         results.append((losses, efs))
     return results, counts
 
@@ -1329,7 +1468,8 @@ def parity_phase(torch, card="cuda") -> dict:
                 fail(f"selected coordinates differ at step {s} bucket {i}")
     check_launches("parity", counts, ("sketch_encode", "heavymix_scores",
                                       "topk_select"),
-                   ("sketch_decode", "ts_encode", "heavymix_scores_ts"))
+                   ("sketch_decode", "ts_encode", "heavymix_scores_ts",
+                    "ts_transpose"))
     log("[parity] losses within rtol "
         f"{PARITY_LOSS_RTOL}; selected coordinates equal every step")
     return counts
@@ -1406,7 +1546,8 @@ def main() -> int:
     del run
     check_launches("train", counts, ("sketch_encode", "sketch_decode",
                                      "topk_select"),
-                   ("heavymix_scores", "heavymix_scores_ts", "ts_encode"))
+                   ("heavymix_scores", "heavymix_scores_ts", "ts_transpose",
+                    "ts_encode"))
     recoveries = TRAIN_P * ts.n_buckets * TRAIN_STEPS
     if counts["topk_select"] != recoveries:
         fail(f"topk_select launched {counts['topk_select']} times on the "
@@ -1414,7 +1555,7 @@ def main() -> int:
     log(f"[train] topk_select launches {counts['topk_select']} = "
         f"{TRAIN_P} workers x {ts.n_buckets} buckets x {TRAIN_STEPS} steps")
     log(f"[train] phase took {time.time() - t0:.1f} s")
-    state = profile_phase(torch, ts, state, stream)
+    state, _ = profile_phase(torch, ts, state, stream)
     del state
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -1422,7 +1563,8 @@ def main() -> int:
     run = train_phase(torch, cfg, opt, ts_step, tag="train_ts")
     state, stream, ts_counts = run["state"], run["stream"], run["counts"]
     del run
-    check_launches("train_ts", ts_counts, ("ts_encode", "heavymix_scores_ts",
+    check_launches("train_ts", ts_counts, ("ts_encode", "ts_transpose",
+                                           "heavymix_scores_ts",
                                            "topk_select"),
                    ("sketch_encode", "sketch_decode", "heavymix_scores"))
     if ts_counts["topk_select"] != recoveries:
@@ -1432,7 +1574,8 @@ def main() -> int:
         f"{TRAIN_P} workers x {ts_step.n_buckets} buckets x {TRAIN_STEPS} "
         "steps")
     log(f"[train_ts] phase took {time.time() - t0:.1f} s")
-    state = profile_phase(torch, ts_step, state, stream, tag="profile_ts")
+    state, _ = profile_phase(torch, ts_step, state, stream,
+                             tag="profile_ts")
     del state, ts_step, ts
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -1444,7 +1587,7 @@ def main() -> int:
     log(f"[parity] phase took {time.time() - t0:.1f} s")
     launches = {"sketch_encode": counts, "sketch_decode": counts,
                 "topk_select": counts, "ts_encode": ts_counts,
-                "heavymix_scores_ts": ts_counts,
+                "heavymix_scores_ts": ts_counts, "ts_transpose": ts_counts,
                 "heavymix_scores": parity_counts}
     for kr in kernels:
         kr["launches"] = launches[kr["name"]][kr["name"]]

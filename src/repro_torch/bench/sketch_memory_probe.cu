@@ -34,10 +34,14 @@
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o build/sketch_memory_probe src/repro_torch/bench/sketch_memory_probe.cu
-//   build/sketch_memory_probe [PROBES]     (PROBES: letters, default abcdefghi)
+//   build/sketch_memory_probe [PROBES]     (PROBES: letters, default abcdefghij)
 //
 // Each rate is the mean over several timed launches (CUDA events) after a
 // warm-up launch.
+
+#include "../csrc/radix_select.cuh"
+#include "../csrc/sketch_common.cuh"
+#include "../csrc/ts_map.cuh"
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -46,6 +50,9 @@
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
+
+#include <array>
+#include <string>
 
 namespace cg = cooperative_groups;
 
@@ -529,9 +536,102 @@ __global__ void stream_read(const float4* __restrict__ g, int64_t n4,
   out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = acc;
 }
 
+// ---------------------------------------------------------------- j
+// The TS-map scores loop of csrc/heavymix_scores.cu in variants: N median
+// slots; HIST 0 none, 1 one shared atomic a key, 2 warp-aggregated adds;
+// HOIST: each row's map constants in registers (needs rows == N); FOLD:
+// every bucket folded into the row's first 4096 floats.
+template <int N, int HIST, bool HOIST, bool FOLD>
+__global__ void __launch_bounds__(256)
+ts_scores_variant(const float* __restrict__ sk, int64_t width,
+                  const uint32_t* __restrict__ hp, int rows,
+                  ts_map::TsMapT map, float thr, int64_t d,
+                  float* __restrict__ scores, float* __restrict__ est,
+                  uint32_t* __restrict__ hist) {
+  __shared__ uint32_t sh[N * 4];
+  __shared__ uint32_t h[radix_select::kBins1];
+  radix_select::hist_zero(h, radix_select::kBins1);
+  sketch_common::load_hash(sh, hp, rows);
+  uint32_t ra[N], rb[N], rc[N], rd[N], rq[N], rm[N];
+  bool rt[N];
+  if (HOIST) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const int a = (int)sh[4 * r], nlog = map.bits - a;
+      ra[r] = (uint32_t)a;
+      rb[r] = sh[4 * r + 1];
+      rc[r] = sh[4 * r + 2];
+      rd[r] = sh[4 * r + 3];
+      rt[r] = nlog < map.log2w;
+      rq[r] = rt[r] ? (uint32_t)(map.log2w - nlog) : 0u;
+      rm[r] = rt[r] ? ((1u << rq[r]) - 1u) : 0u;
+    }
+  }
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d;
+       j += stride) {
+    const uint32_t i = (uint32_t)j;
+    float e;
+    if (HOIST || FOLD) {
+      float v[N];
+      bool any_nan = false;
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        uint32_t bk, neg;
+        if (HOIST) {
+          const uint32_t q =
+              (uint32_t)((uint64_t)((i + rb[r]) & map.dmask) >> ra[r]);
+          bk = rt[r] ? ((q << rq[r]) | (i & rm[r])) : (q & map.wmask);
+          neg = ts_map::sign_bit(rc[r], rd[r], i);
+        } else {
+          bk = map.bucket(sh + 4 * r, i);
+          neg = map.sign_bit(sh + 4 * r, i);
+        }
+        if (FOLD) bk &= 4095u;
+        const float x = r < rows ? sk[(int64_t)r * width + bk] : INFINITY;
+        v[r] = (r < rows && neg) ? -x : x;
+        any_nan |= isnan(v[r]);
+      }
+#pragma unroll
+      for (int a = 0; a < N - 1; ++a) {
+#pragma unroll
+        for (int b = 0; b < N - 1 - a; ++b) {
+          const float x = fminf(v[b], v[b + 1]);
+          const float y = fmaxf(v[b], v[b + 1]);
+          v[b] = x;
+          v[b + 1] = y;
+        }
+      }
+      const int lo_at = (rows - 1) / 2, hi_at = rows / 2;
+      float lo = 0.0f, hi = 0.0f;
+#pragma unroll
+      for (int t = 0; t < N; ++t) {
+        if (t == lo_at) lo = v[t];
+        if (t == hi_at) hi = v[t];
+      }
+      e = any_nan ? __int_as_float(0x7FC00000)
+                  : ((rows & 1) ? hi : 0.5f * (lo + hi));
+    } else {
+      e = sketch_common::median_estimate<N>(sk, sh, rows, i, map, width);
+    }
+    const float s = fabsf(e) + ((e * e >= thr) ? 1e30f : 0.0f);
+    est[j] = e;
+    scores[j] = s;
+    const uint32_t bin = radix_select::key_bits(s) >> radix_select::kShift1;
+    if (HIST == 1) radix_select::hist_add(h, bin);
+    if (HIST == 2) {
+      const unsigned peers = __match_any_sync(__activemask(), bin);
+      if ((threadIdx.x & 31) == __ffs(peers) - 1) {
+        atomicAdd(&h[bin], (uint32_t)__popc(peers));
+      }
+    }
+  }
+  radix_select::hist_flush(h, hist, radix_select::kBins1);
+}
+
 int main(int argc, char** argv) {
   // argv[1]: the probes to run (default all), e.g. "bc"
-  const char* only = argc > 1 ? argv[1] : "abcdefghi";
+  const char* only = argc > 1 ? argv[1] : "abcdefghij";
   auto want = [&](char c) { return strchr(only, c) != nullptr; };
   int dev = 0, sms = 0, clk_khz = 0;
   CK(cudaSetDevice(dev));
@@ -948,6 +1048,128 @@ int main(int argc, char** argv) {
       }
     }
     CK(cudaFree(g));
+  }
+  // j: what sets the TS-map scores kernel's pace
+  if (want('j')) {
+    struct Geo {
+      const char* what;
+      int64_t d;
+      int bits, log2w;
+    };
+    const Geo geos[] = {{"bucket 0", 388956160, 29, 20},
+                        {"bucket 1", 201864704, 28, 19}};
+    for (const Geo& g : geos) {
+      const int rows = 5, reps = 10;
+      const int64_t w = (int64_t)1 << g.log2w;
+      // the TS rows' log2 m (ts_sketch.py log_m: bits .. log2w + 1), the
+      // offsets and sign constants drawn from mix()
+      uint32_t hp_h[rows * 4];
+      for (int r = 0; r < rows; ++r) {
+        const int lo = g.log2w + 1;
+        hp_h[4 * r] = (uint32_t)(g.bits -
+                                 (int)lrint(r * (g.bits - lo) / 4.0));
+        hp_h[4 * r + 1] = (mix(17u + r) % (1u << (g.bits - g.log2w)))
+                          << g.log2w;
+        hp_h[4 * r + 2] = mix(101u + r) | 1u;
+        hp_h[4 * r + 3] = mix(303u + r);
+      }
+      uint32_t* hp;
+      float *sk, *sc, *es, *sc0, *es0;
+      uint32_t *hist, *hist0;
+      unsigned long long* bad;
+      CK(cudaMalloc(&hp, sizeof(hp_h)));
+      CK(cudaMemcpy(hp, hp_h, sizeof(hp_h), cudaMemcpyHostToDevice));
+      CK(cudaMalloc(&sk, rows * w * 4));
+      CK(cudaMalloc(&sc, g.d * 4));
+      CK(cudaMalloc(&es, g.d * 4));
+      CK(cudaMalloc(&sc0, g.d * 4));
+      CK(cudaMalloc(&es0, g.d * 4));
+      CK(cudaMalloc(&hist, 2048 * 4));
+      CK(cudaMalloc(&hist0, 2048 * 4));
+      CK(cudaMalloc(&bad, 8));
+      fill_random<<<sms * 8, 256>>>(sk, rows * w, 11u);
+      const ts_map::TsMapT map{(uint32_t)(((uint64_t)1 << g.bits) - 1),
+                               (uint32_t)(w - 1), g.bits, g.log2w};
+      const float thr = 0.49f;  // |est| >= 0.7: ~5% of the medians of 5
+                                // cells uniform on [-1, 1), as the TS
+                                // route's 4.7% heavy
+      const unsigned grid = sketch_common::grid_for(g.d, 256, sms);
+      auto check = [&](const char* what, bool exact) {
+        uint32_t nb[3] = {0, 0, 0};
+        if (exact) {
+          unsigned long long nbad = 0;
+          CK(cudaMemset(bad, 0, 8));
+          count_unequal<<<sms * 8, 256>>>(es, es0, g.d, bad);
+          CK(cudaMemcpy(&nbad, bad, 8, cudaMemcpyDeviceToHost));
+          nb[0] = (uint32_t)nbad;
+          CK(cudaMemset(bad, 0, 8));
+          count_unequal<<<sms * 8, 256>>>(sc, sc0, g.d, bad);
+          CK(cudaMemcpy(&nbad, bad, 8, cudaMemcpyDeviceToHost));
+          nb[1] = (uint32_t)nbad;
+          uint32_t a[2048], b[2048];
+          CK(cudaMemcpy(a, hist, sizeof(a), cudaMemcpyDeviceToHost));
+          CK(cudaMemcpy(b, hist0, sizeof(b), cudaMemcpyDeviceToHost));
+          for (int t = 0; t < 2048; ++t) nb[2] += a[t] != b[t];
+        }
+        (void)what;
+        return std::array<uint32_t, 3>{nb[0], nb[1], nb[2]};
+      };
+      auto run = [&](const char* what, auto kernel, bool into0, bool exact,
+                     bool has_hist) {
+        float* s_out = into0 ? sc0 : sc;
+        float* e_out = into0 ? es0 : es;
+        uint32_t* h_out = into0 ? hist0 : hist;
+        CK(cudaMemset(h_out, 0, 2048 * 4));
+        kernel<<<grid, 256>>>(sk, w, hp, rows, map, thr, g.d, s_out, e_out,
+                              h_out);
+        CK(cudaDeviceSynchronize());
+        const auto nb = into0 ? std::array<uint32_t, 3>{0, 0, 0}
+                              : check(what, exact);
+        Timer t;
+        t.start();
+        for (int i = 0; i < reps; ++i) {
+          kernel<<<grid, 256>>>(sk, w, hp, rows, map, thr, g.d, s_out, e_out,
+                                h_out);
+        }
+        const float ms = t.stop_ms(reps);
+        if (into0) {  // the reference histogram of one launch again
+          CK(cudaMemset(h_out, 0, 2048 * 4));
+          kernel<<<grid, 256>>>(sk, w, hp, rows, map, thr, g.d, s_out, e_out,
+                                h_out);
+          CK(cudaDeviceSynchronize());
+        }
+        printf("{\"probe\": \"j_ts_scores\", \"shape\": \"%s\", \"d\": %lld, "
+               "\"width\": %lld, \"what\": \"%s\", \"ms\": %.4f, "
+               "\"est_unequal\": %u, \"scores_unequal\": %u, "
+               "\"hist_bins_unequal\": %s}\n",
+               g.what, (long long)g.d, (long long)w, what, ms,
+               exact ? nb[0] : 0u, exact ? nb[1] : 0u,
+               !exact ? "null" : (has_hist ? std::to_string(nb[2]).c_str()
+                                           : "null"));
+      };
+      run("as the kernel: 8 slots, shared atomic a key",
+          ts_scores_variant<8, 1, false, false>, true, true, true);
+      run("as the kernel again", ts_scores_variant<8, 1, false, false>,
+          false, true, true);
+      run("no histogram", ts_scores_variant<8, 0, false, false>, false,
+          true, false);
+      run("warp-aggregated histogram", ts_scores_variant<8, 2, false, false>,
+          false, true, true);
+      run("5 slots", ts_scores_variant<5, 1, false, false>, false, true,
+          true);
+      run("5 slots, row constants in registers",
+          ts_scores_variant<5, 1, true, false>, false, true, true);
+      run("5 slots, row constants in registers, no histogram",
+          ts_scores_variant<5, 0, true, false>, false, true, false);
+      run("5 slots, row constants in registers, warp-aggregated histogram",
+          ts_scores_variant<5, 2, true, false>, false, true, true);
+      run("as the kernel, gathers folded into 16 KB a row",
+          ts_scores_variant<8, 1, false, true>, false, false, true);
+      for (void* p : {(void*)hp, (void*)sk, (void*)sc, (void*)es, (void*)sc0,
+                      (void*)es0, (void*)hist, (void*)hist0, (void*)bad}) {
+        CK(cudaFree(p));
+      }
+    }
   }
   CK(cudaFree(out));
   return 0;

@@ -17,7 +17,8 @@ The decode is timed at the step's own widths. The recovery
 (``ops.heavymix_recover``, as the timed tree has it) and the old route
 (decode + ``core.heavymix.topk_lower_index`` of |est|) are timed at the
 step's widths and at 16,384, with the bucket's k; where the tree has the
-radix select (``kernels/topk_select.py``), also the select alone. In such
+radix select (``kernels/topk_select.py``), also the select alone (with the
+CTAs whose slab overflowed, where the tree has slabs). In such
 a tree the decode kernel always counts the select's histogram, so timing
 ``sketch_decode`` in a tree without the select and in one with it gives
 the decode alone and with its histogram. The recovery's indices are
@@ -25,8 +26,10 @@ checked against the old route's. The TS encode (``ts_encode``, the
 plan's kernel of the timed tree) and the TS route's recovery (old route:
 ``ts.decode`` + ``heavymix(estimates=)``; where the tree has it,
 ``ops.ts_heavymix_recover``, the TS-map scores kernel + the select, its
-indices checked against the old route's) are timed at the step's widths
-and at 16,384, the encode held to its plain version. g is
+indices checked against the old route's, and its parts: the scores kernel
+with its histogram, the row transpose where the tree has one, and the
+select of the TS scores) are timed at the step's widths and at 16,384,
+the encode held to its plain version. g is
 ``chip_smoke._spiky``;
 the timing (``chip_smoke.time_ms``, 10 calls after a warm-up) and the
 encode's tolerance (``ENCODE_REL_TOL`` * max|S|; the decode bit-equal) are
@@ -77,17 +80,25 @@ def recover_fns(torch, ops, sd, topk_lower_index, cfg, sk, d, k):
            ("heavymix_recover", lambda: ops.heavymix_recover(cfg, sk, k, d),
             {"k": k, "idx_equal": torch.equal(idx_old, idx_new)})]
     if hasattr(sd, "sketch_decode_hist"):
-        from repro_torch.kernels.topk_select import topk_select
+        from repro_torch.kernels import topk_select as tsel
         est, hist = sd.sketch_decode_hist(cfg, sk, d)
-        out.append(("topk_select", lambda: topk_select(est, k, hist),
-                    {"k": k}))
+        check = {"k": k}
+        if hasattr(tsel, "slab_overflows"):
+            tsel.slab_overflows(sk.device, reset=True)
+            tsel.topk_select(est, k, hist)
+            check["slab_overflows"] = tsel.slab_overflows(sk.device,
+                                                          reset=True)
+        out.append(("topk_select", lambda: tsel.topk_select(est, k, hist),
+                    check))
     return out
 
 
 def ts_fns(torch, ops, cs_, g, cfg, d, k):
     """(name, call, check) of the TS encode and of the TS route's recovery
-    (old route, and ``ops.ts_heavymix_recover`` where the tree has it) at
-    the exact sketch geometry ``cfg``; returns also whether all checks
+    (old route, and ``ops.ts_heavymix_recover`` where the tree has it,
+    with its parts: the TS-map scores kernel with its histogram, the
+    row transpose where the tree has one, and the select of those scores)
+    at the exact sketch geometry ``cfg``; returns also whether all checks
     held."""
     from repro_torch.core import heavymix as hm
     from repro_torch.core import ts_sketch as tsk
@@ -111,12 +122,32 @@ def ts_fns(torch, ops, cs_, g, cfg, d, k):
            ("ts_recover_old_route", old_route, {"k": k})]
     ok = err <= lim and bit_equal
     if hasattr(ops, "ts_heavymix_recover"):
+        from repro_torch.kernels import heavymix_topk as ht
+        from repro_torch.kernels import topk_select as tsel
         equal = torch.equal(old_route(),
                             ops.ts_heavymix_recover(tcfg, sk, k, d)[0])
         ok = ok and equal
         out.append(("ts_heavymix_recover",
                     lambda: ops.ts_heavymix_recover(tcfg, sk, k, d),
                     {"k": k, "idx_equal": equal}))
+        from repro_torch.core.count_sketch import l2sq_estimate
+        thr = l2sq_estimate(sk) / k
+        sc, _, hist = ht.heavymix_scores_ts_hist(tcfg, sk, thr, d)
+        n_heavy = int((sc >= 1e30).sum())
+        out.append(("heavymix_scores_ts",
+                    lambda: ht.heavymix_scores_ts_hist(tcfg, sk, thr, d),
+                    {"n_heavy": n_heavy}))
+        if hasattr(ht, "ts_transpose"):
+            out.append(("ts_transpose", lambda: ht.ts_transpose(tcfg, sk),
+                        {}))
+        check = {"k": k, "n_heavy": n_heavy}
+        if hasattr(tsel, "slab_overflows"):
+            tsel.slab_overflows(sk.device, reset=True)
+            tsel.topk_select(sc, k, hist)
+            check["slab_overflows"] = tsel.slab_overflows(sk.device,
+                                                          reset=True)
+        out.append(("topk_select_ts", lambda: tsel.topk_select(sc, k, hist),
+                    check))
     return out, ok
 
 

@@ -7,15 +7,17 @@
 //                                                   two middle values)
 // The bucket and sign map is a template parameter: ExactMap, the
 // multiply-shift hashes of repro/core/count_sketch.py in uint32 arithmetic
-// (wrap-around mod 2^32, as the reference), or TsMap (ts_map.cuh), the
-// TS-sketch's digit transpose of repro/core/ts_sketch.py.
+// (wrap-around mod 2^32, as the reference), or TsMapT (ts_map.cuh), the
+// TS-sketch's digit transpose of repro/core/ts_sketch.py on a
+// row-transposed copy of the sketch.
 //
-// The R gathered values fill N slots (N = 8 or 32, a compile-time
-// constant) padded with +inf. A compare-exchange network with
-// compile-time indices sorts them, and the middle values are read at
-// compile-time indices too, so the slots stay in registers. A
-// runtime-indexed array would live in local memory: at R = 5 an insertion
-// sort in such an array took 1.43x as long on an H100 (PERF.md).
+// The R gathered values fill N slots (N = 8 or 32, or exactly R in the
+// TS-map scores kernel; a compile-time constant) padded with +inf. A
+// compare-exchange network with compile-time indices sorts them, and the
+// middle values are read at compile-time indices too, so the slots stay
+// in registers. A runtime-indexed array would live in local memory: at
+// R = 5 an insertion sort in such an array took 1.43x as long on an H100
+// (PERF.md).
 //
 // NaN: fminf/fmaxf return the non-NaN operand, so the network alone would
 // drop a NaN value. The estimate is NaN (0x7FC00000, the plain version's
@@ -74,20 +76,12 @@ __device__ __forceinline__ float gather(const float* __restrict__ sk,
   return map.sign_bit(p, i) ? -v : v;
 }
 
-// Median over the rows of coordinate i's R signed bucket values.
-template <int N, class Map>
-__device__ __forceinline__ float median_estimate(const float* __restrict__ sk,
-                                                 const uint32_t* sh,
-                                                 int rows, uint32_t i,
-                                                 const Map& map,
-                                                 int64_t width) {
-  float v[N];
-  bool any_nan = false;
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    v[r] = r < rows ? gather(sk, sh, r, i, map, width) : INFINITY;
-    any_nan |= isnan(v[r]);
-  }
+// The median of v[0, rows) (v[rows, N) hold +inf): a compare-exchange
+// network over the N slots, the middle read at compile-time indices; NaN
+// (0x7FC00000) where any_nan.
+template <int N>
+__device__ __forceinline__ float median_of(float (&v)[N], int rows,
+                                           bool any_nan) {
 #pragma unroll
   for (int a = 0; a < N - 1; ++a) {
 #pragma unroll
@@ -107,6 +101,23 @@ __device__ __forceinline__ float median_estimate(const float* __restrict__ sk,
   }
   if (any_nan) return __int_as_float(0x7FC00000);
   return (rows & 1) ? hi : 0.5f * (lo + hi);
+}
+
+// Median over the rows of coordinate i's R signed bucket values.
+template <int N, class Map>
+__device__ __forceinline__ float median_estimate(const float* __restrict__ sk,
+                                                 const uint32_t* sh,
+                                                 int rows, uint32_t i,
+                                                 const Map& map,
+                                                 int64_t width) {
+  float v[N];
+  bool any_nan = false;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    v[r] = r < rows ? gather(sk, sh, r, i, map, width) : INFINITY;
+    any_nan |= isnan(v[r]);
+  }
+  return median_of<N>(v, rows, any_nan);
 }
 
 // Grid for a grid-stride loop over n items on a card of sms SMs: at most

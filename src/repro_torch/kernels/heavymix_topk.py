@@ -23,12 +23,19 @@ histogram. ``heavymix_scores_hist`` returns it; ``heavymix_scores`` (the
 reference's API) launches the same kernel and drops it.
 
 ``heavymix_scores_ts_hist`` is the same kernel with the TS-sketch's bucket
-and sign map (``csrc/ts_map.cuh``, the row parameters of
-``kernels/ts_encode.row_params_on_device``) in place of the multiply-shift
-hashes: the TS route's recovery (the reference's ``ts.decode`` followed by
-``heavymix(..., estimates=)``, which boosts and ranks at every d). Its
-plain version is ``core.ts_sketch.decode`` and the reference's
-``torch.where``; it counts as ``LAUNCHES["heavymix_scores_ts"]``.
+and sign map in place of the multiply-shift hashes: the TS route's recovery
+(the reference's ``ts.decode`` followed by ``heavymix(..., estimates=)``,
+which boosts and ranks at every d). Its plain version is
+``core.ts_sketch.decode`` and the reference's ``torch.where``; it counts as
+``LAUNCHES["heavymix_scores_ts"]``. Row r of a TS sketch, seen as a
+(P_r, n_r) matrix (P_r = W / n_r, n_r = d_pad / m_r), is read a column at
+a time: coordinate i reads element (i mod P_r, q_r(i)), and q_r changes
+once in m_r coordinates. So on the card ``ts_transpose`` first writes the
+row-transposed copy (rows with 1 < n_r < W as (n_r, P_r); its own kernel,
+``LAUNCHES["ts_transpose"]``, into a ``torch.empty`` scratch), and the
+scores kernel reads it through ``TsMapT`` (``csrc/ts_map.cuh``), where
+neighbouring coordinates read neighbouring floats of every row. The row
+parameters are ``kernels/ts_encode.row_params_on_device``'s.
 """
 
 from __future__ import annotations
@@ -110,19 +117,69 @@ def heavymix_scores_ts_plain(tcfg: TSketchConfig, sketch: torch.Tensor,
     return torch.where(heavy, torch.abs(est) + _BIG, torch.abs(est)), est
 
 
+def _row_shape(tcfg: TSketchConfig, r: int) -> tuple[int, int] | None:
+    """(P_r, n_r) of row r where 1 < n_r < W (the rows ``ts_transpose``
+    transposes), else None."""
+    n = 1 << (tcfg.bits - tcfg.log_m[r])
+    return (tcfg.width // n, n) if 1 < n < tcfg.width else None
+
+
+def ts_transpose_plain(tcfg: TSketchConfig, sketch: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain version of the transpose: row r as ``view(P_r, n_r).T`` where
+    1 < n_r < W, the other rows as they are; (R, W) f32."""
+    sk = sketch.to(torch.float32)
+    rows = []
+    for r in range(tcfg.rows):
+        shape = _row_shape(tcfg, r)
+        rows.append(sk[r] if shape is None
+                    else sk[r].view(shape).T.reshape(-1))
+    return torch.stack(rows)
+
+
+def ts_transpose(tcfg: TSketchConfig, sketch: torch.Tensor) -> torch.Tensor:
+    """The row-transposed copy of a TS sketch that the TS-map scores kernel
+    reads; one launch on the card."""
+    if not resolve_dispatch(sketch.device.type):
+        return ts_transpose_plain(tcfg, sketch)
+    lib = _lib()
+    if sketch.device.type != "cuda":
+        raise ValueError(f"ts_transpose kernel needs a CUDA tensor, got "
+                         f"{sketch.device}")
+    if tuple(sketch.shape) != (tcfg.rows, tcfg.width):
+        raise ValueError(f"sketch shape {tuple(sketch.shape)} != "
+                         f"{(tcfg.rows, tcfg.width)}")
+    sk = sketch.to(torch.float32).contiguous()
+    out = torch.empty_like(sk)
+    rp = row_params_on_device(tcfg, str(sk.device))
+    launch = lib.ts_transpose_launch
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    launch.argtypes = [p, i32, p, i32, i32, p, p]
+    launch.restype = i32
+    rc = launch(
+        sk.data_ptr(), tcfg.log2_width, rp.data_ptr(), tcfg.rows, tcfg.bits,
+        out.data_ptr(), torch.cuda.current_stream(sk.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ts_transpose launch failed: cudaError {rc}")
+    LAUNCHES["ts_transpose"] += 1
+    return out
+
+
 def heavymix_scores_ts_hist(tcfg: TSketchConfig, sketch: torch.Tensor,
                             thresh: torch.Tensor, d: int
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """(scores, estimates, histogram of key bits 30..20 of the scores) of
-    the coordinates [0, d) of a TS sketch; one launch on the card."""
+    the coordinates [0, d) of a TS sketch; on the card two launches, the
+    transpose and the scores kernel."""
     if not resolve_dispatch(sketch.device.type):
         scores, est = heavymix_scores_ts_plain(tcfg, sketch, thresh, d)
         return scores, est, radix_hist_plain(scores)
     if tcfg.bits > 32 or d > tcfg.d_pad:
         raise ValueError(f"heavymix_scores_ts: d = {d} with d_pad = "
                          f"{tcfg.d_pad} (at most 2^32)")
-    return _launch(tcfg, sketch, thresh, int(d), ts_map=True)
+    return _launch(tcfg, ts_transpose(tcfg, sketch), thresh, int(d),
+                   ts_map=True)
 
 
 def _launch(cfg, sketch: torch.Tensor, thresh: torch.Tensor, d: int, *,

@@ -36,11 +36,14 @@ from repro_torch.kernels.heavymix_topk import (heavymix_scores,
                                                heavymix_scores_hist,
                                                heavymix_scores_plain,
                                                heavymix_scores_ts_hist,
-                                               heavymix_scores_ts_plain)
+                                               heavymix_scores_ts_plain,
+                                               ts_transpose,
+                                               ts_transpose_plain)
 from repro_torch.kernels.sketch_decode import (sketch_decode,
                                                sketch_decode_hist,
                                                sketch_decode_plain)
-from repro_torch.kernels.topk_select import (radix_hist_plain, topk_select,
+from repro_torch.kernels.topk_select import (radix_hist_plain, select_plan,
+                                             slab_overflows, topk_select,
                                              topk_select_plain)
 from repro_torch.kernels.sketch_encode import (sketch_encode,
                                                sketch_encode_plain)
@@ -433,3 +436,98 @@ def test_nan_estimates_bit_equal_plain(card, kind, rows):
         assert torch.equal(v[~nan].view(torch.int32),
                            lo_v[~nan].view(torch.int32))
         assert bool(nan[:min(kk, n_nan)].all())
+
+
+@pytest.mark.parametrize("d,rows,width", [
+    (388_956_160, 5, 1 << 20), (201_864_704, 5, 1 << 19),
+    (388_956_160, 5, 1 << 14), (91_648, 3, 512), (3_000_001, 5, 16),
+    (20_000, 17, 512), (2 ** 32 - 5, 5, 1 << 12)])
+def test_ts_transpose_kernel_equals_plain(card, d, rows, width):
+    """The row-transposed TS sketch the TS-map scores kernel reads: equal
+    to the plain transpose at the main cell's widths (n_r 1..256 < W), at
+    16,384 (n_r = W), at small W (n_r > W) and at d_pad = 2^32; one launch
+    counted as ts_transpose."""
+    cfg, sk = _ts_sketch(card, d, rows, width, rows)
+    before = LAUNCHES["ts_transpose"]
+    got = ts_transpose(cfg, sk)
+    assert LAUNCHES["ts_transpose"] == before + 1
+    assert torch.equal(got, ts_transpose_plain(cfg, sk))
+
+
+@pytest.mark.parametrize("d,width", [(388_956_160, 1 << 20),
+                                     (201_864_704, 1 << 19),
+                                     (388_956_160, 1 << 14)])
+def test_ts_scores_kernel_bit_equal_at_cell_widths(card, d, width):
+    """The TS-map scores at the main cell's buckets (R = 5) and at 16,384:
+    est and scores bit-equal to plain, histogram equal; the transpose and
+    the scores kernel launch once each."""
+    cfg, sk = _ts_sketch(card, d, 5, width, 6)
+    thr = cs.l2sq_estimate(sk) / 800_000
+    before = dict(LAUNCHES)
+    sc, est, hist = heavymix_scores_ts_hist(cfg, sk, thr, d)
+    for name in ("ts_transpose", "heavymix_scores_ts"):
+        assert LAUNCHES[name] == before.get(name, 0) + 1
+    sc_p, est_p = heavymix_scores_ts_plain(cfg, sk, thr, d)
+    assert torch.equal(est, est_p) and torch.equal(sc, sc_p)
+    assert torch.equal(hist, radix_hist_plain(sc_p))
+
+
+def _ties_dense_then_sparse(card, n, dense_until, seed):
+    """TS-route scores: heavy keys exactly 1e30, 90% of the keys below
+    ``dense_until`` and 2% above it, the rest small."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    s = torch.rand(n, generator=gen, device=card).mul_(1e-3)
+    share = torch.full((n,), 0.02, device=card)
+    share[:dense_until] = 0.9
+    heavy = torch.rand(n, generator=gen, device=card) < share
+    return torch.where(heavy, s + 1e30, s)
+
+
+@pytest.mark.parametrize("capacity,overflow", [
+    (None, "some"), (0, "all"), (32, "all"), (None, "none"), (None, "off")])
+@pytest.mark.parametrize("k", [1, 20_000, 150_000])
+def test_select_forced_slab_overflow(card, capacity, overflow, k):
+    """The select with slabs that overflow in every CTA, in some, or in
+    none (the same keys with 2% heavy everywhere), and with 90% heavy
+    everywhere, more keys in the bin than all the slabs hold, so they are
+    off: idx equal to topk_lower_index's as returned, values bit-equal;
+    the device counter counts the CTAs that read their keys in x."""
+    n = 5_000_001
+    dense = {"none": 0, "off": n}.get(overflow, 1_000_000)
+    x = _ties_dense_then_sparse(card, n, dense, k)
+    hist = radix_hist_plain(x)
+    slab_overflows(card, reset=True)
+    v, i = topk_select(x, k, hist, capacity=capacity)
+    lo_v, lo_i = topk_lower_index(x.abs(), k)
+    assert torch.equal(i, lo_i)
+    assert torch.equal(v.view(torch.int32), lo_v.view(torch.int32))
+    grid = select_plan(n, torch.cuda.get_device_properties(
+        card).multi_processor_count)[0]
+    got = slab_overflows(card, reset=True)
+    if overflow in ("all", "off"):
+        assert got == grid
+    elif overflow == "none":
+        assert got == 0
+    else:
+        assert 0 < got < grid
+
+
+@pytest.mark.parametrize("capacity", [None, 0])
+def test_select_nan_keys_with_and_without_slabs(card, capacity):
+    """NaN keys (the top digit-1 bin) through the slabs and through the
+    overflow path: topk_lower_index's order, NaN first by index."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(5_000_001, generator=gen, device=card)
+    at = torch.randint(0, x.numel(), (40,), generator=gen, device=card)
+    x[at] = float("nan")
+    x[at[0]] = -float("nan")
+    hist = radix_hist_plain(x)
+    n_nan = int(torch.isnan(x).sum())
+    for k in (1, n_nan, n_nan + 1000):
+        v, i = topk_select(x, k, hist, capacity=capacity)
+        lo_v, lo_i = topk_lower_index(x.abs(), k)
+        assert torch.equal(i, lo_i)
+        nan = torch.isnan(v)
+        assert torch.equal(nan, torch.isnan(lo_v))
+        assert torch.equal(v[~nan].view(torch.int32),
+                           lo_v[~nan].view(torch.int32))
