@@ -11,7 +11,10 @@ Phases (any failure exits non-zero and prints no result line):
                 ``nvcc`` (one process per source, all started together) and
                 load them.
 2. kernels   — call each kernel's wrapper on the card at the shapes the
-                full-width step gives it (the encode, the decode with and
+                full-width step gives it (the exact encode bit-equal to its
+                plain version, to a second launch and to a launch with
+                other splits and pass size, and with NaN, +-inf and
+                out-of-range elements planted; the decode with and
                 without its first-digit histogram and the top-k select at
                 both buckets, with their launch geometry, and the encode
                 also at the CLI's default sketch width; the others at
@@ -43,8 +46,10 @@ Phases (any failure exits non-zero and prints no result line):
                 buckets=2, psum, AdamW, SketchSpec(rows=5, width=None,
                 k=None). Both buckets are past 2^22 coordinates, so the
                 recovery runs the decode kernel (with its histogram) and
-                the select, not the scores kernel; the select launches once
-                per recovery: 12 times.
+                the select, not the scores kernel; the encode (its
+                accumulate and its finish, each a launch counted on its
+                own), the decode and the select launch once per recovery:
+                12 times each.
 4. profile   — one more full-width step under ``torch.profiler``: device
                 time per span (loss_and_grad / encode / allreduce / recover
                 / optimizer; each device event counted once, in the span
@@ -60,7 +65,8 @@ Phases (any failure exits non-zero and prints no result line):
                 fuse_encode=True): the partial encodes timed at the
                 fragment sizes the cell gives them against the whole-bucket
                 encode; three steps, counted (sketch_encode 14 times a step:
-                7 fragments x 2 workers; the decode for buckets 0-2, the
+                7 fragments x 2 workers; sketch_encode_finish once a bucket
+                and step, for both workers; the decode for buckets 0-2, the
                 scores kernel for bucket 3, the select for each; no plain
                 version called); one more step with each fused sketch held
                 against the whole-bucket encode of the same u; one
@@ -71,20 +77,41 @@ Phases (any failure exits non-zero and prints no result line):
                 INTERLEAVE_LOSS_RTOL, and after the three steps the same
                 selected coordinates (EF zero pattern) and the params within
                 INTERLEAVE_PARAM_RTOL / _ATOL; one profiled step of it
-                (profile_bucketed4).
+                (profile_bucketed4). The fragments merged and each fused
+                sketch are bit-equal to the whole-bucket encode (the encode
+                is exact), and the finish kernel that converts the merged
+                exact sketch is timed (its own row). Each bucket's row also
+                times the zeroing of one exact accumulator, which every
+                partial encode pays.
+6b. train_minicpm — minicpm-2b at its published widths (2 layers, tied
+                embeddings), P=2, buckets=2, batch 8, seq 64, microbatch 2,
+                clip 1.0, AdamW under wsd (lr 0, TRAIN_LR, 0.55 TRAIN_LR at
+                steps 0-2), HEAVYMIX's faithful fill: three counted steps
+                (sketch_encode, sketch_encode_finish, heavymix_scores with
+                its filler operand and topk_select 12 times each, the
+                decode never, no plain
+                version called); step 0's microbatched loss against the
+                full-batch loss and the applied gradient's norm against
+                min(grad_norm, clip), within MINICPM_RTOL; a profiled step
+                (profile_minicpm); the filler scores kernel at the cell's
+                shapes, bit-equal to plain.
 7. parity    — two steps of examples/specs/qwen3_smoke.json on the card
                 (kernels) and on the CPU (plain versions) from the same
                 params and batches: losses and selected coordinates agree.
                 Its buckets are below 2^22: the scores kernel's path (with
-                its histogram, then the select).
+                its histogram, then the select). The same for the smoke
+                configs of yi-9b, minicpm-2b and starcoder2-3b.
 8. baselines — every compressor of the registry, two smoke-spec steps on the
                 card and on the CPU from the same params and batches.
 9. cli       — ``python -m repro_torch.launch.train --spec
                 examples/specs/qwen3_smoke.json`` on the card, then the same
-                with ``--buckets 4 --bwd-chunks 2 --fuse-encode``.
+                with ``--buckets 4 --bwd-chunks 2 --fuse-encode``; then four
+                steps with a checkpoint every step and ``--kill-at 2``,
+                ``--resume`` to step 4, and four steps straight: the final
+                losses and the step-4 checkpoints' tensors bit-equal.
 
 Every path that launches kernels (train, train_ts, train_interleave,
-parity) runs with every
+train_minicpm, parity) runs with every
 launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts. The
 select's slab-overflow counter is zeroed before each path too and read
@@ -115,10 +142,11 @@ F32_OPS_PER_S = 67e12   # f32 outside the tensor cores
 TRAIN_P, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 8, 64, 3, 1e-3
 
 # Tolerances.
-ENCODE_REL_TOL = 1e-4   # |kernel - plain| / max|S|: the encoders add in
-#                         another order (shared-memory atomics, or the TS
-#                         kernel's fixed per-bucket order); n*eps*sum|x|/max|S|
-#                         stays below
+ENCODE_REL_TOL = 1e-4   # |kernel - plain| / max|S|: the TS encoder adds in
+#                         another order (its kernel's fixed per-bucket
+#                         order); n*eps*sum|x|/max|S| stays below. The exact
+#                         encoder (integer limb sums) is held bit-equal to
+#                         plain, with this bound checked beside it
 PARITY_LOSS_RTOL = 1e-3  # card vs CPU: f32 matmuls and sketch sums in
 #                          another order, then AdamW (the CPU port matches
 #                          the JAX package at 1e-4)
@@ -141,6 +169,18 @@ INTERLEAVE_PARAM_RTOL, INTERLEAVE_PARAM_ATOL = 1e-5, 1e-6  # params after the
 #                          holds fused against unfused; a swapped coordinate
 #                          moves its param by about lr, far beyond atol
 INTERLEAVE_BUCKETS, INTERLEAVE_CHUNKS = 4, 2
+
+# The train_minicpm cell: minicpm-2b at its published widths, 40 -> 2
+# layers, microbatch 2 (two slices a worker), the global-norm clip at 1.0,
+# AdamW under wsd(TRAIN_LR, warmup=1, stable=0, decay=2), HEAVYMIX's
+# faithful fill (filler drawn from a generator seeded 0).
+MINICPM_LAYERS, MINICPM_MICROBATCH, MINICPM_CLIP = 2, 2, 1.0
+MINICPM_RTOL = 1e-5  # step 0's microbatched loss (the mean of two slices'
+#                      losses) against the full-batch loss of the same
+#                      params, and the applied gradient's norm against
+#                      min(grad_norm, clip): f32 sums in another grouping,
+#                      a few ulp of values near 12 and near the norm
+NEW_SMOKE_ARCHS = ("yi-9b", "minicpm-2b", "starcoder2-3b")
 
 
 def log(msg: str) -> None:
@@ -270,14 +310,18 @@ def _shapes_row(name, source, replaces, shapes):
 def encode_checks(torch, device, gen, buckets) -> tuple[dict, list]:
     """sketch_encode: small odd cases, then every bucket of the main path
     (``buckets``: (cfg, g) each), then bucket 0's g at the CLI's default
-    width (few tiles, so several accumulating CTAs a tile). Returns its row
-    and the kernel's sketch of each main-path bucket."""
+    width (few tiles, so several accumulating CTAs a tile): bit-equal to
+    plain (and within ENCODE_REL_TOL * max|S|), a second launch bit-equal
+    to the first, a launch with other splits and pass size bit-equal;
+    non-finite and out-of-range elements planted at known coordinates.
+    Returns its row and the kernel's sketch of each main-path bucket."""
     from repro_torch.api import SketchSpec
     from repro_torch.core import count_sketch as cs
     from repro_torch.kernels.sketch_encode import (encode_plan, sketch_encode,
                                                    sketch_encode_plain)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
-        for rows, width, off in ((3, 300, 4099), (64, 1 << 12, 2**32 - 700)):
+        for rows, width, off in ((3, 300, 4099), (64, 1 << 12, 2**32 - 700),
+                                 (1, 1, 0)):
             c = cs.SketchConfig(rows=rows, width=width, seed=5)
             x = torch.randn(1537, generator=gen, device=device).to(dt)
             got = sketch_encode(c, x, index_offset=off)
@@ -285,9 +329,13 @@ def encode_checks(torch, device, gen, buckets) -> tuple[dict, list]:
             err = float((got - want).abs().max())
             lim = ENCODE_REL_TOL * float(want.abs().max())
             log(f"[kernels] sketch_encode small d=1537 R={rows} W={c.width} "
-                f"off={off} {dt}: max_abs_err {err:.3g} (limit {lim:.3g})")
-            if not err <= lim:
-                fail(f"sketch_encode small {dt} disagrees: {err} > {lim}")
+                f"off={off} {dt}: bit-equal to plain "
+                f"{_bits_equal(torch, got, want)} (max_abs_err {err:.3g}, "
+                f"limit {lim:.3g})")
+            if not (_bits_equal(torch, got, want) and err <= lim):
+                fail(f"sketch_encode small {dt} R={rows} W={c.width} is not "
+                     f"bit-equal to plain: {err}")
+    encode_special_checks(torch, device, gen)
     cfg0, g0 = buckets[0]
     cases = [(f"bucket {b}", cfg, g) for b, (cfg, g) in enumerate(buckets)]
     cases.append(("CLI default width at bucket 0's d", cs.SketchConfig(
@@ -298,7 +346,7 @@ def encode_checks(torch, device, gen, buckets) -> tuple[dict, list]:
         d, R, W = g.shape[0], cfg.rows, cfg.width
         plan = encode_plan(R, cfg.log2_width, d, sms)
         log(f"[kernels] sketch_encode plan at {what} (d={d}, R={R}, W={W}): "
-            f"{plan.ntiles} tiles of 32 KB, {plan.splits} accumulating "
+            f"{plan.ntiles} tiles of 2^13 cells, {plan.splits} accumulating "
             f"CTA(s) a tile; binning CTAs of {plan.block} elements "
             f"({plan.bin_smem} bytes of shared memory), {plan.nblocks} a "
             f"pass; passes of {plan.chunk} elements: {-(-d // plan.chunk)}, "
@@ -307,11 +355,22 @@ def encode_checks(torch, device, gen, buckets) -> tuple[dict, list]:
         sk_p = sketch_encode_plain(cfg, g)
         err = float((sk - sk_p).abs().max())
         lim = ENCODE_REL_TOL * float(sk_p.abs().max())
-        log(f"[kernels] sketch_encode {what} d={d}: max_abs_err {err:.4g} "
-            f"(limit {lim:.4g} = {ENCODE_REL_TOL} * max|S|)")
-        if not err <= lim:
-            fail(f"sketch_encode disagrees with its plain version at {what}: "
-                 f"{err}")
+        other = encode_plan(R, cfg.log2_width, d, sms,
+                            splits=max(1, plan.splits // 2 + 3),
+                            chunk=max(plan.block, plan.chunk // 3
+                                      // plan.block * plan.block))
+        same = {"plain": _bits_equal(torch, sk, sk_p),
+                "second launch": _bits_equal(torch, sk,
+                                             sketch_encode(cfg, g)),
+                f"splits {other.splits}, passes of {other.chunk}":
+                    _bits_equal(torch, sk, sketch_encode(cfg, g,
+                                                         plan=other))}
+        log(f"[kernels] sketch_encode {what} d={d}: bit-equal to {same}; "
+            f"max_abs_err {err:.4g} (limit {lim:.4g} = {ENCODE_REL_TOL} * "
+            "max|S|)")
+        if not (all(same.values()) and err <= lim):
+            fail(f"sketch_encode at {what} is not bit-equal: {same}, "
+                 f"max_abs_err {err}")
         del sk_p
         ms = time_ms(torch, lambda: sketch_encode(cfg, g), reps=10)
         plain_ms = time_ms(torch, lambda: sketch_encode_plain(cfg, g), reps=2)
@@ -334,6 +393,47 @@ def encode_checks(torch, device, gen, buckets) -> tuple[dict, list]:
     return _shapes_row("sketch_encode", "src/repro_torch/csrc/sketch_encode.cu",
                        "src/repro/kernels/sketch_encode.py:87",
                        shapes), sketches
+
+
+def encode_special_checks(torch, device, gen):
+    """NaN, +inf, -inf, an element of 3e9 and one of -2^31 planted at known
+    coordinates of a 100,000-element g (R = 5, W = 1024): the kernel's
+    sketch bit-equal to plain; each planted element's cells NaN or inf by
+    the encode's rules (NaN, or both infinities: NaN; one infinity: it;
+    |v| >= 2^31: NaN)."""
+    from repro_torch.core import count_sketch as cs
+    from repro_torch.kernels.sketch_encode import (sketch_encode,
+                                                   sketch_encode_plain)
+    cfg = cs.SketchConfig(rows=5, width=1024, seed=3)
+    g = torch.randn(100_000, generator=gen, device=device).mul_(1e-3)
+    plants = {10: float("nan"), 20: float("inf"), 30: -float("inf"),
+              40: 3e9, 50: -2.0**31}
+    for j, v in plants.items():
+        g[j] = v
+    got, want = sketch_encode(cfg, g), sketch_encode_plain(cfg, g)
+    if not _bits_equal(torch, got, want):
+        fail("sketch_encode with non-finite elements is not bit-equal to "
+             "plain")
+    bk, sg = cs.hash_buckets(cfg, torch.tensor(list(plants), device=device))
+    cells: dict = {}
+    for n, v in enumerate(plants.values()):
+        for r in range(cfg.rows):
+            cells.setdefault((r, int(bk[r, n])), []).append(float(sg[r, n]) * v)
+    for (r, w), vals in cells.items():
+        pos = any(x == math.inf for x in vals)
+        neg = any(x == -math.inf for x in vals)
+        nan = any(math.isnan(x) for x in vals) or (pos and neg)
+        want = ("nan" if nan else "+inf" if pos else "-inf" if neg
+                else "nan")  # otherwise only |v| >= 2^31: NaN
+        cell = float(got[r, w])
+        have = ("nan" if math.isnan(cell) else "+inf" if cell == math.inf
+                else "-inf" if cell == -math.inf else "finite")
+        if have != want:
+            fail(f"sketch_encode: cell ({r}, {w}) of planted {vals} is "
+                 f"{cell}, want {want}")
+    log(f"[kernels] sketch_encode with NaN, +inf, -inf, 3e9, -2^31 planted: "
+        f"bit-equal to plain; {int(torch.isnan(got).sum())} NaN and "
+        f"{int(torch.isinf(got).sum())} inf cells where the rules put them")
 
 
 def _spiky(torch, gen, device, n, n_spikes):
@@ -1046,7 +1146,7 @@ def train_phase(torch, cfg, opt, ts, tag="train") -> dict:
     stream = LMStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH, seed=0)
     sizes = ts.compressor.spec.sizes
-    log(f"[{tag}] qwen3-4b widths, {cfg.n_layers} layers: d={ts.d_local} "
+    log(f"[{tag}] {ts.fs.cfg.name} widths, {cfg.n_layers} layers: d={ts.d_local} "
         f"buckets {list(sizes)} bwd_chunks {ts.bwd_chunks} fuse_encode "
         f"{ts.fuse_encode} "
         f"(k, W) {[(c.k, c.sketch.width) for c in ts.compressor.parts]} "
@@ -1180,16 +1280,23 @@ def profile_phase(torch, ts, state, stream, tag="profile"):
     return state, out
 
 
-def fragment_encode_checks(torch, device, ts) -> list[dict]:
+def fragment_encode_checks(torch, device, ts) -> tuple[list[dict], dict]:
     """The fused encode's launches at the fragment sizes the interleaved
-    cell gives them: each fragment of each bucket encoded at its offset in
-    the bucket, the partials summed (the merge), held against the plain
-    whole-bucket encode at ENCODE_REL_TOL * max|S|; times of each partial
-    encode, of the merge's adds and of the whole-bucket encode."""
+    cell gives them: each fragment of each bucket added at its offset into
+    an exact sketch of its own, the partials summed (as integers) and
+    finished (the merge): bit-equal to the plain whole-bucket encode and to
+    the kernel's, and within ENCODE_REL_TOL * max|S|; times of each partial
+    encode, of the merge and of the whole-bucket encode. Returns the rows
+    and the finish kernel's row (timed at bucket 0: both workers' exact
+    sketches, as the merge finishes them)."""
+    from repro_torch.core import count_sketch as cs
     from repro_torch.kernels.sketch_encode import (sketch_encode,
+                                                   sketch_encode_finish,
+                                                   sketch_encode_finish_plain,
+                                                   sketch_encode_into,
                                                    sketch_encode_plain)
     gen = torch.Generator(device=device).manual_seed(2)
-    rows = []
+    rows, finish_row = [], None
     for b, (part, d, fr) in enumerate(zip(ts.compressor.parts,
                                           ts.compressor.spec.sizes,
                                           ts.plan.fragments())):
@@ -1197,48 +1304,84 @@ def fragment_encode_checks(torch, device, ts) -> list[dict]:
         g = _spiky(torch, gen, device, d, max(1, part.k // 4))
         want = sketch_encode_plain(cfg, g)
         lim = ENCODE_REL_TOL * float(want.abs().max())
-        parts = [sketch_encode(cfg, g[o:o + n], index_offset=o)
-                 for o, n in fr]
+
+        def partial(o, n):
+            acc = cs.exact_zeros(cfg, device=device)
+            return sketch_encode_into(cfg, g[o:o + n], acc, index_offset=o)
+
+        parts = [partial(o, n) for o, n in fr]
 
         def merge():
-            out = parts[0]
-            for p in parts[1:]:
+            out = parts[-1]
+            for p in parts[-2::-1]:
                 out = out + p
-            return out
+            return sketch_encode_finish(out)
 
-        err = float((merge() - want).abs().max())
-        if not err <= lim:
-            fail(f"the partial encodes of bucket {b} sum to {err} from the "
-                 f"plain whole-bucket encode (limit {lim})")
-        del want
-        frag_ms = [time_ms(torch, lambda o=o, n=n: sketch_encode(
-            cfg, g[o:o + n], index_offset=o), reps=10) for o, n in fr]
+        merged = merge()
+        err = float((merged - want).abs().max())
+        same = (_bits_equal(torch, merged, want)
+                and _bits_equal(torch, merged, sketch_encode(cfg, g)))
+        if not (same and err <= lim):
+            fail(f"the partial encodes of bucket {b} merged are not "
+                 f"bit-equal to the whole-bucket encode (max_abs_err {err}, "
+                 f"limit {lim})")
+        del want, merged
+        frag_ms = [time_ms(torch, lambda o=o, n=n: partial(o, n), reps=10)
+                   for o, n in fr]
         whole_ms = time_ms(torch, lambda: sketch_encode(cfg, g), reps=10)
-        merge_ms = time_ms(torch, merge, reps=10) if len(fr) > 1 else 0.0
+        merge_ms = time_ms(torch, merge, reps=10)
+        zero_ms = time_ms(torch, lambda: cs.exact_zeros(cfg, device=device),
+                          reps=10)
         bounds = [bound_ms(n * 4 + R * W * 4, n * R * 7.0)[0] for _, n in fr]
         row = {"bucket": b, "d": d, "rows": R, "width": W,
                "fragments": [{"offset": o, "n": n, "ms": ms, "bound_ms": bd}
                              for (o, n), ms, bd in zip(fr, frag_ms, bounds)],
                "partials_ms": sum(frag_ms), "merge_ms": merge_ms,
+               "exact_zeros_ms": zero_ms,
                "whole_ms": whole_ms,
                "whole_bound_ms": bound_ms(d * 4 + R * W * 4, d * R * 7.0)[0],
-               "max_abs_err": err}
+               "max_abs_err": err, "bit_equal": same}
         log(f"[train_interleave] encode bucket {b} (d={d}, R={R}, W={W}): "
             f"{len(fr)} partial(s) {[round(x, 4) for x in frag_ms]} ms = "
-            f"{sum(frag_ms):.4f} ms + merge {merge_ms:.4f} ms, whole-bucket "
-            f"encode {whole_ms:.4f} ms; partials sum within {err:.4g} of "
-            f"plain (limit {lim:.4g})")
+            f"{sum(frag_ms):.4f} ms + merge (integer sum and finish) "
+            f"{merge_ms:.4f} ms, whole-bucket encode {whole_ms:.4f} ms; "
+            f"zeroing one exact accumulator {zero_ms:.4f} ms; "
+            f"merged partials bit-equal to the whole-bucket encode "
+            f"(max_abs_err {err:.4g}, limit {lim:.4g})")
         rows.append(row)
+        if b == 0:
+            both = cs.exact_zeros(cfg, (ts.nworkers,), device=device)
+            for p in range(ts.nworkers):
+                sketch_encode_into(cfg, g, both.worker(p))
+            fin, fin_p = sketch_encode_finish(both), \
+                sketch_encode_finish_plain(both)
+            if not _bits_equal(torch, fin, fin_p):
+                fail("sketch_encode_finish is not bit-equal to plain")
+            ms = time_ms(torch, lambda: sketch_encode_finish(both), reps=10)
+            plain_ms = time_ms(
+                torch, lambda: sketch_encode_finish_plain(both), reps=2)
+            cells = ts.nworkers * R * W
+            finish_row = _row(
+                "sketch_encode_finish", "src/repro_torch/csrc/sketch_encode.cu",
+                "src/repro/kernels/sketch_encode.py:87",
+                float((fin - fin_p).abs().max()), ms, plain_ms,
+                bound_ms(cells * (24 + 4 + 4), cells * 12.0), None)
+            log(f"[train_interleave] sketch_encode_finish of {ts.nworkers} x "
+                f"({R}, {W}) exact sketches: {ms:.4f} ms, bit-equal to plain "
+                f"({plain_ms:.3f} ms)")
+            del both, fin, fin_p
         del g, parts
         torch.cuda.empty_cache()
-    return rows
+    return rows, finish_row
 
 
 class plain_calls:
     """Counts the calls of every kernel's plain version while it is open
     (the wrappers call them by their module's global name)."""
 
-    NAMES = {"sketch_encode": ("sketch_encode_plain",),
+    NAMES = {"sketch_encode": ("sketch_encode_plain",
+                               "sketch_encode_into_plain",
+                               "sketch_encode_finish_plain"),
              "sketch_decode": ("sketch_decode_plain", "radix_hist_plain"),
              "heavymix_topk": ("heavymix_scores_plain",
                                "heavymix_scores_ts_plain",
@@ -1270,8 +1413,8 @@ class plain_calls:
 def fused_sketch_check(torch, ts, state, stream):
     """One more interleaved step (not counted) in which every bucket's
     merged sketch is held against the whole-bucket encode of the same u
-    (``GsSGD.stage_encode_merge``, wrapped for this step only), within
-    ENCODE_REL_TOL * max|S|."""
+    (``GsSGD.stage_encode_merge``, wrapped for this step only): bit-equal,
+    and within ENCODE_REL_TOL * max|S|."""
     from repro_torch.core import compression as comp
     from repro_torch.launch.train import shard_batch
     orig = comp.GsSGD.stage_encode_merge
@@ -1283,7 +1426,8 @@ def fused_sketch_check(torch, ts, state, stream):
         whole = self._encode_workers(u)
         err = float((sk.to(torch.float32) - whole).abs().max())
         lim = ENCODE_REL_TOL * float(whole.abs().max())
-        seen[sizes.index(u.shape[-1])] = (len(pieces), err, lim)
+        same = _bits_equal(torch, sk.to(torch.float32).contiguous(), whole)
+        seen[sizes.index(u.shape[-1])] = (len(pieces), err, lim, same)
         return u, sk
 
     comp.GsSGD.stage_encode_merge = checked
@@ -1296,13 +1440,17 @@ def fused_sketch_check(torch, ts, state, stream):
         comp.GsSGD.stage_encode_merge = orig
     if sorted(seen) != list(range(len(sizes))):
         fail(f"the fused merge ran for buckets {sorted(seen)} only")
-    for b, (n, err, lim) in sorted(seen.items()):
+    for b, (n, err, lim, same) in sorted(seen.items()):
         log(f"[train_interleave] fused sketch bucket {b} ({n} fragment(s)): "
-            f"max_abs_err {err:.4g} against the whole-bucket encode of the "
-            f"same u (limit {lim:.4g} = {ENCODE_REL_TOL} * max|S|)")
+            f"bit-equal to the whole-bucket encode of the same u: {same}; "
+            f"max_abs_err {err:.4g} (limit {lim:.4g} = {ENCODE_REL_TOL} * "
+            "max|S|)")
         if not err <= lim:
             fail(f"fused sketch of bucket {b} differs from the whole-bucket "
                  f"encode: {err} > {lim}")
+        if not same:
+            fail(f"fused sketch of bucket {b} is not bit-equal to the "
+                 "whole-bucket encode")
     return state
 
 
@@ -1350,7 +1498,7 @@ def train_interleave_phase(torch, device) -> dict:
     log(f"[train_interleave] plan: sizes {list(ts.plan.sizes)}, readiness "
         f"{list(ts.plan.readiness)}, order {list(ts.plan.order)}, chunks "
         f"{list(ts.plan.chunks)}; fragments {frags} ({n_frags} a worker)")
-    frag_rows = fragment_encode_checks(torch, device, ts)
+    frag_rows, finish_row = fragment_encode_checks(torch, device, ts)
     with plain_calls() as plain:
         run = train_phase(torch, cfg, opt, ts, tag="train_interleave")
     counts = run["counts"]
@@ -1360,12 +1508,19 @@ def train_interleave_phase(torch, device) -> dict:
              f"the interleaved path, not {want_enc} ({n_frags} fragments x "
              f"{ts.nworkers} workers x {TRAIN_STEPS} steps)")
     check_launches("train_interleave", counts,
-                   ("sketch_decode", "heavymix_scores", "topk_select"),
+                   ("sketch_decode", "heavymix_scores", "topk_select",
+                    "sketch_encode_finish"),
                    ("ts_encode", "heavymix_scores_ts", "ts_transpose"))
     recoveries = ts.nworkers * ts.n_buckets * TRAIN_STEPS
     if counts.get("topk_select") != recoveries:
         fail(f"topk_select launched {counts.get('topk_select')} times on the "
              f"interleaved path, not once per recovery ({recoveries})")
+    merges = ts.n_buckets * TRAIN_STEPS
+    if counts.get("sketch_encode_finish") != merges:
+        fail(f"sketch_encode_finish launched "
+             f"{counts.get('sketch_encode_finish')} times on the interleaved "
+             f"path, not once per bucket and step ({merges}: each merge "
+             "finishes every worker's sketch in one launch)")
     if plain:
         fail(f"plain versions called on the interleaved path: {plain}")
     log(f"[train_interleave] sketch_encode launches {want_enc} "
@@ -1399,7 +1554,176 @@ def train_interleave_phase(torch, device) -> dict:
     log(f"[train_interleave] first losses equal; later ones within rtol "
         f"{INTERLEAVE_LOSS_RTOL} (largest relative difference "
         f"{max(abs(a - b) / abs(b) for a, b in zip(li, lb)):.3g})")
-    return {"counts": counts, "fragments": frag_rows}
+    return {"counts": counts, "fragments": frag_rows,
+            "finish_row": finish_row}
+
+
+def minicpm_step(torch, device):
+    """The train_minicpm cell's step (no state allocated yet): minicpm-2b
+    at its published widths, MINICPM_LAYERS layers, P = TRAIN_P, buckets
+    = 2, psum, SketchSpec(rows=5, width=None, k=None) resolved at its d,
+    microbatch MINICPM_MICROBATCH, clip MINICPM_CLIP, the faithful fill;
+    AdamW under wsd(TRAIN_LR, warmup=1, stable=0, decay=2), its apply
+    wrapped to record the squared norm of each worker's applied gradient
+    at step 0. Returns (cfg, opt, ts, schedule, the recorded norms by
+    step)."""
+    from repro_torch.api import ExchangeSpec, SketchSpec
+    from repro_torch.configs.minicpm_2b import CONFIG
+    from repro_torch.core.gs_sgd import MeshAxes, make_train_step
+    from repro_torch.optim import make as make_opt
+    from repro_torch.optim import wsd
+    cfg = dataclasses.replace(CONFIG, n_layers=MINICPM_LAYERS)
+    sched = wsd(TRAIN_LR, warmup=1, stable=0, decay=2)
+    base = make_opt("adamw", lr=sched)
+    applied: dict[int, torch.Tensor] = {}
+
+    def apply(p, g, state, step):
+        if step == 0:  # the checked step only: the f64 sum costs ~10 ms
+            sq = torch.sum(g.double() ** 2, dim=tuple(range(1, g.dim())))
+            applied[step] = applied.get(step, 0) + sq
+        return base.apply(p, g, state, step)
+
+    opt = dataclasses.replace(base, apply=apply)
+    spec = ExchangeSpec(compressor="gs-sgd", buckets=2, overlap=True,
+                        allreduce_mode="psum",
+                        sketch=SketchSpec(rows=5, width=None, k=None))
+    ma = MeshAxes(tp=1, data=TRAIN_P, tp_axis=None)
+    d = make_train_step(cfg, ma, opt, spec=spec, device=device).d_local
+    kw = dict(spec.compressor_kw(d), faithful_heavymix=True)
+    ts = make_train_step(cfg, ma, opt, compressor_name="gs-sgd",
+                         compressor_kw=kw, buckets=2, overlap=True,
+                         microbatch=MINICPM_MICROBATCH,
+                         clip_norm=MINICPM_CLIP, dtype=torch.float32,
+                         device=device)
+    return cfg, opt, ts, sched, applied
+
+
+def minicpm_filler_checks(torch, device, ts) -> list[dict]:
+    """heavymix_scores with the faithful fill's filler at the cell's bucket
+    shapes: scores and est bit-equal to plain, the histogram equal to the
+    plain one; times of the kernel and of the plain version."""
+    from repro_torch.core import count_sketch as cs
+    from repro_torch.core.heavymix import draw_filler
+    from repro_torch.kernels.heavymix_topk import (heavymix_scores_hist,
+                                                   heavymix_scores_plain)
+    from repro_torch.kernels.sketch_encode import sketch_encode
+    from repro_torch.kernels.topk_select import radix_hist_plain
+    gen = torch.Generator(device=device).manual_seed(5)
+    shapes = []
+    for b, (part, d) in enumerate(zip(ts.compressor.parts,
+                                      ts.compressor.spec.sizes)):
+        cfg, k = part.sketch, part.k
+        sk = sketch_encode(cfg, _spiky(torch, gen, device, d, k // 4))
+        thr = cs.l2sq_estimate(sk) / k
+        fill = draw_filler(d, device)
+        sc, est, hist = heavymix_scores_hist(cfg, sk, thr, d, fill)
+        sc_p, est_p = heavymix_scores_plain(cfg, sk, thr, d, fill)
+        if not (_bits_equal(torch, sc, sc_p) and _bits_equal(torch, est,
+                                                             est_p)):
+            fail(f"heavymix_scores with the filler at minicpm bucket {b} is "
+                 "not bit-equal to plain")
+        if not torch.equal(hist, radix_hist_plain(sc_p)):
+            fail(f"heavymix_scores' histogram with the filler at minicpm "
+                 f"bucket {b} differs from plain")
+        n_heavy = int((sc >= 1e30).sum())
+        del sc, est, hist, sc_p, est_p
+        ms = time_ms(torch, lambda: heavymix_scores_hist(cfg, sk, thr, d,
+                                                         fill), reps=10)
+        plain_ms = time_ms(torch, lambda: heavymix_scores_plain(
+            cfg, sk, thr, d, fill), reps=2)
+        R, W = cfg.rows, cfg.width
+        bound = bound_ms(R * W * 4 + 4 + 3 * d * 4 + 2048 * 4,
+                         d * (R * 6.0 + R * (R - 1) + 4))
+        log(f"[train_minicpm] heavymix_scores with the filler at bucket {b} "
+            f"(d={d}, R={R}, W={W}, k={k}, {n_heavy} heavy): bit-equal to "
+            f"plain, histogram equal; {ms:.3f} ms (plain {plain_ms:.1f} ms)")
+        shapes.append({"shape": f"train_minicpm bucket {b}, faithful filler",
+                       "d": d, "rows": R, "width": W, "max_abs_err": 0.0,
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                       "bound_by": bound[1], "library_ms": None})
+        del sk, fill
+        torch.cuda.empty_cache()
+    return shapes
+
+
+def train_minicpm_phase(torch, device) -> dict:
+    """minicpm-2b at its published widths with microbatch, clip, wsd and
+    the faithful fill (see MINICPM_*): three counted steps (sketch_encode,
+    heavymix_scores with its filler and topk_select once per bucket and
+    worker each, the decode never, no plain version called); step 0's
+    microbatched loss against the full-batch loss of the same params (lr
+    is 0 at step 0, so they do not move) and the applied gradient's norm
+    against min(grad_norm, clip); one profiled step; the filler scores
+    kernel at the cell's shapes. Returns the counts and those shapes."""
+    from repro_torch.models import model as mdl
+    from repro_torch.models.flatten import SEG_NAMES
+    cfg, opt, ts, sched, applied = minicpm_step(torch, device)
+    lrs = [float(sched(s)) for s in range(TRAIN_STEPS)]
+    log(f"[train_minicpm] minicpm-2b widths (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"tied embeddings {cfg.tie_embeddings}), {cfg.n_layers} layers; "
+        f"microbatch {MINICPM_MICROBATCH}, clip {MINICPM_CLIP}, faithful "
+        f"fill; wsd lr at steps 0-{TRAIN_STEPS - 1}: {lrs}")
+    first = {}
+    fn = ts.fn
+
+    def step_fn(state, batch):
+        """The counted step; after step 0 (lr 0: the params did not move)
+        the full-batch loss of each worker's params, with no microbatch."""
+        new, m = fn(state, batch)
+        if not first:
+            with torch.no_grad():
+                first["full"] = [float(mdl.loss_fn(
+                    cfg, ts.fs, {k: new["params"][k][p] for k in SEG_NAMES},
+                    {k: batch[k][p] for k in ("tokens", "labels")},
+                    dtype=torch.float32)) for p in range(ts.nworkers)]
+            first["m"] = m
+        return new, m
+
+    with plain_calls() as plain:
+        run = train_phase(torch, cfg, opt, dataclasses.replace(ts, fn=step_fn),
+                          tag="train_minicpm")
+    counts = run["counts"]
+    recoveries = ts.nworkers * ts.n_buckets * TRAIN_STEPS
+    for name in ("sketch_encode", "sketch_encode_finish", "heavymix_scores",
+                 "topk_select"):
+        if counts.get(name) != recoveries:
+            fail(f"{name} launched {counts.get(name)} times on the "
+                 f"train_minicpm path, not {recoveries} (once a bucket, "
+                 "worker and step)")
+    check_launches("train_minicpm", counts, (),
+                   ("sketch_decode", "ts_encode", "heavymix_scores_ts",
+                    "ts_transpose"))
+    if plain:
+        fail(f"plain versions called on the train_minicpm path: {plain}")
+    log(f"[train_minicpm] launches {counts}: each of sketch_encode, "
+        f"sketch_encode_finish, heavymix_scores (with the filler) and "
+        f"topk_select {recoveries} = "
+        f"{ts.nworkers} workers x {ts.n_buckets} buckets x {TRAIN_STEPS} "
+        "steps; sketch_decode 0; no plain version called")
+    m, full = first["m"], first["full"]
+    micro = [float(x) for x in m["worker_loss"]]
+    gnorm = m["grad_norm"].double().cpu()
+    want = torch.clamp(MINICPM_CLIP / gnorm, max=1.0) * gnorm
+    got = applied[0].sqrt().cpu()
+    log(f"[train_minicpm] step 0: microbatched worker losses {micro}, the "
+        f"full-batch losses of the same params {full}; grad_norm "
+        f"{gnorm.tolist()}, applied gradient's norm {got.tolist()} (clip "
+        f"{MINICPM_CLIP}: {'active' if bool((gnorm > MINICPM_CLIP).all()) else 'inactive'})")
+    if not _close(full, micro, MINICPM_RTOL):
+        fail(f"step 0's microbatched losses {micro} differ from the full-batch "
+             f"losses {full} beyond rtol {MINICPM_RTOL}")
+    if not bool(torch.allclose(got, want, rtol=MINICPM_RTOL, atol=0.0)):
+        fail(f"the applied gradient's norm {got.tolist()} is not "
+             f"min(grad_norm, clip) = {want.tolist()}")
+    state, prof = profile_phase(torch, ts, run.pop("state"), run["stream"],
+                                tag="profile_minicpm")
+    del state, first, m
+    torch.cuda.empty_cache()
+    shapes = minicpm_filler_checks(torch, device, ts)
+    return {"counts": counts, "filler_shapes": shapes, "losses":
+            run["losses"], "times": run["times"], "peak": run["peak"],
+            "profile": prof}
 
 
 def smoke_runs(torch, spec, steps=2, card="cuda"):
@@ -1466,11 +1790,39 @@ def parity_phase(torch, card="cuda") -> dict:
         for i, (x, y) in enumerate(zip(a, b)):
             if not torch.equal(x == 0, (y == 0).cpu()):
                 fail(f"selected coordinates differ at step {s} bucket {i}")
-    check_launches("parity", counts, ("sketch_encode", "heavymix_scores",
-                                      "topk_select"),
+    check_launches("parity", counts, ("sketch_encode", "sketch_encode_finish",
+                                      "heavymix_scores", "topk_select"),
                    ("sketch_decode", "ts_encode", "heavymix_scores_ts",
                     "ts_transpose"))
     log("[parity] losses within rtol "
+        f"{PARITY_LOSS_RTOL}; selected coordinates equal every step")
+    return counts
+
+
+def parity_configs_phase(torch, card="cuda") -> dict:
+    """Two steps of each new dense smoke config (the smoke spec with the
+    arch replaced), card against CPU from the same params and batches:
+    losses within PARITY_LOSS_RTOL, selected coordinates equal."""
+    counts = {}
+    for arch in NEW_SMOKE_ARCHS:
+        spec = dataclasses.replace(smoke_spec(), arch=arch)
+        results, c = smoke_runs(torch, spec, card=card)
+        (lc, ec), (lg, eg) = results
+        log(f"[parity] {arch} smoke losses cpu {lc} cuda {lg}; card "
+            f"launches {c}")
+        if not _close(lc, lg, PARITY_LOSS_RTOL):
+            fail(f"{arch}: card and CPU losses differ: {lc} vs {lg}")
+        for s, (a, b) in enumerate(zip(ec, eg)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                if not torch.equal(x == 0, (y == 0).cpu()):
+                    fail(f"{arch}: selected coordinates differ at step {s} "
+                         f"bucket {i}")
+        check_launches(f"parity {arch}", c, ("sketch_encode",
+                                             "sketch_encode_finish",
+                                             "heavymix_scores",
+                                             "topk_select"))
+        counts[arch] = c
+    log(f"[parity] {', '.join(NEW_SMOKE_ARCHS)}: losses within rtol "
         f"{PARITY_LOSS_RTOL}; selected coordinates equal every step")
     return counts
 
@@ -1496,7 +1848,40 @@ def baselines_phase(torch, card="cuda"):
         f"within rtol {PARITY_LOSS_RTOL}")
 
 
-def cli_phase(extra=()):
+def _ckpt_files(d, step):
+    path = os.path.join(d, f"step_{step}")
+    return {f: os.path.join(path, f) for f in sorted(os.listdir(path))
+            if f.endswith(".npy")}
+
+
+def cli_resume_phase():
+    """The train CLI on the card, smoke spec, four steps: once with
+    checkpoints every step and a simulated crash after step 2, then
+    ``--resume`` to step 4; once straight to step 4. The final losses (the
+    JSON floats) and every tensor of the two step-4 checkpoints must be
+    bit-equal."""
+    import numpy as np
+    base = os.path.join(ROOT, "build", "cli_ckpt")
+    if os.path.isdir(base):
+        import shutil
+        shutil.rmtree(base)
+    d_res, d_str = os.path.join(base, "resumed"), os.path.join(base, "straight")
+    common = ("--steps", "4", "--ckpt-every", "1")
+    cli_phase((*common, "--ckpt-dir", d_res, "--kill-at", "2"),
+              final=False)
+    resumed = cli_phase((*common, "--ckpt-dir", d_res, "--resume"))
+    straight = cli_phase((*common, "--ckpt-dir", d_str))
+    a, b = _ckpt_files(d_res, 4), _ckpt_files(d_str, 4)
+    same = list(a) == list(b) and all(
+        np.array_equal(np.load(a[f]), np.load(b[f])) for f in a)
+    log(f"[cli] resumed final_loss {resumed['final_loss']!r}, straight "
+        f"{straight['final_loss']!r}; step-4 checkpoints ({len(a)} tensors) "
+        f"bit-equal: {same}")
+    if resumed["final_loss"] != straight["final_loss"] or not same:
+        fail("the resumed CLI run differs from the straight one")
+
+
+def cli_phase(extra=(), final=True):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
@@ -1512,10 +1897,13 @@ def cli_phase(extra=()):
     if r.returncode != 0:
         log(r.stderr[-4000:])
         fail(f"the train CLI exited {r.returncode}")
+    log(f"[cli] ran in {time.time() - t0:.1f} s")
+    if not final:
+        return None
     last = json.loads(lines[-1])
     if not math.isfinite(last["final_loss"]):
         fail(f"the train CLI gave a non-finite loss: {last}")
-    log(f"[cli] ran in {time.time() - t0:.1f} s")
+    return last
 
 
 def main() -> int:
@@ -1544,14 +1932,15 @@ def main() -> int:
     run = train_phase(torch, cfg, opt, ts)
     state, stream, counts = run["state"], run["stream"], run["counts"]
     del run
-    check_launches("train", counts, ("sketch_encode", "sketch_decode",
-                                     "topk_select"),
+    check_launches("train", counts, ("sketch_encode", "sketch_encode_finish",
+                                     "sketch_decode", "topk_select"),
                    ("heavymix_scores", "heavymix_scores_ts", "ts_transpose",
                     "ts_encode"))
     recoveries = TRAIN_P * ts.n_buckets * TRAIN_STEPS
-    if counts["topk_select"] != recoveries:
-        fail(f"topk_select launched {counts['topk_select']} times on the "
-             f"train path, not once per recovery ({recoveries})")
+    for name in ("topk_select", "sketch_encode", "sketch_encode_finish"):
+        if counts[name] != recoveries:
+            fail(f"{name} launched {counts[name]} times on the train path, "
+                 f"not once per recovery ({recoveries})")
     log(f"[train] topk_select launches {counts['topk_select']} = "
         f"{TRAIN_P} workers x {ts.n_buckets} buckets x {TRAIN_STEPS} steps")
     log(f"[train] phase took {time.time() - t0:.1f} s")
@@ -1566,7 +1955,8 @@ def main() -> int:
     check_launches("train_ts", ts_counts, ("ts_encode", "ts_transpose",
                                            "heavymix_scores_ts",
                                            "topk_select"),
-                   ("sketch_encode", "sketch_decode", "heavymix_scores"))
+                   ("sketch_encode", "sketch_encode_finish", "sketch_decode",
+                    "heavymix_scores"))
     if ts_counts["topk_select"] != recoveries:
         fail(f"topk_select launched {ts_counts['topk_select']} times on the "
              f"train_ts path, not once per recovery ({recoveries})")
@@ -1583,22 +1973,40 @@ def main() -> int:
     log(f"[train_interleave] phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
+    mini = train_minicpm_phase(torch, device)
+    log(f"[train_minicpm] phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
     parity_counts = parity_phase(torch)
+    parity_configs_phase(torch)
     log(f"[parity] phase took {time.time() - t0:.1f} s")
+    kernels.append(inter["finish_row"])
     launches = {"sketch_encode": counts, "sketch_decode": counts,
                 "topk_select": counts, "ts_encode": ts_counts,
                 "heavymix_scores_ts": ts_counts, "ts_transpose": ts_counts,
-                "heavymix_scores": parity_counts}
+                "heavymix_scores": mini["counts"],
+                "sketch_encode_finish": counts}
     for kr in kernels:
-        kr["launches"] = launches[kr["name"]][kr["name"]]
+        kr["launches"] = launches[kr["name"]].get(kr["name"], 0)
         kr["launches_interleave"] = inter["counts"].get(kr["name"], 0)
+        kr["launches_minicpm"] = mini["counts"].get(kr["name"], 0)
+        kr["launches_parity"] = parity_counts.get(kr["name"], 0)
         if kr["name"] == "sketch_encode":
             kr["interleave_fragments"] = inter["fragments"]
+        if kr["name"] == "heavymix_scores":  # the main path's shapes first
+            old = {k: kr[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+            old["shape"] = "bucket 0's d of train, greedy (parity's variant)"
+            kr["shapes"] = mini["filler_shapes"] + [old]
+            kr.update({k: mini["filler_shapes"][0][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
     t0 = time.time()
     baselines_phase(torch)
     log(f"[baselines] phase took {time.time() - t0:.1f} s")
     cli_phase()
     cli_phase(("--buckets", "4", "--bwd-chunks", "2", "--fuse-encode"))
+    cli_resume_phase()
     log(f"[done] in {time.time() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

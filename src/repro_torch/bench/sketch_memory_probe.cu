@@ -29,12 +29,19 @@
 //      in every block of W (X = 8 as the kernel, 16 and 32 with the blocks
 //      split over 2 and 4 CTAs), with and without a barrier every 2
 //      blocks; against one streaming read of the same 1.56 GB
+//   k  the exact encode's integer adds (csrc/sketch_encode.cu): random u64
+//      atomicAdd into a CTA's own shared memory (a 192 KB table of three
+//      8192-cell limb arrays, one add a step, and two adds a step to two
+//      limbs of one cell, the accumulate pass's pattern for |v| < 1;
+//      against u32 and f32 atomicAdd into the same bytes), and random
+//      red.global.add.u64 into a 3 x 5 x 2^20 u64 accumulator (against
+//      red.global.add.f32 into a 5 x 2^20 f32 sketch)
 //
 // Build and run on the card (prints one JSON object a line):
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o build/sketch_memory_probe src/repro_torch/bench/sketch_memory_probe.cu
-//   build/sketch_memory_probe [PROBES]     (PROBES: letters, default abcdefghij)
+//   build/sketch_memory_probe [PROBES]     (PROBES: letters, default abcdefghijk)
 //
 // Each rate is the mean over several timed launches (CUDA events) after a
 // warm-up launch.
@@ -119,6 +126,49 @@ __global__ void red_local(float* out, int iters, uint32_t n, int mode) {
   }
   __syncthreads();
   if (threadIdx.x == 0) out[blockIdx.x] = sm[blockIdx.x % n] + (float)acc;
+}
+
+// ---------------------------------------------------------------- k
+// mode 0: u64 atomicAdd, one a step into n u64; 1: two u64 atomicAdds a
+// step, to cell x of limb arrays 1 and 2 (n / 3 cells each); 2: u32
+// atomicAdd into 2n u32; 3: f32 atomicAdd into 2n f32 (the same bytes).
+__global__ void red_local_u64(float* out, int iters, uint32_t n, int mode) {
+  extern __shared__ unsigned long long su[];
+  for (uint32_t t = threadIdx.x; t < n; t += blockDim.x) su[t] = 0ull;
+  __syncthreads();
+  uint32_t s = mix(blockIdx.x * blockDim.x + threadIdx.x);
+  const uint32_t third = n / 3;
+  for (int it = 0; it < iters; ++it) {
+    s = s * 1664525u + 1013904223u;
+    if (mode == 0) {
+      atomicAdd(su + __umulhi(s, n), (unsigned long long)(s | 1u));
+    } else if (mode == 1) {
+      const uint32_t x = __umulhi(s, third);
+      atomicAdd(su + third + x, (unsigned long long)(s | 1u));
+      atomicAdd(su + 2 * third + x, (unsigned long long)(s >> 3));
+    } else if (mode == 2) {
+      atomicAdd(reinterpret_cast<uint32_t*>(su) + __umulhi(s, 2 * n), 1u);
+    } else {
+      atomicAdd(reinterpret_cast<float*>(su) + __umulhi(s, 2 * n), 1.0f);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) out[blockIdx.x] = (float)su[blockIdx.x % n];
+}
+
+__global__ void red_global_u64(unsigned long long* acc, int64_t d, int rows,
+                               int shift, int64_t width) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d;
+       j += stride) {
+    const uint32_t i = (uint32_t)j;
+    for (int r = 0; r < rows; ++r) {
+      const uint32_t hb = (kA + 2u * r) * i + kB * (r + 1);
+      atomicAdd(acc + (int64_t)(r % 3) * rows * width + r * width +
+                    (hb >> shift),
+                1ull);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- c
@@ -631,7 +681,7 @@ ts_scores_variant(const float* __restrict__ sk, int64_t width,
 
 int main(int argc, char** argv) {
   // argv[1]: the probes to run (default all), e.g. "bc"
-  const char* only = argc > 1 ? argv[1] : "abcdefghij";
+  const char* only = argc > 1 ? argv[1] : "abcdefghijk";
   auto want = [&](char c) { return strchr(only, c) != nullptr; };
   int dev = 0, sms = 0, clk_khz = 0;
   CK(cudaSetDevice(dev));
@@ -1171,6 +1221,52 @@ int main(int argc, char** argv) {
       }
     }
   }
+  // k: the exact encode's integer adds
+  if (want('k')) {
+    CK(cudaFuncSetAttribute(red_local_u64,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            3 * 8192 * 8));
+    const char* modes[] = {"atomicAdd_u64", "atomicAdd_u64_two_limbs",
+                           "atomicAdd_u32", "atomicAdd_f32"};
+    for (int mode = 0; mode < 4; ++mode) {
+      for (int threads : {512, 1024}) {
+        const uint32_t n = 3 * 8192;  // 192 KB of u64
+        const int iters = 1 << 14, reps = 3;
+        red_local_u64<<<sms, threads, n * 8>>>(out, iters, n, mode);
+        CK(cudaDeviceSynchronize());
+        Timer t;
+        t.start();
+        for (int i = 0; i < reps; ++i)
+          red_local_u64<<<sms, threads, n * 8>>>(out, iters, n, mode);
+        const float ms = t.stop_ms(reps);
+        const double ops = (double)sms * threads * iters * (mode == 1 ? 2 : 1);
+        printf("{\"probe\": \"k_atomic_shared_int\", \"op\": \"%s\", "
+               "\"threads\": %d, \"table_bytes\": %u, \"ops\": %.0f, "
+               "\"ms\": %.4f, \"gops_per_s\": %.2f, \"per_sm_per_clk\": "
+               "%.3f}\n",
+               modes[mode], threads, n * 8, ops, ms, ops / (ms * 1e6),
+               ops / (ms * 1e-3) / sms / clk_hz);
+      }
+    }
+    const int rows = 5, shift = 12;
+    const int64_t width = 1 << 20, d = 1 << 27;
+    unsigned long long* acc;
+    CK(cudaMalloc(&acc, 3 * rows * width * 8));
+    CK(cudaMemset(acc, 0, 3 * rows * width * 8));
+    const int grid = sms * 16, reps = 3;
+    red_global_u64<<<grid, 256>>>(acc, d, rows, shift, width);
+    CK(cudaDeviceSynchronize());
+    Timer t;
+    t.start();
+    for (int i = 0; i < reps; ++i)
+      red_global_u64<<<grid, 256>>>(acc, d, rows, shift, width);
+    const float ms = t.stop_ms(reps);
+    printf("{\"probe\": \"k_red_global_u64\", \"ops\": %lld, \"ms\": %.4f, "
+           "\"gops_per_s\": %.2f}\n",
+           (long long)(d * rows), ms, d * rows / (ms * 1e6));
+    CK(cudaFree(acc));
+  }
+
   CK(cudaFree(out));
   return 0;
 }

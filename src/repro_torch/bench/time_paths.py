@@ -2,7 +2,7 @@
 trees can be compared in one run on the card:
 
     python src/repro_torch/bench/time_paths.py [--src DIR] [--tag T]
-        [--paths train,train_ts,train_interleave,train_bucketed4]
+        [--paths train,train_ts,train_interleave,train_bucketed4,train_minicpm]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` runs (default:
 this checkout's); unpack the other tree (``git archive``) into a directory
@@ -11,7 +11,10 @@ this checkout's); unpack the other tree (``git archive``) into a directory
 Each path is ``chip_smoke.py``'s cell (qwen3-4b widths, 2 layers, P = 2,
 batch 8, seq 64, AdamW, R = 5): ``train`` (buckets = 2), ``train_ts`` (the
 same with ``encoder="ts"``), ``train_interleave`` (buckets = 4,
-bwd_chunks = 2, fuse_encode) and ``train_bucketed4`` (buckets = 4). It runs
+bwd_chunks = 2, fuse_encode) and ``train_bucketed4`` (buckets = 4); and
+``train_minicpm`` (``chip_smoke.minicpm_step``: minicpm-2b widths, 2
+layers, microbatch 2, clip 1.0, wsd, the faithful fill), which a tree
+without those modules reports as skipped. It runs
 three steps from seed 0 (host clock around each step, which ends in a
 synchronize; the first is warm-up), then one step under ``torch.profiler``
 (``chip_smoke.profile_phase``: device time per span, idle share). Prints
@@ -30,14 +33,20 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
-PATHS = ("train", "train_ts", "train_interleave", "train_bucketed4")
+PATHS = ("train", "train_ts", "train_interleave", "train_bucketed4",
+         "train_minicpm")
 
 
 def run_path(torch, cs_, name, device):
     """Three steps and a profiled one of path ``name``; its JSON record."""
     from repro_torch.data import LMStream
     from repro_torch.launch.train import train_loop
-    if name in ("train", "train_ts"):
+    if name == "train_minicpm":
+        try:
+            cfg, opt, ts, _, _ = cs_.minicpm_step(torch, device)
+        except (ImportError, NotImplementedError) as e:
+            return {"path": name, "skipped": f"{type(e).__name__}: {e}"}
+    elif name in ("train", "train_ts"):
         cfg, opt, ts = cs_.full_width_step(torch, device)
         if name == "train_ts":
             ts = cs_.full_width_ts_step(torch, device, ts, opt)

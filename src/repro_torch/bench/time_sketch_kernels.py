@@ -29,7 +29,8 @@ plan's kernel of the timed tree) and the TS route's recovery (old route:
 indices checked against the old route's, and its parts: the scores kernel
 with its histogram, the row transpose where the tree has one, and the
 select of the TS scores) are timed at the step's widths and at 16,384,
-the encode held to its plain version. g is
+the encode held to its plain version (and whether it is bit-equal to it,
+as the exact encode is). g is
 ``chip_smoke._spiky``;
 the timing (``chip_smoke.time_ms``, 10 calls after a warm-up) and the
 encode's tolerance (``ENCODE_REL_TOL`` * max|S|; the decode bit-equal) are
@@ -190,10 +191,12 @@ def main() -> int:
             want = sketch_encode_plain(cfg, g)
             err = float((sk - want).abs().max())
             lim = cs_.ENCODE_REL_TOL * float(want.abs().max())
+            bits = torch.equal(sk.view(torch.int32), want.view(torch.int32))
             del want
             ok = ok and err <= lim
             fns = [("sketch_encode", lambda: sketch_encode(cfg, g),
-                    {"max_abs_err": err, "limit": lim, "ok": err <= lim})]
+                    {"max_abs_err": err, "limit": lim, "ok": err <= lim,
+                     "bit_equal_plain": bits})]
             if width is None:
                 est = sketch_decode(cfg, sk, d)
                 equal = torch.equal(est, sketch_decode_plain(cfg, sk, d))

@@ -42,7 +42,7 @@ from repro_torch.core import allreduce as ar
 from repro_torch.core import count_sketch as cs
 from repro_torch.core import error_feedback as ef
 from repro_torch.core import ts_sketch as ts
-from repro_torch.core.heavymix import topk_lower_index
+from repro_torch.core.heavymix import draw_filler, topk_lower_index
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ts_encode import ts_encode
 
@@ -170,8 +170,14 @@ class GTopK:
 
 @dataclasses.dataclass(frozen=True)
 class _SketchBased:
+    """faithful_heavymix: HEAVYMIX's random fill (Alg. 2) in place of the
+    greedy one, its priorities drawn by ``heavymix.draw_filler`` (a
+    generator seeded 0). The reference's train step passes no key, so
+    every recovery draws the same filler for its d, as here."""
+
     k: int = 1024
     sketch: cs.SketchConfig = cs.SketchConfig()
+    faithful_heavymix: bool = False
     encoder: str = "exact"  # 'exact' (multiply-shift) | 'ts' (TS-sketch)
     name: str = "sketch-base"
 
@@ -193,13 +199,19 @@ class _SketchBased:
         """Every worker's (d,) row of (P, d) ``x`` -> (P, R, W) sketches."""
         return torch.stack([self._encode(x[p]) for p in range(x.shape[0])])
 
-    def _select(self, sketch_sum: torch.Tensor, d: int) -> torch.Tensor:
+    def _filler(self, d: int, device) -> torch.Tensor | None:
+        """The faithful fill's priorities for d coordinates, else None."""
+        return draw_filler(d, device) if self.faithful_heavymix else None
+
+    def _select(self, sketch_sum: torch.Tensor, d: int,
+                filler: torch.Tensor | None = None) -> torch.Tensor:
         """HEAVYMIX's k indices from one worker's copy of the summed
         sketch (the TS route recovers from the TS decode's estimates)."""
         if self.encoder == "ts":
             return kops.ts_heavymix_recover(self._ts_cfg(d), sketch_sum,
-                                            self.k, d)[0]
-        return kops.heavymix_recover(self.sketch, sketch_sum, self.k, d)[0]
+                                            self.k, d, filler=filler)[0]
+        return kops.heavymix_recover(self.sketch, sketch_sum, self.k, d,
+                                     filler=filler)[0]
 
     def _recover(self, sketch_sum: torch.Tensor, u: torch.Tensor, d: int, *,
                  include: torch.Tensor | None = None,
@@ -210,7 +222,8 @@ class _SketchBased:
         copies are identical, so every worker selects the same indices).
         include/scale: straggler-drop support, as in the reference.
         """
-        idx = torch.stack([self._select(sketch_sum[p], d)
+        filler = self._filler(d, u.device)
+        idx = torch.stack([self._select(sketch_sum[p], d, filler)
                            for p in range(u.shape[0])])
         vals = torch.gather(u, -1, idx)
         if include is not None:
@@ -272,7 +285,9 @@ class GsSGD(_SketchBased):
     # sketched the moment it is emitted. It rests on two linearities: the
     # EF add is elementwise (slicing commutes with it exactly), and with
     # offset hashing the partial sketches of a tiling sum to the whole
-    # bucket's sketch.
+    # bucket's sketch. The partials stay exact (integer limb sums,
+    # ``cs.ExactSketch``) until the merge converts once, so the fused
+    # sketch is bit-equal to the whole-bucket encode of the same u.
 
     @property
     def can_fuse(self) -> bool:
@@ -282,23 +297,27 @@ class GsSGD(_SketchBased):
 
     def stage_encode_partial(self, acc_piece: torch.Tensor,
                              g_piece: torch.Tensor, offset: int
-                             ) -> tuple[torch.Tensor, torch.Tensor]:
+                             ) -> tuple[torch.Tensor, cs.ExactSketch]:
         """Stage 1, one fragment: EF add + each worker's partial encode of
         the bucket slice [offset, offset + n) of (P, n) ``g_piece``.
-        Returns (u_piece (P, n), partial f32 sketches (P, R, W))."""
+        Returns (u_piece (P, n), the exact partial sketches, P x (R, W)
+        f32 sketches held as integer limb sums)."""
         u_piece = ef.add(acc_piece, g_piece)
-        sk = torch.stack([kops.encode(self.sketch, u_piece[p],
-                                      offset=int(offset))
-                          for p in range(u_piece.shape[0])])
+        sk = cs.exact_zeros(self.sketch, (u_piece.shape[0],),
+                            device=u_piece.device)
+        for p in range(u_piece.shape[0]):
+            kops.encode_into(self.sketch, u_piece[p], sk.worker(p),
+                             offset=int(offset))
         return u_piece, sk
 
     def stage_encode_merge(self, pieces) -> tuple[torch.Tensor, torch.Tensor]:
         """Assemble fragments into the bucket's (u, wire sketch).
 
-        ``pieces``: [(offset, u_piece, partial sketch)] tiling the bucket
-        from 0 (any order). The partials are summed in f32 in ascending
-        offset order, then cast to ``wire_dtype``, as ``stage_encode``
-        encodes then casts. Raises on a gap or an overlap.
+        ``pieces``: [(offset, u_piece, exact partial sketch)] tiling the
+        bucket from 0 (any order). The partials are summed exactly and
+        converted once (``kops.encode_finish``), then cast to
+        ``wire_dtype``, as ``stage_encode`` encodes then casts: bit-equal
+        to it. Raises on a gap or an overlap.
         """
         pieces = sorted(pieces, key=lambda p: p[0])
         off = 0
@@ -313,7 +332,7 @@ class GsSGD(_SketchBased):
         sk = pieces[0][2]
         for _, _, part in pieces[1:]:
             sk = sk + part
-        return u, sk.to(self.wire_dtype)
+        return u, kops.encode_finish(sk).to(self.wire_dtype)
 
     def stage_reduce(self, sk: torch.Tensor, *, nworkers: int,
                      include: torch.Tensor | None = None):

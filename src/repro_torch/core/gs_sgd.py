@@ -20,8 +20,9 @@ With ``bwd_chunks=K`` the backward is cut into K chunks
 starts each bucket's encode and sketch all-reduce at the event that
 completes its gradient, recovering one bucket behind. With
 ``fuse_encode`` each emitted gradient slice is EF-added and partially
-encoded at once (Count-Sketch linearity) and the bucket's partial sketches
-are summed at its event. On one device every stage runs in program order
+encoded at once (Count-Sketch linearity) and the bucket's exact partial
+sketches are summed at its event (as integers: the fused sketch is
+bit-equal to the whole-bucket encode). On one device every stage runs in program order
 on one stream; nothing overlaps yet.
 
 Spans: each phase of the step runs under ``torch.profiler.record_function``
@@ -34,8 +35,11 @@ cost one small host object each; under ``torch.profiler.profile`` each
 span's device time is the sum of the kernels launched inside it
 (``chip_smoke.py`` reads them).
 
-Left to later slices: microbatch accumulation, gradient clipping, tp > 1
-and fsdp.
+``microbatch=mb`` cuts each worker's batch into slices of mb rows and
+sums their losses and gradients in f32, then divides by the slice count
+(``jax.lax.scan`` in the reference, a Python loop here). ``clip_norm``
+scales the aggregated gradient to at most that global norm. Left to later
+slices: tp > 1 and fsdp.
 """
 
 from __future__ import annotations
@@ -167,12 +171,14 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
     Each bucket's chain is the same ops as ``exchange_bucketed``'s, so the
     numbers are the bucketed exchange's for any chunk count (bit-exact at
     one chunk). The reference also folds a PRNG key per bucket for the
-    faithful fill, which the port does not have yet (greedy fill only).
+    faithful fill; its train step passes no key, so every bucket draws
+    ``PRNGKey(0)``'s filler, and the port's faithful fill, which takes no
+    key here, draws its own the same way for each bucket's d.
 
     fuse_encode: each emitted slice is EF-added and partially encoded the
     moment it is emitted (``stage_encode_partial`` at its offset inside the
-    bucket); at the bucket's event the partial sketches are summed
-    (``stage_encode_merge``). A bucket whose compressor cannot fuse (the TS
+    bucket); at the bucket's event the exact partial sketches are summed
+    and converted once (``stage_encode_merge``). A bucket whose compressor cannot fuse (the TS
     encoder, a dense baseline) assembles its slices and encodes them at its
     event. Returns (upd_sum (P, d), ef_new, BucketedCommStats).
     """
@@ -427,11 +433,6 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         fuse_encode=fuse_encode,
         compressor=compressor_name if compressor_name else "dense",
         buckets=buckets, overlap=overlap)
-    if microbatch is not None:
-        raise _unsupported("microbatch accumulation")
-    if clip_norm is not None:
-        raise _unsupported("gradient clipping")
-
     comp_axes = ma.dp_axes
     nworkers = ma.dp_size if comp_axes else 1
     compressor = None
@@ -453,23 +454,46 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                   and all(hasattr(c, "stage_encode")
                           for c in compressor.parts))
 
+    def worker_loss_and_grad(params: dict, wb: dict, p: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Worker p's loss and packed flat gradient on the rows ``wb``."""
+        segs = {k: params[k][p].detach().requires_grad_()
+                for k in SEG_NAMES}
+        with torch.enable_grad():
+            loss = mdl.loss_fn(cfg, fs, segs, wb, dtype=dtype, remat=remat)
+            loss.backward()
+        return loss.detach(), pack_segs({k: segs[k].grad for k in SEG_NAMES})
+
     def loss_and_grad(params: dict, batch: dict
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-worker loss (P,) and packed flat gradients (P, d_local)."""
+        """Per-worker loss (P,) and packed flat gradients (P, d_local).
+        With ``microbatch`` below the local batch: the sum of the slices'
+        losses and gradients (f32, from zeros, in slice order), divided by
+        the slice count, as the reference's scan."""
         losses = []
         g_flat = torch.empty((nworkers, d_local), dtype=torch.float32,
                              device=device)
+        b_loc = batch["tokens"].shape[1]
+        mb = microbatch or b_loc
+        if mb < b_loc and b_loc % mb != 0:
+            raise ValueError(f"local batch {b_loc} is not divisible by "
+                             f"microbatch {mb}")
         for p in range(nworkers):
-            segs = {k: params[k][p].detach().requires_grad_()
-                    for k in SEG_NAMES}
             wb = {k: batch[k][p] for k in ("tokens", "labels")}
-            with torch.enable_grad():
-                loss = mdl.loss_fn(cfg, fs, segs, wb, dtype=dtype,
-                                   remat=remat)
-                loss.backward()
-            g_flat[p] = pack_segs({k: segs[k].grad for k in SEG_NAMES})
-            losses.append(loss.detach())
-            del segs, loss
+            if mb >= b_loc:
+                loss, g_flat[p] = worker_loss_and_grad(params, wb, p)
+            else:
+                loss = torch.zeros((), dtype=torch.float32, device=device)
+                g_flat[p] = 0.0
+                for i in range(b_loc // mb):
+                    sl = {k: v[i * mb:(i + 1) * mb] for k, v in wb.items()}
+                    l_i, g_i = worker_loss_and_grad(params, sl, p)
+                    loss = loss + l_i
+                    g_flat[p] += g_i
+                    del g_i
+                loss = loss / (b_loc // mb)
+                g_flat[p] /= b_loc // mb
+            losses.append(loss)
         return torch.stack(losses), g_flat
 
     def forward(params: dict, batch: dict):
@@ -526,6 +550,10 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
             g_mean = upd / ma.dp_size
             del upd
             gnorm = torch.sqrt(torch.sum(g_mean * g_mean, dim=-1))
+            if clip_norm is not None:  # global-norm clip, aggregated grad
+                g_mean *= torch.clamp(
+                    clip_norm / torch.clamp(gnorm, min=1e-12),
+                    max=1.0)[:, None]
             g_segs = unpack_segs(g_mean, params, lead=1)
             new_params, new_opt = {}, {}
             for k in SEG_NAMES:

@@ -1,8 +1,11 @@
 """HEAVYMIX (paper Algorithm 2): recover Top-k coordinates from a summed sketch.
 
-Port of ``repro/core/heavymix.py``, greedy fill (the train path's
-default). The paper-faithful random fill draws ``jax.random`` numbers and
-is left to a later slice.
+Port of ``repro/core/heavymix.py``: greedy fill (the train path's
+default) and the paper-faithful random fill. The reference draws the
+faithful fill's priorities with ``jax.random.uniform(key, (d,))``, which
+torch cannot reproduce; the port takes them as a tensor (``filler``), or
+draws them from a ``torch.Generator`` seeded 0 (``draw_filler``). Parity
+tests feed it the reference's filler, exported as numpy.
 
 Tie-break: ``jax.lax.top_k`` breaks ties toward the LOWER index, and
 ``torch.topk`` promises no order among ties. Heavy scores collapse to
@@ -55,10 +58,26 @@ def topk_lower_index(score: torch.Tensor, k: int
     return score[idx], idx
 
 
+def draw_filler(d: int, device) -> torch.Tensor:
+    """The faithful fill's (d,) f32 priorities, uniform in [0, 1), from a
+    generator on ``device`` seeded 0 (the counterpart of the reference's
+    ``PRNGKey(0)`` when no key is given)."""
+    generator = torch.Generator(device=device).manual_seed(0)
+    return torch.rand((d,), generator=generator, dtype=torch.float32,
+                      device=device)
+
+
 def heavymix(cfg: cs.SketchConfig, sketch: torch.Tensor, k: int, d: int, *,
-             estimates: torch.Tensor | None = None
+             faithful: bool = False,
+             estimates: torch.Tensor | None = None,
+             filler: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Select k indices from a summed sketch. Returns (idx (k,), est (k,)).
+
+    faithful=True pads the heavy set with uniformly random non-heavy
+    coordinates exactly as Alg. 2: a non-heavy coordinate scores
+    ``filler[i]`` (default ``draw_filler(d, device)``); the default
+    pads with the next-largest estimates instead.
 
     For d beyond 2^22 coords (and d > 4k) the selection runs
     hierarchically, as the reference: per-chunk top-k, then a top-k over
@@ -69,12 +88,17 @@ def heavymix(cfg: cs.SketchConfig, sketch: torch.Tensor, k: int, d: int, *,
     boosted-score top-k then keeps the lowest-index heavy coordinates
     when the heavy set outnumbers k.
     """
-    if estimates is None and d > _CHUNK and d > 4 * k:
+    if estimates is None and not faithful and d > _CHUNK and d > 4 * k:
         return _heavymix_chunked(cfg, sketch, k, d)
     est = cs.decode(cfg, sketch, d) if estimates is None else estimates
     l2sq = cs.l2sq_estimate(sketch)
     heavy = est * est >= l2sq / k
-    score = torch.where(heavy, torch.abs(est) + _BIG, torch.abs(est))
+    if faithful:
+        if filler is None:
+            filler = draw_filler(d, est.device)
+        score = torch.where(heavy, torch.abs(est) + _BIG, filler)
+    else:
+        score = torch.where(heavy, torch.abs(est) + _BIG, torch.abs(est))
     _, idx = topk_lower_index(score, k)
     return idx, est[idx]
 

@@ -10,7 +10,12 @@
 //   heavy_i = est_i^2 >= thr                      (thr = ||U||^2 / k)
 //   score_i = |est_i| + 1e30 * heavy_i
 //
-// Both scores and est are written. The top-k over scores runs after it,
+// or, with a filler operand (HEAVYMIX's faithful fill, the reference's
+// jnp.where(heavy, |est| + 1e30, filler)), score_i = filler[i] where the
+// coordinate is not heavy: a uniform random priority in [0, 1), so the
+// non-heavy part of the top-k is a uniform random sample. The filler is
+// read once, coalesced (4 more bytes a coordinate); without it (a null
+// pointer) nothing is read. Both scores and est are written. The top-k over scores runs after it,
 // as in the reference (kernels/ops.py heavymix_recover), as the radix
 // select of topk_select.cu; this kernel also counts the select's first
 // digit (bits 30..20 of the score) into 2048 shared bins per CTA and adds
@@ -62,7 +67,8 @@ template <int N, class Map>
 __global__ void __launch_bounds__(kThreads)
 scores_kernel(const float* __restrict__ sk, int64_t width,
               const uint32_t* __restrict__ hp, int rows, Map map,
-              const float* __restrict__ thr_p, int64_t d,
+              const float* __restrict__ thr_p,
+              const float* __restrict__ filler, int64_t d,
               float* __restrict__ scores, float* __restrict__ est,
               uint32_t* __restrict__ hist) {
   __shared__ uint32_t sh[N * 4];
@@ -76,7 +82,10 @@ scores_kernel(const float* __restrict__ sk, int64_t width,
     const float e = sketch_common::median_estimate<N>(sk, sh, rows,
                                                       (uint32_t)j, map,
                                                       width);
-    const float s = fabsf(e) + ((e * e >= thr) ? 1e30f : 0.0f);
+    const bool heavy = e * e >= thr;
+    const float s = (filler != nullptr && !heavy)
+                        ? filler[j]
+                        : fabsf(e) + (heavy ? 1e30f : 0.0f);
     est[j] = e;
     scores[j] = s;
     radix_select::hist_add(h,
@@ -87,8 +96,8 @@ scores_kernel(const float* __restrict__ sk, int64_t width,
 
 template <class Map>
 int launch(const void* sketch, int64_t width, const void* row_params,
-           int rows, Map map, const void* thr, int64_t d, void* scores,
-           void* est, void* hist, int sms, void* stream) {
+           int rows, Map map, const void* thr, const void* filler, int64_t d,
+           void* scores, void* est, void* hist, int sms, void* stream) {
   if (rows < 1 || rows > sketch_common::kMaxRows) {
     return (int)cudaErrorInvalidValue;
   }
@@ -97,15 +106,16 @@ int launch(const void* sketch, int64_t width, const void* row_params,
   const float* sk = static_cast<const float*>(sketch);
   const uint32_t* hp = static_cast<const uint32_t*>(row_params);
   const float* t = static_cast<const float*>(thr);
+  const float* fl = static_cast<const float*>(filler);
   float* sc = static_cast<float*>(scores);
   float* es = static_cast<float*>(est);
   uint32_t* hs = static_cast<uint32_t*>(hist);
   if (rows <= 8) {
     scores_kernel<8, Map><<<g, kThreads, 0, st>>>(sk, width, hp, rows, map,
-                                                  t, d, sc, es, hs);
+                                                  t, fl, d, sc, es, hs);
   } else {
     scores_kernel<sketch_common::kMaxRows, Map><<<g, kThreads, 0, st>>>(
-        sk, width, hp, rows, map, t, d, sc, es, hs);
+        sk, width, hp, rows, map, t, fl, d, sc, es, hs);
   }
   return (int)cudaGetLastError();
 }
@@ -128,7 +138,8 @@ template <int N>
 __global__ void __launch_bounds__(kThreads, 4)
 ts_scores_kernel(const float* __restrict__ sk,
                  const uint32_t* __restrict__ rp, ts_map::TsMapT map,
-                 const float* __restrict__ thr_p, int64_t d,
+                 const float* __restrict__ thr_p,
+                 const float* __restrict__ filler, int64_t d,
                  float* __restrict__ scores, float* __restrict__ est,
                  uint32_t* __restrict__ hist) {
   __shared__ uint32_t sh[N * 4];
@@ -192,7 +203,10 @@ ts_scores_kernel(const float* __restrict__ sk,
       float s[4];
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        s[t] = fabsf(e[t]) + ((e[t] * e[t] >= thr) ? 1e30f : 0.0f);
+        const bool heavy = e[t] * e[t] >= thr;
+        s[t] = (filler != nullptr && !heavy)
+                   ? filler[j0 + t]
+                   : fabsf(e[t]) + (heavy ? 1e30f : 0.0f);
         radix_select::hist_add(
             h, radix_select::key_bits(s[t]) >> radix_select::kShift1);
       }
@@ -204,7 +218,10 @@ ts_scores_kernel(const float* __restrict__ sk,
       for (int64_t j = j0; j < d; ++j) {
         const float ej = sketch_common::median_estimate<N>(
             sk, sh, N, (uint32_t)j, map, width);
-        const float sj = fabsf(ej) + ((ej * ej >= thr) ? 1e30f : 0.0f);
+        const bool heavy = ej * ej >= thr;
+        const float sj = (filler != nullptr && !heavy)
+                             ? filler[j]
+                             : fabsf(ej) + (heavy ? 1e30f : 0.0f);
         est[j] = ej;
         scores[j] = sj;
         radix_select::hist_add(
@@ -263,28 +280,31 @@ ts_transpose_kernel(const float* __restrict__ sk,
 }  // namespace
 
 // The exact sketch: hash_params (rows, 4) uint32 [a, b, c, d], shift =
-// 32 - log2 W. hist: a zeroed (2048,) u32 array that receives the
-// histogram of bits 30..20 of the scores; sms: the card's SM count (the
-// grid). Returns cudaGetLastError() after the launch.
+// 32 - log2 W. filler: null, or (d,) f32 scores of the non-heavy
+// coordinates (the faithful fill). hist: a zeroed (2048,) u32 array that
+// receives the histogram of bits 30..20 of the scores; sms: the card's SM
+// count (the grid). Returns cudaGetLastError() after the launch.
 extern "C" int heavymix_scores_launch(const void* sketch, int64_t width,
                                       const void* hash_params, int rows,
-                                      int shift, const void* thr, int64_t d,
+                                      int shift, const void* thr,
+                                      const void* filler, int64_t d,
                                       void* scores, void* est, void* hist,
                                       int sms, void* stream) {
   return launch(sketch, width, hash_params, rows,
-                sketch_common::ExactMap{shift}, thr, d, scores, est, hist,
-                sms, stream);
+                sketch_common::ExactMap{shift}, thr, filler, d, scores, est,
+                hist, sms, stream);
 }
 
 // The TS sketch's row-transposed copy: sketch_t (rows, W) f32 as
 // ts_transpose_launch writes it (16-byte aligned); row_params (rows, 4)
 // uint32 [log2 m, offset, c, d], bits = log2 d_pad (at most 32), W =
-// 2^log2w; scores and est 16-byte aligned. Up to 8 rows and W >= 4 take
+// 2^log2w; scores and est 16-byte aligned; filler as above. Up to 8 rows and W >= 4 take
 // ts_scores_kernel, the rest scores_kernel with TsMapT. Otherwise as
 // above.
 extern "C" int heavymix_scores_ts_launch(const void* sketch_t, int log2w,
                                          const void* row_params, int rows,
-                                         int bits, const void* thr, int64_t d,
+                                         int bits, const void* thr,
+                                         const void* filler, int64_t d,
                                          void* scores, void* est, void* hist,
                                          int sms, void* stream) {
   if (bits < 1 || bits > 32 || log2w < 1 || log2w >= bits ||
@@ -295,21 +315,22 @@ extern "C" int heavymix_scores_ts_launch(const void* sketch_t, int log2w,
                            (uint32_t)((1u << log2w) - 1), bits, log2w};
   if (log2w < 2 || rows > 8) {
     return launch(sketch_t, (int64_t)1 << log2w, row_params, rows, map, thr,
-                  d, scores, est, hist, sms, stream);
+                  filler, d, scores, est, hist, sms, stream);
   }
   const unsigned g = sketch_common::grid_for((d + 3) / 4, kThreads, sms);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sk = static_cast<const float*>(sketch_t);
   const uint32_t* rp = static_cast<const uint32_t*>(row_params);
   const float* t = static_cast<const float*>(thr);
+  const float* fl = static_cast<const float*>(filler);
   float* sc = static_cast<float*>(scores);
   float* es = static_cast<float*>(est);
   uint32_t* hs = static_cast<uint32_t*>(hist);
   switch (rows) {
 #define TS_SCORES_CASE(R)                                                   \
   case R:                                                                   \
-    ts_scores_kernel<R><<<g, kThreads, 0, st>>>(sk, rp, map, t, d, sc, es, \
-                                                hs);                        \
+    ts_scores_kernel<R><<<g, kThreads, 0, st>>>(sk, rp, map, t, fl, d, sc, \
+                                                es, hs);                    \
     break;
     TS_SCORES_CASE(1)
     TS_SCORES_CASE(2)

@@ -35,30 +35,52 @@
 //     (run start | run length << 16), tile-major.
 //   pass 2 (accum_kernel): a CTA owns one tile in shared memory, walks its
 //     tile's run in each of its blocks (a warp flattens 32 runs at a time),
-//     adds each value with a shared-memory atomic, and writes the tile
-//     once. A sketch of few tiles (the CLI's default 5 x 16,384 has 10)
-//     would leave most SMs idle, so each tile is split over up to `splits`
-//     CTAs, each with a share of the blocks, that flush with red.global.add
-//     into a zeroed output; the wrapper picks splits so that all tiles
-//     together fill the card (3 CTAs an SM).
+//     and adds each value to its cell exactly (below), then adds the tile
+//     into the int64 accumulator in device memory once a pass. A sketch of few
+//     tiles (the CLI's default 5 x 16,384 has 10) would leave most SMs
+//     idle, so each tile is split over up to `splits` CTAs, each with a
+//     share of the blocks, that flush with red.global.add.u64; the wrapper
+//     picks splits so that all tiles together fill the card.
+//   finish (finish_kernel): one thread a cell converts the accumulator to
+//     the f32 sketch.
+//
+// Exactness. A value v = sign_r * g[j] with |v| < 2^31 is the fixed-point
+// integer X = sign(v) * floor(|v| * 2^64), from the limbs a = floor(|v|),
+// b = floor(frac(|v|) * 2^32), c = floor(frac(frac(|v|) * 2^32) * 2^32)
+// computed exactly in f64. In the tile a cell holds its sum as a 128-bit
+// two's-complement integer in four u32 words, each taking X's word plus
+// the carry out of the word below, read from the old value atomicAdd
+// returns (u32 shared atomics: 2,368 G/s on the H100 against 324 G/s for
+// u64, probe k of bench/sketch_memory_probe.cu); a word whose addend is 0
+// takes no atomic, so |v| < 1 costs two or three. The flush adds the
+// cell's (high 64 bits, word 1, word 0) into the int64 accumulator's
+// three limbs (red.global.add.u64 across split CTAs). Integer adds are
+// associative, so the sums, and the sketch, are a function of the
+// multiset of (cell, value) contributions alone: the same bits in every
+// run, for any splits, pass size or grid, and for any cutting of g into
+// offset fragments whose accumulators are summed before the finish. The
+// finish normalizes the limb sums (carries propagated) and rounds
+// f32((f64(A) + f64(b) * 2^-32) + f64(c) * 2^-64) once, the order the
+// plain version (repro_torch/core/count_sketch.py: finish) repeats, so the
+// kernel is bit-equal to it. Non-finite elements set flag bits in a
+// per-cell u32 word (atomicOr in device memory: rare): NaN, or both
+// infinities, gives NaN; one infinity gives it; otherwise an element with
+// |v| >= 2^31 gives NaN (where the reference would sum it).
 //
 // The wrapper hands g over in passes of at most 2^25 elements and at most
 // 1 GiB of scratch (off, val and descriptors: 6 * R bytes an element plus
-// 4 * ntiles a block), so large R takes shorter passes. With one CTA a
-// tile the first pass stores each tile and later passes add to it, so
-// every bucket of the (R, W) output has exactly one writer and the output
-// needs no zeroing.
+// 4 * ntiles a block), so large R takes shorter passes. The tile's 128-bit
+// sums take 128 KB of shared memory: one accumulating CTA of 1,024 threads
+// an SM.
 // Bound on this card: the least time is one read of g and one write of the
 // sketch over 3.35 TB/s (0.47 ms at the main cell's bucket 0). The design
 // moves 6 more bytes a pair each way (25 GB at bucket 0: ~8 ms at the
-// measured 3.1 TB/s) and makes d * R f32 shared atomics (a CAS loop: ~4 ms
-// at 491 G/s). Measured on an H100 at 700 W: 15.96 ms at bucket 0 (pass
-// 1 8.7, pass 2 7.5) and 8.03 ms at bucket 1, against 22.16 and 11.42 ms
-// for a direct scatter with L2 atomics, timed in the same run; other
-// widths in PERF.md.
-// Determinism: the ranks and the shared-memory adds land in a run-dependent
-// order, so the sketch is not bit-reproducible on the card; it matches the
-// plain index_add_ version within f32 summation-order error.
+// measured 3.1 TB/s), makes two to four dependent u32 shared atomics a
+// pair, and adds each tile into the 28-byte accumulator a cell once a
+// pass. Measured on an H100 at 700 W: 21.3 ms at bucket 0 (bin 8.5,
+// accumulate 12.7; the f32 accumulate it replaced took 7.5); three u64
+// limbs a cell in shared memory and a (u64, s64) pair were slower. Times
+// in PERF.md.
 
 #include "sketch_common.cuh"
 
@@ -71,11 +93,16 @@ constexpr int kTileLog = 13;
 constexpr int kTile = 1 << kTileLog;
 constexpr int kBinThreads = 512;
 constexpr int kPerThread = 4;  // elements a binning thread; block <= 2048
-constexpr int kAccThreads = 512;
+constexpr int kAccThreads = 1024;
 constexpr int kUnroll = 4;
 constexpr int kRegRows = 8;  // up to 8 rows the binning ranks stay in registers
 constexpr int kMaxTiles = 16384;  // R * W <= 2^27
 constexpr int kAggTiles = 64;  // at most this many tiles: warp-aggregated ranks
+constexpr int kAccSmem = 4 * kTile * 4;  // a tile's 128-bit sums, 128 KB
+
+// Flag bits of a cell (repro_torch/core/count_sketch.py FLAG_*).
+constexpr uint32_t kFlagNan = 1, kFlagPosInf = 2, kFlagNegInf = 4,
+                   kFlagBig = 8;
 
 // Flat bucket r * W + h_r(i) and the signed value.
 __device__ __forceinline__ uint32_t flat_bucket(const uint32_t* sh, int r,
@@ -250,29 +277,75 @@ bin_kernel(const T* __restrict__ g, int64_t n, int64_t offset,
   }
 }
 
+// Adds one value to its cell's 128-bit two's-complement sum, held as four
+// u32 words w_k[o] = acc32[k * kTile + o] (w_0 lowest). A word takes the
+// value's word plus the carry out of the word below, read from the old
+// value that atomicAdd returns: every wrap of a word is one carry into the
+// next, so the four words hold the exact sum mod 2^128 in any order of the
+// adds. A word whose addend is 0 (or 2^32: a carry through 0xffffffff)
+// takes no atomic.
+__device__ __forceinline__ void add_exact(unsigned long long* acc64,
+                                          uint32_t o, float v,
+                                          uint32_t* __restrict__ flags,
+                                          int64_t cell) {
+  const float av = fabsf(v);
+  if (!(av < 2147483648.0f)) {
+    atomicOr(flags + cell, isnan(v) ? kFlagNan
+                           : isinf(v) ? (v > 0.0f ? kFlagPosInf : kFlagNegInf)
+                                      : kFlagBig);
+    return;
+  }
+  uint32_t* acc = reinterpret_cast<uint32_t*>(acc64);
+  const double x = (double)av;
+  const double a = floor(x);
+  const double r1 = __dmul_rn(__dsub_rn(x, a), 4294967296.0);
+  const double b = floor(r1);
+  const double c = floor(__dmul_rn(__dsub_rn(r1, b), 4294967296.0));
+  unsigned long long lo = ((unsigned long long)__double2ll_rz(b) << 32) |
+                          (unsigned long long)__double2ll_rz(c);
+  unsigned long long hi = (unsigned long long)__double2ll_rz(a);
+  if (signbit(v)) {
+    hi = 0ull - hi - (lo != 0ull ? 1ull : 0ull);
+    lo = 0ull - lo;
+  }
+  const uint32_t w[4] = {(uint32_t)lo, (uint32_t)(lo >> 32), (uint32_t)hi,
+                         (uint32_t)(hi >> 32)};
+  uint32_t cy = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t y = w[k] + cy;      // wraps to 0 only for 0xffffffff + 1
+    if (y == 0u) {
+      cy = (w[k] != 0u) ? 1u : 0u;     // a carry passes through
+      continue;
+    }
+    const uint32_t old = atomicAdd(acc + k * kTile + o, y);
+    cy = (old + y < old) ? 1u : 0u;
+  }
+}
+
 // Pass 2: CTA (t, s) owns flat buckets [t * kTile, t * kTile + kTile) and
 // the s-th of `splits` equal shares of the binning blocks. Its warps form
 // teams of `group_warps`: a team takes 32 blocks at a time and flattens
 // their runs, its warps taking turns at 32 * kUnroll entries (short runs:
 // one warp a team; long runs, as in a sketch of few tiles: the whole CTA
-// shares each group, so no warp idles while another walks it). Flush: `store`
-// (the first pass, one share), `add` (later passes, one share), or
-// `atomic` red.global.add into a zeroed output (several shares).
-enum Flush { kStore = 0, kAdd = 1, kAtomic = 2 };
-
+// shares each group, so no warp idles while another walks it). Flush into
+// the int64 accumulator out[3][size] (limb 0: the sum's high 64 bits,
+// limb 1: word 1, limb 2: word 0): a plain add where one CTA owns the tile
+// (splits = 1), red.global.add.u64 where several share it.
 __global__ void __launch_bounds__(kAccThreads)
 accum_kernel(const uint16_t* __restrict__ off_in,
              const float* __restrict__ val_in,
              const uint32_t* __restrict__ desc, int nblocks, int splits,
              int group_warps, int entries, int64_t size,
-             float* __restrict__ out, int flush) {
-  __shared__ float acc[kTile];
+             unsigned long long* __restrict__ out,
+             uint32_t* __restrict__ flags) {
+  extern __shared__ __align__(16) unsigned long long acc[];
   const int t = blockIdx.x / splits, s = blockIdx.x % splits;
   const int b_lo = (int)((int64_t)s * nblocks / splits);
   const int b_hi = (int)((int64_t)(s + 1) * nblocks / splits);
   const int64_t t0 = (int64_t)t * kTile;
   const int nt = (int)min((int64_t)kTile, size - t0);
-  for (int q = threadIdx.x; q < nt; q += blockDim.x) acc[q] = 0.0f;
+  for (int q = threadIdx.x; q < 2 * kTile; q += blockDim.x) acc[q] = 0ull;
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -322,25 +395,71 @@ accum_kernel(const uint16_t* __restrict__ off_in,
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (pos[u] >= 0) atomicAdd(&acc[o[u]], v[u]);
+        if (pos[u] >= 0) add_exact(acc, o[u], v[u], flags, t0 + o[u]);
       }
     }
   }
   __syncthreads();
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(acc);
   for (int q = threadIdx.x; q < nt; q += blockDim.x) {
-    if (flush == kAtomic) {
-      atomicAdd(&out[t0 + q], acc[q]);
-    } else {
-      out[t0 + q] = flush == kAdd ? out[t0 + q] + acc[q] : acc[q];
+    const unsigned long long x[3] = {
+        ((unsigned long long)w[3 * kTile + q] << 32) | w[2 * kTile + q],
+        w[kTile + q], w[q]};
+#pragma unroll
+    for (int l = 0; l < 3; ++l) {
+      if (x[l] == 0ull) continue;
+      unsigned long long* dst = out + l * size + t0 + q;
+      if (splits > 1) {
+        atomicAdd(dst, x[l]);
+      } else {
+        *dst += x[l];
+      }
     }
+  }
+}
+
+// Finish: cell i of `lead` stacked accumulators (limbs [lead][3][size],
+// flags [lead][size]) -> out[i] f32: normalized limb sums rounded once,
+// then the flag rules (see Exactness above).
+__global__ void __launch_bounds__(256)
+finish_kernel(const long long* __restrict__ limbs,
+              const uint32_t* __restrict__ flags, int64_t size, int64_t n,
+              float* __restrict__ out) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const int64_t lead = i / size, cell = i - lead * size;
+    const long long* l = limbs + lead * 3 * size + cell;
+    long long a = l[0], b = l[size], c = l[2 * size];
+    b += c >> 32;
+    c &= 0xffffffffll;
+    a += b >> 32;
+    b &= 0xffffffffll;
+    const double v = __dadd_rn(
+        __dadd_rn(__ll2double_rn(a), __dmul_rn(__ll2double_rn(b), 0x1p-32)),
+        __dmul_rn(__ll2double_rn(c), 0x1p-64));
+    float r = __double2float_rn(v);
+    const uint32_t f = flags[i];
+    if (f) {
+      const bool pos = f & kFlagPosInf, neg = f & kFlagNegInf;
+      if ((f & kFlagNan) || (pos && neg) || ((f & kFlagBig) && !pos && !neg)) {
+        r = __uint_as_float(0x7fc00000u);
+      } else if (pos) {
+        r = __uint_as_float(0x7f800000u);
+      } else if (neg) {
+        r = __uint_as_float(0xff800000u);
+      }
+    }
+    out[i] = r;
   }
 }
 
 template <typename T>
 int launch(const void* g, int64_t d, const void* hp, int rows, int log2w,
-           int64_t offset, void* out, int ntiles, int block, int64_t chunk,
-           int splits, int group_warps, int bin_smem, void* off_scratch,
-           void* val_scratch, void* desc_scratch, cudaStream_t stream) {
+           int64_t offset, void* limbs, void* flags, int ntiles, int block,
+           int64_t chunk, int splits, int group_warps, int bin_smem,
+           void* off_scratch, void* val_scratch, void* desc_scratch,
+           cudaStream_t stream) {
   const int E = block * rows;
   const bool agg = ntiles <= kAggTiles;
   auto bin = rows <= kRegRows
@@ -349,6 +468,10 @@ int launch(const void* g, int64_t d, const void* hp, int rows, int log2w,
                  : (agg ? bin_kernel<T, 0, true> : bin_kernel<T, 0, false>);
   cudaError_t e = cudaFuncSetAttribute(
       bin, cudaFuncAttributeMaxDynamicSharedMemorySize, bin_smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(accum_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kAccSmem);
   if (e != cudaSuccess) return (int)e;
   const int64_t size = (int64_t)rows << log2w;
   for (int64_t c0 = 0; c0 < d; c0 += chunk) {
@@ -362,12 +485,12 @@ int launch(const void* g, int64_t d, const void* hp, int rows, int log2w,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const int sp = splits < nblocks ? splits : nblocks;
-    const int flush = splits > 1 ? kAtomic : (c0 > 0 ? kAdd : kStore);
-    accum_kernel<<<ntiles * sp, kAccThreads, 0, stream>>>(
+    accum_kernel<<<ntiles * sp, kAccThreads, kAccSmem, stream>>>(
         static_cast<const uint16_t*>(off_scratch),
         static_cast<const float*>(val_scratch),
         static_cast<const uint32_t*>(desc_scratch), nblocks, sp, group_warps,
-        E, size, static_cast<float*>(out), flush);
+        E, size, static_cast<unsigned long long*>(limbs),
+        static_cast<uint32_t*>(flags));
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -376,22 +499,24 @@ int launch(const void* g, int64_t d, const void* hp, int rows, int log2w,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. The geometry (ntiles,
-// block, chunk, splits, group_warps, bin_smem) and the scratch sizes come
-// from the wrapper's plan (kernels/sketch_encode.py: encode_plan):
-// off_scratch holds
-// ceil(chunk / block) * block * rows uint16, val_scratch as many float32,
-// desc_scratch ceil(chunk / block) * ntiles uint32. With splits > 1 the
-// output must be zeroed. Returns the first cudaGetLastError() that is not
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Adds the contributions
+// of g (element j hashed as coordinate offset + j) into an exact sketch:
+// limbs [3][rows << log2w] int64 and flags [rows << log2w] u32, both
+// initialized by the caller (zeros, or earlier contributions). The
+// geometry (ntiles, block, chunk, splits, group_warps, bin_smem) and the
+// scratch sizes come from the wrapper's plan (kernels/sketch_encode.py:
+// encode_plan): off_scratch holds ceil(chunk / block) * block * rows
+// uint16, val_scratch as many float32, desc_scratch ceil(chunk / block) *
+// ntiles uint32. Returns the first cudaGetLastError() that is not
 // cudaSuccess, else 0.
 extern "C" int sketch_encode_launch(const void* g, int64_t d, int dtype,
                                     const void* hash_params, int rows,
-                                    int log2w, int64_t offset, void* out,
-                                    int ntiles, int block, int64_t chunk,
-                                    int splits, int group_warps,
-                                    int bin_smem, void* off_scratch,
-                                    void* val_scratch, void* desc_scratch,
-                                    void* stream) {
+                                    int log2w, int64_t offset, void* limbs,
+                                    void* flags, int ntiles, int block,
+                                    int64_t chunk, int splits,
+                                    int group_warps, int bin_smem,
+                                    void* off_scratch, void* val_scratch,
+                                    void* desc_scratch, void* stream) {
   // the binning CTA's shared-memory layout must fit in bin_smem
   const int64_t need = 4 * ((int64_t)ntiles + 4 * rows + 32) +
                        (int64_t)(rows <= kRegRows ? 8 : 10) * block * rows;
@@ -406,21 +531,38 @@ extern "C" int sketch_encode_launch(const void* g, int64_t d, int dtype,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(g, d, hash_params, rows, log2w, offset, out,
-                           ntiles, block, chunk, splits, group_warps,
+      return launch<float>(g, d, hash_params, rows, log2w, offset, limbs,
+                           flags, ntiles, block, chunk, splits, group_warps,
                            bin_smem, off_scratch, val_scratch, desc_scratch,
                            s);
     case 1:
       return launch<__nv_bfloat16>(g, d, hash_params, rows, log2w, offset,
-                                   out, ntiles, block, chunk, splits,
-                                   group_warps, bin_smem, off_scratch,
+                                   limbs, flags, ntiles, block, chunk,
+                                   splits, group_warps, bin_smem, off_scratch,
                                    val_scratch, desc_scratch, s);
     case 2:
-      return launch<__half>(g, d, hash_params, rows, log2w, offset, out,
-                            ntiles, block, chunk, splits, group_warps,
+      return launch<__half>(g, d, hash_params, rows, log2w, offset, limbs,
+                            flags, ntiles, block, chunk, splits, group_warps,
                             bin_smem, off_scratch, val_scratch, desc_scratch,
                             s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The f32 sketch of `lead` stacked exact sketches (limbs [lead][3][size]
+// int64, flags [lead][size] u32) into out [lead][size]; sms: the card's
+// SM count (the grid). Returns cudaGetLastError() after the launch.
+extern "C" int sketch_encode_finish_launch(const void* limbs,
+                                           const void* flags, int64_t size,
+                                           int64_t lead, void* out, int sms,
+                                           void* stream) {
+  if (size < 1 || lead < 1) return (int)cudaErrorInvalidValue;
+  const int64_t n = size * lead;
+  const unsigned grid = sketch_common::grid_for(n, 256, sms);
+  finish_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(limbs),
+      static_cast<const uint32_t*>(flags), size, n,
+      static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }

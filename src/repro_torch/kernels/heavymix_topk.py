@@ -7,6 +7,10 @@ Replaces the TPU kernel ``repro/kernels/heavymix_topk.py:heavymix_scores``
     heavy_i = est_i^2 >= thr                      (thr = ||U||^2 / k)
     score_i = |est_i| + 1e30 * heavy_i
 
+or, with ``filler`` (HEAVYMIX's faithful fill: ``(d,)`` f32 priorities,
+uniform in [0, 1)), ``score_i = filler[i]`` for a coordinate that is not
+heavy, as the reference's ``jnp.where(heavy, |est| + 1e30, filler)``.
+
 The Hopper kernel (``csrc/heavymix_scores.cu``) gives each coordinate one
 thread: R gathers from the L2-resident sketch, a sort network in
 registers over 8 or 32 slots (R up to 32), then both outputs. Bound on the
@@ -61,17 +65,26 @@ from repro_torch.kernels.ts_encode import row_params_on_device
 def _lib() -> ctypes.CDLL:
     lib = build.load("heavymix_scores")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.heavymix_scores_launch.argtypes = [p, i64, p, i32, i32, p, i64, p,
-                                           p, p, i32, p]
+    lib.heavymix_scores_launch.argtypes = [p, i64, p, i32, i32, p, p, i64,
+                                           p, p, p, i32, p]
     lib.heavymix_scores_launch.restype = i32
-    lib.heavymix_scores_ts_launch.argtypes = [p, i32, p, i32, i32, p, i64,
-                                              p, p, p, i32, p]
+    lib.heavymix_scores_ts_launch.argtypes = [p, i32, p, i32, i32, p, p,
+                                              i64, p, p, p, i32, p]
     lib.heavymix_scores_ts_launch.restype = i32
     return lib
 
 
+def _fill(scores: torch.Tensor, est: torch.Tensor, thr: torch.Tensor,
+          filler: torch.Tensor | None) -> torch.Tensor:
+    """The faithful fill's scores: ``filler`` where not heavy."""
+    if filler is None:
+        return scores
+    return torch.where(est * est >= thr, scores, filler.to(torch.float32))
+
+
 def heavymix_scores_plain(cfg: SketchConfig, sketch: torch.Tensor,
-                          thresh: torch.Tensor, d: int
+                          thresh: torch.Tensor, d: int,
+                          filler: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version (the oracle), chunked over coordinates."""
     sk = sketch.to(torch.float32)
@@ -83,38 +96,45 @@ def heavymix_scores_plain(cfg: SketchConfig, sketch: torch.Tensor,
         e = cs.decode_at(cfg, sk, torch.arange(lo, hi, device=sk.device))
         est[lo:hi] = e
         heavy = (e * e >= thr).to(torch.float32)
-        scores[lo:hi] = torch.abs(e) + _BIG * heavy
+        scores[lo:hi] = _fill(torch.abs(e) + _BIG * heavy, e, thr,
+                              None if filler is None else filler[lo:hi])
     return scores, est
 
 
 def heavymix_scores(cfg: SketchConfig, sketch: torch.Tensor,
-                    thresh: torch.Tensor, d: int
+                    thresh: torch.Tensor, d: int,
+                    filler: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(scores (d,), estimates (d,)) for HEAVYMIX greedy selection."""
+    """(scores (d,), estimates (d,)) for HEAVYMIX selection (greedy, or
+    faithful with ``filler``)."""
     if not resolve_dispatch(sketch.device.type):
-        return heavymix_scores_plain(cfg, sketch, thresh, d)
-    return _launch(cfg, sketch, thresh, int(d))[:2]
+        return heavymix_scores_plain(cfg, sketch, thresh, d, filler)
+    return _launch(cfg, sketch, thresh, int(d), filler=filler)[:2]
 
 
 def heavymix_scores_hist(cfg: SketchConfig, sketch: torch.Tensor,
-                         thresh: torch.Tensor, d: int
+                         thresh: torch.Tensor, d: int,
+                         filler: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(scores, estimates, the (2048,) int32 histogram of key bits 30..20
     of the scores) for ``kernels.topk_select``; one launch on the card."""
     if not resolve_dispatch(sketch.device.type):
-        scores, est = heavymix_scores_plain(cfg, sketch, thresh, d)
+        scores, est = heavymix_scores_plain(cfg, sketch, thresh, d, filler)
         return scores, est, radix_hist_plain(scores)
-    return _launch(cfg, sketch, thresh, int(d))
+    return _launch(cfg, sketch, thresh, int(d), filler=filler)
 
 
 def heavymix_scores_ts_plain(tcfg: TSketchConfig, sketch: torch.Tensor,
-                             thresh: torch.Tensor, d: int
+                             thresh: torch.Tensor, d: int,
+                             filler: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the TS-map scores: ``ts.decode``, then the
     reference's boost (``core.heavymix.heavymix(..., estimates=)``)."""
     est = ts.decode(tcfg, sketch, d)
-    heavy = est * est >= thresh.reshape(()).to(torch.float32)
-    return torch.where(heavy, torch.abs(est) + _BIG, torch.abs(est)), est
+    thr = thresh.reshape(()).to(torch.float32)
+    heavy = est * est >= thr
+    scores = torch.where(heavy, torch.abs(est) + _BIG, torch.abs(est))
+    return _fill(scores, est, thr, filler), est
 
 
 def _row_shape(tcfg: TSketchConfig, r: int) -> tuple[int, int] | None:
@@ -166,24 +186,26 @@ def ts_transpose(tcfg: TSketchConfig, sketch: torch.Tensor) -> torch.Tensor:
 
 
 def heavymix_scores_ts_hist(tcfg: TSketchConfig, sketch: torch.Tensor,
-                            thresh: torch.Tensor, d: int
+                            thresh: torch.Tensor, d: int,
+                            filler: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """(scores, estimates, histogram of key bits 30..20 of the scores) of
     the coordinates [0, d) of a TS sketch; on the card two launches, the
     transpose and the scores kernel."""
     if not resolve_dispatch(sketch.device.type):
-        scores, est = heavymix_scores_ts_plain(tcfg, sketch, thresh, d)
+        scores, est = heavymix_scores_ts_plain(tcfg, sketch, thresh, d,
+                                               filler)
         return scores, est, radix_hist_plain(scores)
     if tcfg.bits > 32 or d > tcfg.d_pad:
         raise ValueError(f"heavymix_scores_ts: d = {d} with d_pad = "
                          f"{tcfg.d_pad} (at most 2^32)")
     return _launch(tcfg, ts_transpose(tcfg, sketch), thresh, int(d),
-                   ts_map=True)
+                   ts_map=True, filler=filler)
 
 
 def _launch(cfg, sketch: torch.Tensor, thresh: torch.Tensor, d: int, *,
-            ts_map: bool = False
+            ts_map: bool = False, filler: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     lib = _lib()
     if sketch.device.type != "cuda":
@@ -195,6 +217,14 @@ def _launch(cfg, sketch: torch.Tensor, thresh: torch.Tensor, d: int, *,
     sk = sketch.to(torch.float32).contiguous()
     thr = thresh.to(device=sk.device, dtype=torch.float32).reshape(1)
     thr = thr.contiguous()
+    if filler is not None:
+        if (filler.dtype != torch.float32 or tuple(filler.shape) != (d,)
+                or filler.device != sk.device):
+            raise ValueError(f"filler must be ({d},) float32 on {sk.device}, "
+                             f"got {filler.dtype} {tuple(filler.shape)} on "
+                             f"{filler.device}")
+        filler = filler.contiguous()
+    fl = None if filler is None else filler.data_ptr()
     scores = torch.empty((d,), dtype=torch.float32, device=sk.device)
     est = torch.empty((d,), dtype=torch.float32, device=sk.device)
     hist = torch.zeros(RADIX_BINS, dtype=torch.int32, device=sk.device)
@@ -206,13 +236,13 @@ def _launch(cfg, sketch: torch.Tensor, thresh: torch.Tensor, d: int, *,
         rp = row_params_on_device(cfg, str(sk.device))
         rc = lib.heavymix_scores_ts_launch(
             sk.data_ptr(), cfg.log2_width, rp.data_ptr(), cfg.rows, cfg.bits,
-            thr.data_ptr(), d, scores.data_ptr(), est.data_ptr(),
+            thr.data_ptr(), fl, d, scores.data_ptr(), est.data_ptr(),
             hist.data_ptr(), sms, stream)
     else:
         hp = hash_on_device(cfg, str(sk.device))
         rc = lib.heavymix_scores_launch(
             sk.data_ptr(), cfg.width, hp.data_ptr(), cfg.rows,
-            32 - cfg.log2_width, thr.data_ptr(), d, scores.data_ptr(),
+            32 - cfg.log2_width, thr.data_ptr(), fl, d, scores.data_ptr(),
             est.data_ptr(), hist.data_ptr(), sms, stream)
     if rc != 0:
         raise RuntimeError(f"heavymix_scores launch failed: cudaError {rc}")

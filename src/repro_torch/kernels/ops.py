@@ -32,7 +32,9 @@ from repro_torch.kernels.sketch_decode import (sketch_decode,
                                                sketch_decode_bucketed,
                                                sketch_decode_hist)
 from repro_torch.kernels.sketch_encode import (sketch_encode,
-                                               sketch_encode_bucketed)
+                                               sketch_encode_bucketed,
+                                               sketch_encode_finish,
+                                               sketch_encode_into)
 from repro_torch.kernels.topk_select import topk_select
 
 
@@ -42,6 +44,18 @@ def encode(cfg: SketchConfig, g: torch.Tensor, *,
     return sketch_encode(cfg, g, index_offset=int(offset))
 
 
+def encode_into(cfg: SketchConfig, g: torch.Tensor, acc: cs.ExactSketch, *,
+                offset: int = 0) -> cs.ExactSketch:
+    """Add the exact encode of ``g`` (coordinates offset + j) into one
+    worker's exact sketch ``acc``, in place."""
+    return sketch_encode_into(cfg, g, acc, index_offset=int(offset))
+
+
+def encode_finish(acc: cs.ExactSketch) -> torch.Tensor:
+    """An exact sketch (any leading dims) -> its f32 sketch(es)."""
+    return sketch_encode_finish(acc)
+
+
 def decode(cfg: SketchConfig, sketch: torch.Tensor, d: int, *,
            offset: int = 0) -> torch.Tensor:
     """Count-Sketch decode: (rows, width) -> (d,) estimates of the
@@ -49,9 +63,10 @@ def decode(cfg: SketchConfig, sketch: torch.Tensor, d: int, *,
     return sketch_decode(cfg, sketch, int(d), index_offset=int(offset))
 
 
-def heavymix_recover(cfg: SketchConfig, sketch: torch.Tensor, k: int, d: int
+def heavymix_recover(cfg: SketchConfig, sketch: torch.Tensor, k: int, d: int,
+                     *, filler: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """HEAVYMIX greedy recovery from a summed sketch -> (idx (k,), est (k,)).
+    """HEAVYMIX recovery from a summed sketch -> (idx (k,), est (k,)).
 
     The ranking follows the reference's two regimes; the top-k follows
     ``jax.lax.top_k``'s tie order. For d > 2^22 and d > 4k the reference
@@ -63,20 +78,26 @@ def heavymix_recover(cfg: SketchConfig, sketch: torch.Tensor, k: int, d: int
     index wins among them; the threshold stays a device tensor (no host
     sync before the kernel). Either kernel also counts the select's first
     digit, and ``topk_select`` ranks |est| or the (non-negative) scores.
+
+    ``filler``: the faithful fill (the reference's ``faithful=True``), the
+    (d,) f32 priorities of the non-heavy coordinates. It skips the chunked
+    route at every d, as the reference does: the scores kernel runs with
+    the filler operand.
     """
     sk = sketch.to(torch.float32)
-    if d > _CHUNK and d > 4 * k:
+    if filler is None and d > _CHUNK and d > 4 * k:
         est, hist = sketch_decode_hist(cfg, sk, int(d))
         _, idx = topk_select(est, k, hist)
         return idx, est[idx]
     thr = cs.l2sq_estimate(sk) / k
-    scores, est, hist = heavymix_scores_hist(cfg, sk, thr, int(d))
+    scores, est, hist = heavymix_scores_hist(cfg, sk, thr, int(d), filler)
     _, idx = topk_select(scores, k, hist)
     return idx, est[idx]
 
 
 def ts_heavymix_recover(tcfg: TSketchConfig, sketch: torch.Tensor, k: int,
-                        d: int) -> tuple[torch.Tensor, torch.Tensor]:
+                        d: int, *, filler: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """HEAVYMIX recovery from a summed TS sketch -> (idx (k,), est (k,)).
 
     The reference (``repro/core/compression.py``, ``encoder="ts"``) decodes
@@ -86,10 +107,12 @@ def ts_heavymix_recover(tcfg: TSketchConfig, sketch: torch.Tensor, k: int,
     the heavy set outnumbers k the lowest-index heavy coordinates win. The
     TS-map scores kernel writes est and those scores and counts the select's
     first digit; the threshold stays a device tensor (no host sync).
+    ``filler``: the faithful fill, as in ``heavymix_recover``.
     """
     sk = sketch.to(torch.float32)
     thr = cs.l2sq_estimate(sk) / k
-    scores, est, hist = heavymix_scores_ts_hist(tcfg, sk, thr, int(d))
+    scores, est, hist = heavymix_scores_ts_hist(tcfg, sk, thr, int(d),
+                                                filler)
     _, idx = topk_select(scores, k, hist)
     return idx, est[idx]
 

@@ -13,9 +13,21 @@ Examples:
       --workers 2 --steps 3 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --spec examples/specs/qwen3_smoke.json \
       --buckets 4 --bwd-chunks 2 --fuse-encode --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --spec examples/specs/qwen3_smoke.json \
+      --microbatch 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --spec examples/specs/qwen3_smoke.json \
+      --steps 4 --ckpt-dir /tmp/ck --ckpt-every 1 --kill-at 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --spec examples/specs/qwen3_smoke.json \
+      --steps 4 --ckpt-dir /tmp/ck --ckpt-every 1 --resume --device cpu
 
-Not ported yet: checkpoints, ``--trace``, ``--json`` traces, the drift
-watchdog and ``--auto-tune``.
+Checkpoints (``--ckpt-dir``, ``--ckpt-every``) hold the whole train state
+(params, optimizer moments, error feedback, step) and the data cursor; the
+stream is counter-based (a step's batch depends on the step alone), so a
+run resumed with ``--resume`` from the latest checkpoint continues
+bit-exactly. ``--kill-at N`` stops after step N as a crash would (tests).
+
+Not ported yet: ``--trace``, ``--json`` traces, the drift watchdog and
+``--auto-tune``.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import time
 import torch
 
 from repro_torch import api
+from repro_torch import ckpt as ckpt_lib
 from repro_torch.api import RunSpec
 from repro_torch.data import LMStream
 
@@ -55,8 +68,6 @@ def resolve_spec(args) -> RunSpec:
     base = RunSpec.load(args.spec) if args.spec else RunSpec()
     spec = api.apply_args(base, args, "train")
     spec.validate()
-    if spec.ckpt_dir:
-        raise NotImplementedError("checkpoints are not ported yet")
     if spec.trace:
         raise NotImplementedError("span tracing is not ported yet")
     if (spec.watch or {}).get("enabled"):
@@ -76,10 +87,12 @@ def shard_batch(gb: dict, nworkers: int) -> dict:
 
 
 def train_loop(ts, state: dict, batch_at, steps, *, log_every: int = 10,
-               last: int | None = None):
+               last: int | None = None, after_step=None):
     """Run ``ts.fn`` over ``steps``; ``batch_at(step)`` gives the global
     batch. Returns (state, losses, per-step seconds). Each step ends in a
-    device synchronise, so its time is the whole step's."""
+    device synchronise, so its time is the whole step's.
+    ``after_step(step, state, loss)``, if given, runs after each step (the
+    checkpoint hook); the loop stops when it returns True."""
     history, times = [], []
     t0 = time.time()
     for step in steps:
@@ -94,6 +107,8 @@ def train_loop(ts, state: dict, batch_at, steps, *, log_every: int = 10,
         if step % log_every == 0 or step == last:
             print(f"step {step:5d}  loss {loss:.4f}  "
                   f"({(time.time() - t0):.1f}s)", flush=True)
+        if after_step is not None and after_step(step, state, loss):
+            break
     return state, history, times
 
 
@@ -109,6 +124,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain path)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt-dir")
+    ap.add_argument("--kill-at", type=int, default=None,
+                    help="simulate a crash after this step (tests)")
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
@@ -121,11 +140,43 @@ def main(argv=None) -> dict:
                       global_batch=spec.batch, seed=spec.seed)
     gen = torch.Generator(device=ts.device).manual_seed(spec.seed)
     state = ts.init_state(opt, gen)
+    start, saver = 0, None
+    if spec.ckpt_dir:
+        saver = ckpt_lib.AsyncCheckpointer(spec.ckpt_dir, keep=3)
+        if args.resume and ckpt_lib.latest_step(spec.ckpt_dir) is not None:
+            state, meta = ckpt_lib.restore(spec.ckpt_dir, state,
+                                           device=ts.device)
+            start = meta["step"]
+            gen.set_state(torch.tensor(meta["generator_state"],
+                                       dtype=torch.uint8))
+            print(f"resumed from step {start}")
+
+    def meta_at(step: int, loss: float) -> dict:
+        return {"loss": loss, "data_cursor": step, "seed": spec.seed,
+                "generator_state": gen.get_state().tolist(),
+                "device": str(ts.device)}
+
+    def after_step(step: int, state: dict, loss: float) -> bool:
+        if saver and (step + 1) % spec.ckpt_every == 0:
+            saver.save(step + 1, state, meta_at(step + 1, loss))
+        if args.kill_at is not None and step + 1 >= args.kill_at:
+            print(f"simulated crash at step {step + 1}")
+            return True
+        return False
+
     state, history, _ = train_loop(
         ts, state, lambda s: stream.global_batch_at(s, ts.device),
-        range(spec.steps), log_every=args.log_every, last=spec.steps - 1)
+        range(start, spec.steps), log_every=args.log_every,
+        last=spec.steps - 1, after_step=after_step)
+    if args.kill_at is not None and start + len(history) >= args.kill_at:
+        if saver:
+            saver.wait()
+        return {"history": history, "crashed_at": start + len(history)}
+    if saver:
+        saver.save(spec.steps, state, meta_at(spec.steps, history[-1]))
+        saver.wait()
     print(json.dumps({"final_loss": history[-1], "steps": len(history)}))
-    return {"history": history, "final_loss": history[-1]}
+    return {"history": history, "final_loss": history[-1], "state": state}
 
 
 if __name__ == "__main__":

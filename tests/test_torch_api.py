@@ -140,7 +140,8 @@ def _wrapper_calls():
 
 
 # Every C entry point the kernel modules bind, by library.
-_ENTRIES = ("sketch_encode_launch", "heavymix_scores_launch",
+_ENTRIES = ("sketch_encode_launch", "sketch_encode_finish_launch",
+            "heavymix_scores_launch",
             "heavymix_scores_ts_launch", "sketch_decode_launch",
             "ts_encode_launch", "ts_encode_onepass_launch")
 

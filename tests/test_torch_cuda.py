@@ -7,9 +7,10 @@ a card; on one, run them with
 (``--noconftest``: the shared conftest imports JAX, which the port's card
 machine does not need.)
 
-Tolerances: the encode kernel bins and adds with shared-memory atomics in
-a run-dependent order, so it is held to the plain version at
-1e-4 * max|S|; the scores
+Tolerances: the encode kernel sums exactly (integer limbs), so it is
+bit-equal to its plain version for any launch geometry and any cutting
+into fragments (the ``test_exact_encode_*`` tests; the older tests' bound
+of 1e-4 * max|S| holds a fortiori); the scores
 and decode kernels gather and sort the same values as the plain version,
 so their estimates and scores must be bit-equal, and the first-digit
 histograms they count on request must equal the plain histogram of the
@@ -352,8 +353,9 @@ def test_ts_recover_syncs_with_host_nowhere(card):
 def test_partial_encodes_sum_to_the_whole(card):
     """The fused encode's launches: each fragment encoded at its offset in
     the bucket (one of them short, as top_r's 2,560), each within
-    1e-4 * max|S| of plain at that offset; ``stage_encode_merge`` of the
-    (P, n) partials within the same bound of the whole-bucket encode."""
+    1e-4 * max|S| of plain at that offset (the exact partials converted
+    by ``ops.encode_finish``); ``stage_encode_merge`` of the (P, n)
+    partials within the same bound of the whole-bucket encode."""
     from repro_torch.core import compression as comp
     c = comp.make("gs-sgd", k=4000, rows=5, width=1 << 14, seed=6)
     gen = torch.Generator(device=card).manual_seed(6)
@@ -364,9 +366,10 @@ def test_partial_encodes_sum_to_the_whole(card):
     before = LAUNCHES["sketch_encode"]
     for a, b in zip(cuts, cuts[1:]):
         u, sk = c.stage_encode_partial(acc[:, a:b], g[:, a:b], a)
+        fin = ops.encode_finish(sk)
         for p in range(2):
             want = sketch_encode_plain(c.sketch, u[p], a)
-            err = float((sk[p] - want).abs().max())
+            err = float((fin[p] - want).abs().max())
             assert err <= 1e-4 * float(want.abs().max()), (a, err)
         pieces.append((a, u, sk))
     assert LAUNCHES["sketch_encode"] == before + 2 * 3
@@ -531,3 +534,86 @@ def test_select_nan_keys_with_and_without_slabs(card, capacity):
         assert torch.equal(nan, torch.isnan(lo_v))
         assert torch.equal(v[~nan].view(torch.int32),
                            lo_v[~nan].view(torch.int32))
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("d,rows,width,offset", [
+    (1537, 3, 300, 4099), (20_000, 1, 1, 0), (20_000, 64, 1 << 12, 3),
+    (1 << 22, 3, 512, 2**32 - 100), ((1 << 25) + 4099, 5, 1 << 12, 11),
+    (20_000_000, 5, 1 << 19, 7)])
+def test_exact_encode_bit_equal_across_geometry(card, d, rows, width,
+                                                offset):
+    """Kernel against plain, a second launch, another splits and pass
+    size, and offset fragments summed in another order: all bit-equal."""
+    from repro_torch.kernels import sketch_encode as ske
+    cfg = cs.SketchConfig(rows=rows, width=width, seed=rows)
+    gen = torch.Generator(device=card).manual_seed(d % 97)
+    g = torch.randn(d, generator=gen, device=card)
+    g *= torch.exp(-20 * torch.rand(d, generator=gen, device=card))
+    got = sketch_encode(cfg, g, index_offset=offset)
+    assert _bits_equal(got, sketch_encode_plain(cfg, g, offset))
+    assert _bits_equal(got, sketch_encode(cfg, g, index_offset=offset))
+    base = ske.encode_plan(rows, cfg.log2_width, d)
+    other = ske.encode_plan(rows, cfg.log2_width, d,
+                            splits=max(1, base.splits // 2 + 3),
+                            chunk=max(base.block, (base.chunk // 3)
+                                      // base.block * base.block))
+    assert _bits_equal(got, sketch_encode(cfg, g, index_offset=offset,
+                                          plan=other))
+    cuts = sorted({0, d // 3, min(d, d // 3 + 2560), d - 5, d})
+    parts = []
+    for lo, hi in zip(cuts, cuts[1:]):
+        acc = cs.exact_zeros(cfg, device=card)
+        ske.sketch_encode_into(cfg, g[lo:hi], acc, index_offset=offset + lo)
+        parts.append(acc)
+    total = parts[-1]
+    for acc in parts[-2::-1]:  # summed in reverse order
+        total = total + acc
+    assert _bits_equal(got, ske.sketch_encode_finish(total))
+
+
+def test_exact_encode_nonfinite_cells(card):
+    """NaN, +-inf and out-of-range elements planted at known coordinates:
+    the kernel's sketch equals the plain version's bit for bit, with NaN
+    and inf cells where the plain rules put them."""
+    cfg = cs.SketchConfig(rows=5, width=1024, seed=3)
+    gen = torch.Generator(device=card).manual_seed(8)
+    g = 1e-3 * torch.randn(100_000, generator=gen, device=card)
+    g[10], g[20], g[30], g[40], g[50] = (float("nan"), float("inf"),
+                                         -float("inf"), 3e9, -2.0**31)
+    got = sketch_encode(cfg, g)
+    want = sketch_encode_plain(cfg, g)
+    assert _bits_equal(got, want)
+    assert int(torch.isnan(got).sum()) >= 5 and bool(torch.isinf(got).any())
+
+
+@pytest.mark.parametrize("d,width", [(100_000, 1024), (5_000_003, 1 << 16)])
+def test_filler_scores_bit_equal_plain(card, d, width):
+    """The scores kernel with the faithful fill's filler operand, both
+    bucket maps: scores and est bit-equal to plain, the histogram equal
+    to the plain histogram of the scores; the recovery selects what the
+    plain HEAVYMIX selects."""
+    cfg = cs.SketchConfig(rows=5, width=width, seed=2)
+    gen = torch.Generator(device=card).manual_seed(4)
+    g = torch.randn(d, generator=gen, device=card)
+    sk = sketch_encode(cfg, g)
+    k = d // 100
+    thr = cs.l2sq_estimate(sk) / k
+    fill = hm.draw_filler(d, card)
+    s, e, h = heavymix_scores_hist(cfg, sk, thr, d, fill)
+    s0, e0 = heavymix_scores_plain(cfg, sk, thr, d, fill)
+    assert _bits_equal(s, s0) and _bits_equal(e, e0)
+    assert torch.equal(h, radix_hist_plain(s0).to(h.dtype))
+    idx, _ = ops.heavymix_recover(cfg, sk, k, d, filler=fill)
+    want, _ = hm.heavymix(cfg, sk, k, d, faithful=True, filler=fill)
+    assert torch.equal(idx, want)
+    tcfg = ts.TSketchConfig(d=d, rows=5, width=width, seed=2)
+    tsk = ts.encode(tcfg, g)
+    s, e, h = heavymix_scores_ts_hist(tcfg, tsk, thr, d, fill)
+    s0, e0 = heavymix_scores_ts_plain(tcfg, tsk, thr, d, fill)
+    assert _bits_equal(s, s0) and _bits_equal(e, e0)
+    assert torch.equal(h, radix_hist_plain(s0).to(h.dtype))

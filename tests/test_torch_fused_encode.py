@@ -28,6 +28,7 @@ from repro.launch.train import build as j_build
 from repro_torch.api import RunSpec as TSpec
 from repro_torch.api import SketchSpec
 from repro_torch.core import compression as tcomp
+from repro_torch.core.count_sketch import ExactSketch
 from repro_torch.core.gs_sgd import MeshAxes, make_train_step
 from repro_torch.kernels.sketch_encode import SCRATCH_BYTES, encode_plan
 from repro_torch.launch import train as ttrain
@@ -61,8 +62,10 @@ def test_partial_merge_matches_whole_and_reference(wire):
     u_w, sk_w = tc.stage_encode(acc_t, g_t)
     frags = [(lo,) + tc.stage_encode_partial(acc_t[:, lo:hi], g_t[:, lo:hi],
                                              lo) for lo, hi in _FRAGS]
-    assert all(f[2].dtype == torch.float32 and f[2].shape == (2, 3, 512)
-               for f in frags)
+    assert all(isinstance(f[2], ExactSketch)
+               and f[2].limbs.dtype == torch.int64
+               and f[2].limbs.shape == (2, 3, 3, 512)
+               and f[2].flags.shape == (2, 3, 512) for f in frags)
     u_m, sk_m = tc.stage_encode_merge(frags[::-1])   # any order
     assert torch.equal(u_m, u_w) and sk_m.dtype == tdt
     np.testing.assert_allclose(sk_m.float().numpy(), sk_w.float().numpy(),
