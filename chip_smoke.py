@@ -55,6 +55,27 @@ Phases (any failure exits non-zero and prints no result line):
                 / optimizer; each device event counted once, in the span
                 that holds its launch) and the device's idle share. Not
                 counted.
+4b. train_traced — the driver's loop (``launch.train.drive``, as ``--trace
+                --json`` runs it) at the same cell, from a RunSpec whose d
+                is the 2-layer d: three steps untraced, then the same three
+                steps with the tracer and the trace@2 recorder (losses
+                bit-equal). The trace validates; one probe span (the second
+                step's inputs on a copy of the state, output discarded) and
+                a step span a step (step 0 warmup); the probe's phases
+                backward, encode, comm, recover, optimizer all > 0, a span
+                a bucket; the trace@2 document has a record a step,
+                ``predicted`` without ``error``, ``recovery_error_probe``
+                (its encode and scores-route recovery launched on the card)
+                and provenance naming the card. Prints the probe's phases
+                beside ``profile``'s spans, the traced steps against the
+                untraced, the copy's bytes and the peak; the launches are
+                the path's (3 steps + the probe).
+4c. train_watched — the same cell with the drift watchdog forced hot
+                (warmup 1, delta -1, threshold 0, budget 4): every detection
+                reaches a decision, an applied re-plan clears the 1% gain
+                bar, and the rebuilt step (the re-plan's exchange at the
+                cell's widths) runs at least two steps with finite losses
+                and launches what its geometry implies.
 5. train_ts  — three steps of the same cell with gs-SGD's TS-sketch encoder
                 (``compressor_kw`` ``encoder="ts"``): the TS encode kernel,
                 and the recovery through the TS-map scores kernel and the
@@ -109,9 +130,15 @@ Phases (any failure exits non-zero and prints no result line):
                 steps with a checkpoint every step and ``--kill-at 2``,
                 ``--resume`` to step 4, and four steps straight: the final
                 losses and the step-4 checkpoints' tensors bit-equal.
+10. cli_tune — ``train --trace --json`` on the card at the smoke spec and
+                two more ``--json`` captures (buckets 1; buckets 1 at width
+                1,024), ``python -m repro_torch.launch.tune --spec SPEC
+                --calibrate`` on the three trace@2 files ``--out PLAN``,
+                then ``train --auto-tune PLAN`` and ``train`` with
+                ``plan.train_argv()``: loss histories bit-equal.
 
-Every path that launches kernels (train, train_ts, train_interleave,
-train_minicpm, parity) runs with every
+Every path that launches kernels (train, train_traced, train_watched,
+train_ts, train_interleave, train_minicpm, parity) runs with every
 launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts. The
 select's slab-overflow counter is zeroed before each path too and read
@@ -241,21 +268,28 @@ def build_phase(torch):
                 log(f"[build] {name}: {line.strip()}")
 
 
-def full_width_step(torch, device, buckets=2, bwd_chunks=None,
-                    fuse_encode=False):
-    """The main path's train step (no state allocated yet); with other
-    ``buckets`` / ``bwd_chunks`` / ``fuse_encode``, the same cell with that
-    exchange schedule."""
+def main_exchange():
+    """The main path's exchange: gs-SGD, 2 buckets, psum, R = 5, k and W
+    derived from d."""
     from repro_torch.api import ExchangeSpec, SketchSpec
+    return ExchangeSpec(compressor="gs-sgd", buckets=2, overlap=True,
+                        allreduce_mode="psum",
+                        sketch=SketchSpec(rows=5, width=None, k=None))
+
+
+def full_width_step(torch, device, buckets=2, bwd_chunks=None,
+                    fuse_encode=False, exchange=None):
+    """The main path's train step (no state allocated yet); with other
+    ``buckets`` / ``bwd_chunks`` / ``fuse_encode``, or a whole ``exchange``
+    spec (a re-plan's), the same cell with that exchange schedule."""
     from repro_torch.configs.qwen3_4b import CONFIG
     from repro_torch.core.gs_sgd import MeshAxes, make_train_step
     from repro_torch.optim import make as make_opt
     cfg = dataclasses.replace(CONFIG, n_layers=2)
     opt = make_opt("adamw", lr=TRAIN_LR)
-    spec = ExchangeSpec(compressor="gs-sgd", buckets=buckets, overlap=True,
-                        bwd_chunks=bwd_chunks, fuse_encode=fuse_encode,
-                        allreduce_mode="psum",
-                        sketch=SketchSpec(rows=5, width=None, k=None))
+    spec = exchange or dataclasses.replace(
+        main_exchange(), buckets=buckets, bwd_chunks=bwd_chunks,
+        fuse_encode=fuse_encode)
     ma = MeshAxes(tp=1, data=TRAIN_P, tp_axis=None)
     ts = make_train_step(cfg, ma, opt, spec=spec, dtype=torch.float32,
                          device=device)
@@ -1882,28 +1916,389 @@ def cli_resume_phase():
 
 
 def cli_phase(extra=(), final=True):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--spec",
-           os.path.join("examples", "specs", "qwen3_smoke.json"), *extra]
-    log(f"[cli] {' '.join(cmd[1:])}")
-    t0 = time.time()
-    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                       text=True, timeout=600)
-    lines = r.stdout.strip().splitlines()
-    for line in lines[-4:]:
-        log(f"[cli] {line}")
-    if r.returncode != 0:
-        log(r.stderr[-4000:])
-        fail(f"the train CLI exited {r.returncode}")
-    log(f"[cli] ran in {time.time() - t0:.1f} s")
+    lines = run_cli("repro_torch.launch.train",
+                    ["--spec", os.path.join("examples", "specs",
+                                            "qwen3_smoke.json"), *extra],
+                    tag="cli")
     if not final:
         return None
     last = json.loads(lines[-1])
     if not math.isfinite(last["final_loss"]):
         fail(f"the train CLI gave a non-finite loss: {last}")
     return last
+
+# ---------------------------------------------------------------------------
+# The driver's observability and re-planning loop: train_traced,
+# train_watched, cli_tune
+# ---------------------------------------------------------------------------
+
+WATCH_STEPS = 6   # re-plan at step 2 (warmup 1, forced hot), rebuilt steps
+#                   3-5 (3 tagged warmup, 4 the new baseline, 5 may decide)
+TRACED_PHASES = ("backward", "encode", "comm", "recover", "optimizer")
+
+
+def cell_spec(ts, exchange, steps=TRAIN_STEPS, **kw):
+    """The RunSpec of a full-width cell: qwen3-4b with ``d`` set to the
+    2-layer d (the CLI cannot build qwen3-4b at 2 layers), so the
+    simulator, the tuner and the watchdog price the cell that runs."""
+    from repro_torch.api import ClusterSpec, RunSpec
+    return RunSpec(arch="qwen3-4b", d=ts.d_local, steps=steps,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, seed=0,
+                   exchange=exchange, cluster=ClusterSpec(p=ts.nworkers),
+                   **kw)
+
+
+def _on_card(ts) -> bool:
+    return ts.device.type == "cuda"
+
+
+def drive_cell(torch, ts, opt, spec, steps, state=None, **kw):
+    """``launch.train.drive`` over steps ``steps`` of the cell's stream
+    (seed 0), from a fresh state (seed 0) unless ``state`` is given."""
+    from repro_torch.data import LMStream
+    from repro_torch.launch.train import drive
+    if state is None:
+        state = ts.init_state(opt, torch.Generator(device=ts.device)
+                              .manual_seed(0))
+    stream = LMStream(vocab_size=ts.fs.cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    steps = list(steps)
+    return drive(spec, ts, state,
+                 lambda s: stream.global_batch_at(s, ts.device), steps,
+                 log_every=1, last=steps[-1], **kw)
+
+
+def step_launches(ts) -> dict:
+    """The launches one step of ``ts`` makes on the card: per worker and
+    bucket an encode, its finish (once a bucket for a fused merge, which
+    finishes every worker's sketch), the decode past the reference's
+    chunked threshold (d > 2^22 and d > 4k) or the scores kernel below it,
+    and the select."""
+    import collections
+
+    from repro_torch.core.heavymix import _CHUNK
+    want = collections.Counter()
+    p = ts.nworkers
+    sizes = ts.compressor.spec.sizes
+    frags = ts.plan.fragments() if ts.fuse_encode else None
+    for i, (c, d) in enumerate(zip(ts.compressor.parts, sizes)):
+        if frags is not None:
+            want["sketch_encode"] += p * len(frags[i])
+            want["sketch_encode_finish"] += 1
+        else:
+            want["sketch_encode"] += p
+            want["sketch_encode_finish"] += p
+        route = ("sketch_decode" if d > _CHUNK and d > 4 * c.k
+                 else "heavymix_scores")
+        want[route] += p
+        want["topk_select"] += p
+    return dict(want)
+
+
+def _diff(after: dict, before: dict) -> dict:
+    out = {k: v - before.get(k, 0) for k, v in after.items()}
+    return {k: v for k, v in out.items() if v}
+
+
+def train_traced_phase(torch, ts, opt, exchange, profiled=None,
+                       train_peak=None) -> dict:
+    """The main cell, three steps untraced, then the same three steps with
+    the tracer and the trace@2 recorder (``launch.train.drive``, as
+    ``--trace --json`` runs it): losses bit-equal; the trace valid, one
+    probe span, a step span a step (step 0 warmup), every phase > 0, a span
+    a bucket; the trace@2 document complete. ``profiled``: the ``profile``
+    phase's split, printed beside the probe's phases."""
+    from repro_torch import obs
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.train import Trace2Recorder, state_bytes
+    from repro_torch.obs import trace as obtrace
+    tag = "train_traced"
+    spec = cell_spec(ts, exchange)
+    LAUNCHES.clear()
+    plain = drive_cell(torch, ts, opt, spec, range(TRAIN_STEPS))
+    plain_counts = dict(LAUNCHES)
+    del plain["state"]
+    if _on_card(ts):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    tracer = obs.Tracer()
+    prov = obs.provenance(spec, ts.device)
+    rec = Trace2Recorder(spec, ts, prov)
+    LAUNCHES.clear()
+    traced = drive_cell(torch, ts, opt, spec, range(TRAIN_STEPS),
+                        tracer=tracer, recorder=rec)
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if _on_card(ts) else None
+    state_b = state_bytes(traced.pop("state"))
+    if _on_card(ts):
+        torch.cuda.empty_cache()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    doc2 = rec.document(ts.fs.cfg.name)
+    probe_s = time.perf_counter() - t0
+    probe_counts = dict(LAUNCHES)
+    out_dir = os.path.join(ROOT, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    doc = tracer.save(os.path.join(out_dir, f"{tag}_trace.json"), spec=spec,
+                      provenance=prov, source="train")
+    obs.dump(doc2, os.path.join(out_dir, f"{tag}_trace2.json"))
+
+    lp, lt = plain["history"], traced["history"]
+    log(f"[{tag}] losses untraced {lp} / traced {lt}")
+    if lp != lt:
+        fail(f"traced losses {lt} differ from the untraced run's {lp}")
+    if not all(math.isfinite(x) for x in lt):
+        fail(f"non-finite loss on the {tag} path: {lt}")
+    n_spans = obtrace.validate(doc)
+    probes = obtrace.spans(doc, cat="probe")
+    steps = obtrace.spans(doc, cat="step")
+    warm = {s["args"]["step"]: s["args"]["warmup"] for s in steps}
+    totals = obtrace.phase_totals(doc)
+    per_bucket = {cat: obtrace.bucket_durations(doc, cat, prefix)
+                  for cat, prefix in (("encode", "encode/b"),
+                                      ("comm", "allreduce/b"),
+                                      ("recover", "recover/b"))}
+    if len(probes) != 1 or len(steps) != TRAIN_STEPS:
+        fail(f"{tag}: {len(probes)} probe spans and {len(steps)} step spans")
+    if warm != {s: s == 0 for s in range(TRAIN_STEPS)}:
+        fail(f"{tag}: warmup tags {warm}")
+    missing = [ph for ph in TRACED_PHASES if not totals.get(ph, 0.0) > 0]
+    if missing:
+        fail(f"{tag}: no time in the probe's phases {missing}: {totals}")
+    for cat, durs in per_bucket.items():
+        if len(durs) != ts.n_buckets:
+            fail(f"{tag}: {len(durs)} {cat} bucket spans, not "
+                 f"{ts.n_buckets}")
+    pred, gauges = doc2["predicted"], doc2["metrics"]["gauges"]
+    if "error" in pred or "step_time" not in pred:
+        fail(f"{tag}: the trace@2 predicted block is {pred}")
+    if "recovery_error_probe" not in gauges:
+        fail(f"{tag}: the trace@2 document has no recovery_error_probe")
+    if len(doc2["records"]) != TRAIN_STEPS:
+        fail(f"{tag}: {len(doc2['records'])} trace@2 records")
+    pv = doc2["provenance"]
+    if _on_card(ts) and (pv["backend"] != "cuda" or pv["device_kind"]
+                         != torch.cuda.get_device_name(0)):
+        fail(f"{tag}: provenance does not name the card: {pv}")
+    launched = ("sketch_encode", "sketch_encode_finish", "sketch_decode",
+                "topk_select")
+    check_launches(tag, counts, launched,
+                   ("heavymix_scores", "heavymix_scores_ts", "ts_transpose",
+                    "ts_encode"))
+    per_step = step_launches(ts)
+    for name, cnt in per_step.items():
+        if plain_counts.get(name, 0) != cnt * TRAIN_STEPS:
+            fail(f"{name} launched {plain_counts.get(name, 0)} times on the "
+                 f"untraced {tag} run, not {cnt * TRAIN_STEPS}")
+        if counts.get(name, 0) != cnt * (TRAIN_STEPS + 1):
+            fail(f"{name} launched {counts.get(name, 0)} times on the "
+                 f"traced {tag} run, not {cnt * (TRAIN_STEPS + 1)} "
+                 f"({TRAIN_STEPS} steps and the probe)")
+    check_launches(f"{tag} recovery probe", probe_counts,
+                   ("sketch_encode", "sketch_encode_finish",
+                    "heavymix_scores", "topk_select"),
+                   ("sketch_decode",))
+
+    probe = traced["probe"]
+    phase_ms = {ph: totals.get(ph, 0.0) * 1e3 for ph in
+                ("forward",) + TRACED_PHASES}
+    log(f"[{tag}] trace: {n_spans} spans valid; probe at step "
+        f"{probe['step']} {probes[0]['dur'] * 1e3:.3f} ms; probe phases "
+        f"(host clock, a device sync at each span's end) "
+        + json.dumps({k: round(v, 3) for k, v in phase_ms.items()}))
+    log(f"[{tag}] probe per bucket (ms): " + json.dumps(
+        {cat: [round(x * 1e3, 3) for x in durs]
+         for cat, durs in per_bucket.items()}))
+    if profiled is not None:
+        log(f"[{tag}] beside the profile phase's device time per span "
+            f"(ms): " + json.dumps({k: round(v, 3) for k, v in
+                                    profiled["span_device_ms"].items()
+                                    if v}))
+    tp, tt = plain["times"], traced["times"]
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    log(f"[{tag}] step seconds untraced {tp} / traced {tt}; after the "
+        f"first: {mean(tp[1:]):.4f} / {mean(tt[1:]):.4f} s "
+        f"({(mean(tt[1:]) / mean(tp[1:]) - 1) * 100:+.2f}%)")
+    log(f"[{tag}] probe's state copy {probe['copy_bytes']} bytes "
+        f"({probe['copy_bytes'] / 2**30:.2f} GiB, the state is {state_b} "
+        f"bytes); probe step {probe['seconds']:.4f} s; peak "
+        f"{peak} bytes"
+        + (f" ({peak / 2**30:.2f} GiB; train's {train_peak / 2**30:.2f} "
+           "GiB)" if peak is not None and train_peak else ""))
+    log(f"[{tag}] trace@2: predicted {json.dumps(pred)}; "
+        f"recovery_error_probe {gauges['recovery_error_probe']!r} "
+        f"({probe_s:.3f} s, launches {probe_counts}); t_step "
+        f"{[r['t_step'] for r in doc2['records']]}; provenance "
+        f"{pv['backend']} {pv['device_kind']} x {pv['device_count']}")
+    log(f"[{tag}] launches untraced {plain_counts} / traced {counts} "
+        f"(= {TRAIN_STEPS} steps + the probe)")
+    return {"counts": counts, "phase_ms": phase_ms, "times": tt,
+            "plain_times": tp, "copy_bytes": probe["copy_bytes"],
+            "peak": peak}
+
+
+def train_watched_phase(torch, ts, opt, exchange, make_step) -> dict:
+    """The main cell with the drift watchdog forced hot (warmup 1, delta
+    -1, threshold 0, budget 4, as the reference's test arms it): every
+    detection reaches a decision, an applied re-plan clears the 1% gain
+    bar, and the rebuilt step (``make_step(exchange)``, the re-plan's
+    exchange at the cell's widths) runs at least two steps with finite
+    losses and launches what its geometry implies."""
+    from repro_torch.api import WatchSpec
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.tune.watch import Watchdog
+    tag = "train_watched"
+    spec = cell_spec(ts, exchange, steps=WATCH_STEPS,
+                     watch=WatchSpec(enabled=True, warmup=1, delta=-1.0,
+                                     threshold=0.0, replan_budget=4))
+    wd = Watchdog(spec)
+    snaps: dict[int, dict] = {}
+
+    def after(step, state, loss):
+        snaps[step] = dict(LAUNCHES)
+        return False
+
+    def rebuild(new_spec):
+        t = make_step(new_spec.exchange)
+        log(f"[{tag}] rebuilt the step: buckets {list(t.compressor.spec.sizes)}"
+            f", bwd_chunks {t.bwd_chunks}, (k, W) "
+            f"{[(c.k, c.sketch.width) for c in t.compressor.parts]}")
+        return t
+
+    LAUNCHES.clear()
+    out = drive_cell(torch, ts, opt, spec, range(WATCH_STEPS), watchdog=wd,
+                     rebuild=rebuild, after_step=after)
+    hist, times = list(out["history"]), list(out["times"])
+    for e in wd.log:
+        log(f"[{tag}] " + json.dumps({k: e[k] for k in (
+            "kind", "step", "phase", "choice", "predicted", "current",
+            "gain", "direction", "rel") if k in e}))
+    kinds = [e["kind"] for e in wd.log]
+    if "drift.detected" not in kinds:
+        fail(f"{tag}: the forced-hot watchdog detected nothing")
+    if len(kinds) != 2 * kinds.count("drift.detected"):
+        fail(f"{tag}: a detection reached no decision: {kinds}")
+    for e in wd.log:
+        if e["kind"] == "watch.replan" and not e["gain"] >= 0.01:
+            fail(f"{tag}: a re-plan under the 1% gain bar: {e}")
+    replans = out["replans"]
+    if replans:
+        rp = replans[-1]
+        last, new_ts = rp["step"], out["ts"]
+        ran = WATCH_STEPS - 1 - last
+        if ran < 2:   # a re-plan at the last steps: run the rebuilt step on
+            more = drive_cell(torch, new_ts, opt, out["spec"],
+                              range(WATCH_STEPS, WATCH_STEPS + 2 - ran),
+                              state=out["state"], after_step=after)
+            hist += more["history"]
+            times += more["times"]
+            ran = 2
+            del more
+        counts = _diff(dict(LAUNCHES), snaps[last])
+        want = {k: v * ran for k, v in step_launches(new_ts).items()}
+        log(f"[{tag}] re-planned at step {last} (error feedback "
+            f"{'kept' if rp['ef_kept'] else 'reset'}); the rebuilt step ran "
+            f"{ran} steps: launches {counts}, its geometry implies {want}")
+        if counts != want:
+            fail(f"{tag}: the rebuilt step launched {counts}, not {want}")
+        log(f"[{tag}] choice {rp['choice']}: predicted step "
+            f"{rp['predicted'] * 1e3:.3f} ms against the current spec's "
+            f"{rp['current'] * 1e3:.3f} ms (gain {rp['gain']:.2%}); measured "
+            f"step {times[last]:.4f} s before, "
+            f"{times[last + 2:]} s after (the first rebuilt step is warm-up)")
+    else:
+        log(f"[{tag}] every decision kept the plan; step seconds {times}")
+    del out
+    if not all(math.isfinite(x) for x in hist):
+        fail(f"non-finite loss on the {tag} path: {hist}")
+    log(f"[{tag}] losses {hist}")
+    return {"log": wd.log, "replans": replans, "losses": hist,
+            "times": times}
+
+
+def run_cli(module, args, tag="cli_tune") -> list[str]:
+    """``python -m module args`` from the repository root; its last output
+    lines logged, a non-zero exit a failure. Returns its output lines."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", module, *args]
+    log(f"[{tag}] {' '.join(cmd[1:])}")
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[-3:]:
+        log(f"[{tag}] {line}")
+    if r.returncode != 0:
+        log(r.stderr[-4000:])
+        fail(f"{module} exited {r.returncode}")
+    log(f"[{tag}] ran in {time.time() - t0:.1f} s")
+    return lines
+
+
+def cli_tune_phase(device_args=()):
+    """The smoke spec through the CLIs: ``train --trace --json`` on the
+    card, two more ``--json`` captures at other bucket counts and widths
+    (so the Eq. 1 fit is identifiable: rounds and bytes must both vary),
+    ``repro_torch.launch.tune --calibrate`` on the three trace@2 files, then
+    ``train --auto-tune PLAN`` and ``train`` with ``plan.train_argv()``:
+    their loss histories (the trace@2 records' losses) bit-equal."""
+    import shutil
+
+    from repro_torch.obs import trace as obtrace
+    from repro_torch.tune import TunePlan
+    base = os.path.join(ROOT, "build", "cli_tune")
+    if os.path.isdir(base):
+        shutil.rmtree(base)
+    os.makedirs(base)
+    path = lambda name: os.path.join(base, name)  # noqa: E731
+    spec = os.path.join("examples", "specs", "qwen3_smoke.json")
+    train = "repro_torch.launch.train"
+    common = ["--spec", spec, "--steps", "3", *device_args]
+    run_cli(train, [*common, "--trace", path("trace.json"),
+                    "--json", path("steps_b2.json")])
+    run_cli(train, [*common, "--buckets", "1", "--json", path("steps_b1.json")])
+    run_cli(train, [*common, "--buckets", "1", "--width", "1024",
+                    "--json", path("steps_b1_w1024.json")])
+    run_cli("repro_torch.launch.tune",
+            ["--spec", spec, "--calibrate", path("steps_b2.json"),
+             path("steps_b1.json"), path("steps_b1_w1024.json"),
+             "--out", path("plan.json"), *device_args])
+    plan = TunePlan.load(path("plan.json"))
+    run_cli(train, [*common, "--auto-tune", path("plan.json"),
+                    "--json", path("auto.json")])
+    run_cli(train, [*common, *plan.train_argv(), "--json",
+                    path("manual.json")])
+    doc = obtrace.load(path("trace.json"))
+    n = obtrace.validate(doc)
+    totals = obtrace.phase_totals(doc)
+    if len(obtrace.spans(doc, cat="probe")) != 1 or any(
+            not totals.get(ph, 0) > 0 for ph in TRACED_PHASES):
+        fail(f"cli_tune: the CLI's trace lacks its probe or a phase: "
+             f"{totals}")
+    with open(path("steps_b2.json")) as f:
+        t2 = json.load(f)
+    if "error" in t2["predicted"] or "recovery_error_probe" not in \
+            t2["metrics"]["gauges"]:
+        fail(f"cli_tune: the CLI's trace@2 document is incomplete: "
+             f"{t2['predicted']} {t2['metrics']['gauges']}")
+    losses = {}
+    for name in ("auto", "manual"):
+        with open(path(f"{name}.json")) as f:
+            losses[name] = [r["loss"] for r in json.load(f)["records"]]
+    log(f"[cli_tune] trace {n} spans valid, probe phases (ms) "
+        + json.dumps({k: round(v * 1e3, 3) for k, v in totals.items()}))
+    log(f"[cli_tune] plan {plan.summary()}; calibrated alpha "
+        f"{plan.spec.cluster.link_alpha!r} beta {plan.spec.cluster.link_beta!r}"
+        f" t_compute {plan.spec.cluster.compute_mean!r}; train flags "
+        f"{' '.join(plan.train_argv())}")
+    log(f"[cli_tune] losses --auto-tune {losses['auto']} / manual flags "
+        f"{losses['manual']}")
+    if losses["auto"] != losses["manual"] or not losses["auto"]:
+        fail("cli_tune: --auto-tune and the plan's manual flags differ")
+    return {"plan": plan.choice.label(), "losses": losses["auto"]}
 
 
 def main() -> int:
@@ -1931,6 +2326,7 @@ def main() -> int:
     t0 = time.time()
     run = train_phase(torch, cfg, opt, ts)
     state, stream, counts = run["state"], run["stream"], run["counts"]
+    train_peak = run["peak"]
     del run
     check_launches("train", counts, ("sketch_encode", "sketch_encode_finish",
                                      "sketch_decode", "topk_select"),
@@ -1944,8 +2340,19 @@ def main() -> int:
     log(f"[train] topk_select launches {counts['topk_select']} = "
         f"{TRAIN_P} workers x {ts.n_buckets} buckets x {TRAIN_STEPS} steps")
     log(f"[train] phase took {time.time() - t0:.1f} s")
-    state, _ = profile_phase(torch, ts, state, stream)
+    state, profiled = profile_phase(torch, ts, state, stream)
     del state
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    traced = train_traced_phase(torch, ts, opt, main_exchange(),
+                                profiled=profiled, train_peak=train_peak)
+    log(f"[train_traced] phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    train_watched_phase(
+        torch, ts, opt, main_exchange(),
+        lambda ex: full_width_step(torch, device, exchange=ex)[2])
+    log(f"[train_watched] phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
     ts_step = full_width_ts_step(torch, device, ts, opt)
@@ -1991,6 +2398,7 @@ def main() -> int:
         kr["launches_interleave"] = inter["counts"].get(kr["name"], 0)
         kr["launches_minicpm"] = mini["counts"].get(kr["name"], 0)
         kr["launches_parity"] = parity_counts.get(kr["name"], 0)
+        kr["launches_traced"] = traced["counts"].get(kr["name"], 0)
         if kr["name"] == "sketch_encode":
             kr["interleave_fragments"] = inter["fragments"]
         if kr["name"] == "heavymix_scores":  # the main path's shapes first
@@ -2007,6 +2415,9 @@ def main() -> int:
     cli_phase()
     cli_phase(("--buckets", "4", "--bwd-chunks", "2", "--fuse-encode"))
     cli_resume_phase()
+    t0 = time.time()
+    cli_tune_phase()
+    log(f"[cli_tune] phase took {time.time() - t0:.1f} s")
     log(f"[done] in {time.time() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,7 @@ SPEC_TREE = (
     (("exchange",), S.ExchangeSpec),
     (("exchange", "sketch"), S.SketchSpec),
     (("cluster",), S.ClusterSpec),
+    (("watch",), S.WatchSpec),
 )
 
 SURFACES = ("train", "sim", "tune", "serve")

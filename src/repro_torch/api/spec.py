@@ -1,15 +1,17 @@
 """repro_torch.api — the typed run spec, train surface.
 
 Port of ``repro/api/spec.py``: ``SketchSpec``, ``ExchangeSpec``,
-``ClusterSpec`` and ``RunSpec`` with the same fields, defaults, CLI
-metadata and JSON schema (``repro.api/runspec@1``), so a spec file drives
-either package. ``default_geometry`` — the paper-regime sketch-geometry
-rule the reference keeps in ``repro/sim/replay.py`` — lives here, beside
-the one spec that resolves through it.
+``ClusterSpec``, ``WatchSpec`` and ``RunSpec`` with the same fields,
+defaults, CLI metadata and JSON schema (``repro.api/runspec@1``), so a
+spec file drives either package. ``default_geometry`` — the paper-regime
+sketch-geometry rule the reference keeps in ``repro/sim/replay.py`` —
+lives here, beside the one spec that resolves through it
+(``sim/replay.py`` re-exports it).
 
-The reference's ``watch`` and ``serve`` blocks are carried through JSON
-untouched (their surfaces are not ported yet); a spec that enables the
-watchdog is refused by the train driver.
+``RunSpec`` converts into the other surfaces' objects as the reference's
+does: ``sim_config()`` -> ``sim.SimConfig``, ``env()`` -> ``tune.Env``,
+``cluster.network()`` -> the modeled network. The reference's ``serve``
+block is carried through JSON untouched (serving is not ported yet).
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ _UNSET = object()
 
 WIRE_DTYPES = {"float32": 4, "bfloat16": 2, "float16": 2}
 SHAPES = ("tree", "ring", "hier", "ps")
+
+# Methods the simulator's ExchangeReplay can price ('none' maps to dense).
+SIM_METHODS = ("gs-sgd", "gtopk", "sketched-sgd", "dense")
 TOPOLOGIES = ("flat", "hier")
 LINKS = ("1gbe", "10gbe", "ici")
 
@@ -71,6 +76,20 @@ def parse_opt_str(s: str):
 
 def parse_opt_float(s: str):
     return EXPLICIT_NONE if s.lower() in ("none", "") else float(s)
+
+
+def parse_slow_workers(s: str) -> dict[int, float]:
+    """``'ID:FACTOR,ID:FACTOR'`` -> {worker_id: slowdown_factor}."""
+    out: dict[int, float] = {}
+    for part in filter(None, s.split(",")):
+        try:
+            wid, factor = part.split(":")
+            out[int(wid)] = float(factor)
+        except ValueError:
+            raise ValueError(
+                f"--slow-workers expects 'ID:FACTOR,...', got {part!r}"
+            ) from None
+    return out
 
 
 def default_geometry(d: int, *, k: int | None = None,
@@ -259,28 +278,65 @@ class ExchangeSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ClusterSpec:
-    """Worker count and the cluster model (the port's train surface reads
-    ``p``; the rest is carried for spec-file parity)."""
+    """Worker count, network topology/link regimes, heterogeneous slow
+    workers, the fault policy, and the per-step compute model.
+
+    ``link_alpha``/``link_beta`` are calibrated Eq. 1 overrides for the
+    (inter-group, on 'hier') link — ``None`` keeps the named preset; the
+    tuner's trace calibration writes them (no CLI flag on purpose).
+    """
 
     p: int = _field(
         4, "--workers", "--p", parse=int,
         surfaces=("train", "sim", "tune"), dest="workers",
         help="worker count (the data-parallel degree)")
-    topology: str = "flat"
-    link: str = "1gbe"
-    intra_link: str = "ici"
-    group_size: int = 8
-    slow_workers: dict[int, float] = dataclasses.field(default_factory=dict)
-    heartbeat_timeout: float = 1.0
-    drop_stragglers: bool = True
-    deadline_factor: float = 3.0
-    max_drop_frac: float = 0.25
-    participation: float | None = None
-    mem_gb: float = 16.0
+    topology: str = _field(
+        "flat", "--topology", choices=TOPOLOGIES, surfaces=("sim", "tune"),
+        help="network topology")
+    link: str = _field(
+        "1gbe", "--link", choices=LINKS, surfaces=("sim", "tune"),
+        help="(inter-group) link preset")
+    intra_link: str = _field(
+        "ici", "--intra-link", choices=LINKS, surfaces=("sim", "tune"),
+        help="intra-group link preset (hier topology)")
+    group_size: int = _field(
+        8, "--group-size", parse=int, surfaces=("sim", "tune"),
+        help="workers per group (hier topology)")
+    slow_workers: dict[int, float] = _field(
+        None, "--slow-workers", parse=parse_slow_workers, surfaces=("sim",),
+        metavar="ID:FACTOR,...", factory=dict,
+        help="heterogeneous per-worker link slowdowns, e.g. '3:10,7:2.5'")
+    heartbeat_timeout: float = _field(
+        1.0, "--heartbeat-timeout", parse=float, surfaces=("sim",),
+        help="seconds of heartbeat silence before a worker is dead")
+    drop_stragglers: bool = _field(
+        True, "--no-drop-stragglers", const=False, surfaces=("sim",),
+        dest="drop_stragglers",
+        help="disable the DeadlinePolicy straggler drop")
+    deadline_factor: float = _field(
+        3.0, "--deadline-factor", parse=float, surfaces=("sim",),
+        help="straggler deadline as a multiple of the median step")
+    max_drop_frac: float = _field(
+        0.25, "--max-drop-frac", parse=float, surfaces=("sim",),
+        help="max fraction of workers the straggler policy may drop")
+    participation: float | None = _field(
+        None, "--participation", parse=parse_opt_float,
+        surfaces=("sim", "tune"), metavar="FRAC",
+        help="per-step client participation fraction in (0, 1] ('none' = "
+             "full participation)")
+    mem_gb: float = _field(
+        16.0, "--mem-gb", parse=float, surfaces=("serve",),
+        help="per-device memory budget (GB) of the serving KV-cache pool")
     rescale_lr: bool = True
-    compute_mean: float = 0.1
-    compute_jitter: float = 0.08
-    bwd_frac: float = 2 / 3
+    compute_mean: float = _field(
+        0.1, "--compute-mean", parse=float, surfaces=("sim", "tune"),
+        help="mean seconds of fwd+bwd per step")
+    compute_jitter: float = _field(
+        0.08, "--compute-jitter", parse=float, surfaces=("sim",),
+        help="coefficient of variation of per-worker step times")
+    bwd_frac: float = _field(
+        2 / 3, "--bwd-frac", parse=float, surfaces=("sim", "tune"),
+        help="backward share of per-step compute (readiness clock)")
     link_alpha: float | None = None
     link_beta: float | None = None
 
@@ -302,12 +358,94 @@ class ClusterSpec:
         if self.group_size < 1:
             raise ValueError(f"group_size must be >= 1, got "
                              f"{self.group_size}")
+        for w, factor in self.slow_workers.items():
+            if factor <= 0:
+                raise ValueError(f"slow-worker factor for worker {w} must "
+                                 f"be > 0, got {factor}")
+        if not (self.mem_gb > 0 and math.isfinite(self.mem_gb)):
+            raise ValueError(f"mem_gb must be a positive finite number, "
+                             f"got {self.mem_gb}")
+        if self.participation is not None and not (
+                0.0 < self.participation <= 1.0):
+            raise ValueError(f"participation must be in (0, 1], got "
+                             f"{self.participation}")
+
+    def link_spec(self):
+        """Eq. 1 LinkSpec for the (inter-group) link, calibrated overrides
+        applied over the named preset."""
+        from repro_torch.sim.network import PRESETS, LinkSpec
+        base = PRESETS[self.link]
+        if self.link_alpha is None and self.link_beta is None:
+            return base
+        return LinkSpec(
+            alpha=base.alpha if self.link_alpha is None else self.link_alpha,
+            beta=base.beta if self.link_beta is None else self.link_beta)
+
+    def network(self):
+        """The modeled network, including calibration and slow workers."""
+        from repro_torch.sim.network import make_network
+        return make_network(self.topology, link=self.link_spec(),
+                            group_size=self.group_size, intra=self.intra_link,
+                            slow_workers=self.slow_workers)
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
 
     @classmethod
     def from_json(cls, d: dict) -> "ClusterSpec":
+        return cls(**(d or {}))
+
+
+@dataclasses.dataclass(frozen=True)
+class WatchSpec:
+    """The drift watchdog: a streaming ``obs.drift.DriftDetector`` over
+    per-step records, a calibration refit on a trailing window, and a
+    budgeted tuner re-plan applied at the next step boundary
+    (``tune/watch.py``). ``delta``/``threshold`` are the Page-Hinkley
+    slack and alarm level on *relative* per-phase residuals."""
+
+    enabled: bool = _field(
+        False, "--watch", const=True, surfaces=("train", "sim"),
+        dest="watch",
+        help="stream per-step records through the drift watchdog: detect "
+             "sustained per-phase drift, refit calibration on a trailing "
+             "window, re-plan with the tuner, apply at the next step "
+             "boundary")
+    warmup: int = _field(
+        5, "--drift-warmup", parse=int, surfaces=("train", "sim"),
+        help="steps averaged into the frozen per-phase baseline before "
+             "the change test arms (re-arms after every re-plan)")
+    delta: float = _field(
+        0.1, "--drift-delta", parse=float, surfaces=("train", "sim"),
+        help="Page-Hinkley slack: relative per-step deviation ignored by "
+             "the drift test")
+    threshold: float = _field(
+        1.5, "--drift-threshold", parse=float, surfaces=("train", "sim"),
+        help="Page-Hinkley alarm threshold on accumulated relative excess")
+    window: int = _field(
+        8, "--drift-window", parse=int, surfaces=("train", "sim"),
+        help="trailing post-onset records the calibration refit uses")
+    replan_budget: int = _field(
+        16, "--replan-budget", parse=int, surfaces=("train", "sim"),
+        help="max tuner candidates evaluated per re-plan")
+
+    def validate(self) -> None:
+        if self.warmup < 1:
+            raise ValueError(f"drift warmup must be >= 1, got {self.warmup}")
+        if self.threshold < 0:
+            raise ValueError(
+                f"drift threshold must be >= 0, got {self.threshold}")
+        for f in ("window", "replan_budget"):
+            if getattr(self, f) < 1:
+                raise ValueError(
+                    f"watch {f} must be >= 1, got {getattr(self, f)}")
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: dict) -> "WatchSpec":
+        # spec JSONs without a "watch" block: all defaults
         return cls(**(d or {}))
 
 
@@ -345,16 +483,18 @@ class RunSpec:
         help="disable remat (a numerical no-op in the port)")
     ckpt_dir: str | None = _field(
         None, "--ckpt-dir", parse=parse_opt_str, surfaces=("train",),
-        help="checkpoint directory (not ported yet: must stay 'none')")
+        help="checkpoint directory ('none' = no checkpoints)")
     ckpt_every: int = _field(
         20, "--ckpt-every", parse=int, surfaces=("train",),
         help="checkpoint cadence in steps")
     trace: str | None = _field(
         None, "--trace", parse=parse_opt_str, surfaces=("train", "sim"),
-        metavar="PATH", help="span trace path (not ported yet)")
+        metavar="PATH",
+        help="write a Chrome/Perfetto span trace of the run here "
+             "(repro_torch.obs; 'none' = tracing off)")
     exchange: ExchangeSpec = _field(factory=ExchangeSpec)
     cluster: ClusterSpec = _field(factory=ClusterSpec)
-    watch: dict | None = None   # reference's WatchSpec block, carried as-is
+    watch: WatchSpec = _field(factory=WatchSpec)
     serve: dict | None = None   # reference's ServeSpec block, carried as-is
 
     def validate(self) -> None:
@@ -365,12 +505,12 @@ class RunSpec:
             raise ValueError(f"d must be >= 1, got {self.d}")
         self.exchange.validate()
         self.cluster.validate()
+        self.watch.validate()
 
     def to_json(self) -> dict:
         d = dataclasses.asdict(self)
-        for blk in ("watch", "serve"):
-            if d[blk] is None:
-                del d[blk]
+        if d["serve"] is None:
+            del d["serve"]
         return {"schema": SCHEMA, **d}
 
     @classmethod
@@ -381,6 +521,7 @@ class RunSpec:
             raise ValueError(f"not a {SCHEMA} document: schema={schema!r}")
         d["exchange"] = ExchangeSpec.from_json(d.get("exchange") or {})
         d["cluster"] = ClusterSpec.from_json(d.get("cluster") or {})
+        d["watch"] = WatchSpec.from_json(d.get("watch") or {})
         return cls(**d)
 
     def save(self, path: str) -> None:
@@ -435,3 +576,62 @@ class RunSpec:
             dp_mode=dp_mode, spec=self.exchange, remat=self.remat,
             dtype=dtype if dtype is not None else torch.float32,
             device=device)
+
+    def sim_config(self):
+        """``sim.SimConfig`` with all-int geometry (rows/width/k resolved
+        through the one ``SketchSpec`` table)."""
+        from repro_torch.sim.cluster import SimConfig
+        from repro_torch.sim.workers import ComputeModel
+        ex, cl = self.exchange, self.cluster
+        method = "dense" if ex.compressor == "none" else ex.compressor
+        if method not in SIM_METHODS:
+            raise ValueError(
+                f"compressor {ex.compressor!r} is not replayable by the "
+                f"simulator; choose from {SIM_METHODS + ('none',)}")
+        d = self.resolve_d()
+        sk = ex.sketch.resolve(d)
+        return SimConfig(
+            p=cl.p, d=d, method=method, buckets=ex.buckets or 1,
+            steps=self.steps, k=sk.k, rows=sk.rows, width=sk.width,
+            shape=ex.shape, topology=cl.topology, link=cl.link,
+            intra_link=cl.intra_link, group_size=cl.group_size,
+            overlap=ex.overlap, bwd_chunks=ex.bwd_chunks or 1,
+            fuse_encode=ex.fuse_encode, bwd_frac=cl.bwd_frac,
+            compute=ComputeModel(mean=cl.compute_mean,
+                                 jitter=cl.compute_jitter, seed=self.seed),
+            heartbeat_timeout=cl.heartbeat_timeout,
+            drop_stragglers=cl.drop_stragglers,
+            deadline_factor=cl.deadline_factor,
+            max_drop_frac=cl.max_drop_frac,
+            participation=cl.participation, rescale_lr=cl.rescale_lr,
+            slow_workers=dict(cl.slow_workers), seed=self.seed,
+            wire_dtype_bytes=WIRE_DTYPES[ex.wire_dtype])
+
+    def env(self):
+        """``tune.Env`` — the tuner's fixed half — from this spec."""
+        from repro_torch.tune.space import Env
+        cl = self.cluster
+        return Env(p=cl.p, d=self.resolve_d(), topology=cl.topology,
+                   link=cl.link, intra_link=cl.intra_link,
+                   group_size=cl.group_size, t_compute=cl.compute_mean,
+                   bwd_frac=cl.bwd_frac, microbatch=self.exchange.microbatch,
+                   fuse_encode=self.exchange.fuse_encode,
+                   link_alpha=cl.link_alpha, link_beta=cl.link_beta,
+                   participation=cl.participation)
+
+    @classmethod
+    def from_env(cls, env) -> "RunSpec":
+        """The inverse of ``env()`` for plans tuned without a full spec:
+        the cluster and exchange constraints carry over; arch-level fields
+        keep defaults. ``fuse_encode`` is not carried back (a bare Env
+        cannot express the buckets/bwd_chunks half validation needs)."""
+        return cls(
+            d=int(env.d),
+            exchange=ExchangeSpec(microbatch=env.microbatch),
+            cluster=ClusterSpec(
+                p=int(env.p), topology=env.topology, link=env.link,
+                intra_link=env.intra_link, group_size=int(env.group_size),
+                compute_mean=float(env.t_compute),
+                bwd_frac=float(env.bwd_frac),
+                link_alpha=env.link_alpha, link_beta=env.link_beta,
+                participation=env.participation))

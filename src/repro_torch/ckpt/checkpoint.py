@@ -33,34 +33,34 @@ import torch
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
 
-def _flatten(tree: Any, path: str = "") -> tuple[list, list[str]]:
+def flatten(tree: Any, path: str = "") -> tuple[list, list[str]]:
     """Leaves and their paths: dicts by sorted key, tuples and lists in
     order; anything else (tensor, number) is a leaf."""
     if isinstance(tree, dict):
         leaves, paths = [], []
         for k in sorted(tree):
-            lv, ps = _flatten(tree[k], f"{path}/{k}")
+            lv, ps = flatten(tree[k], f"{path}/{k}")
             leaves += lv
             paths += ps
         return leaves, paths
     if isinstance(tree, (tuple, list)):
         leaves, paths = [], []
         for i, v in enumerate(tree):
-            lv, ps = _flatten(v, f"{path}/{i}")
+            lv, ps = flatten(v, f"{path}/{i}")
             leaves += lv
             paths += ps
         return leaves, paths
     return [tree], [path or "/"]
 
 
-def _unflatten(like: Any, leaves: list) -> Any:
+def unflatten(like: Any, leaves: list) -> Any:
     """``like``'s structure with its leaves taken in order from ``leaves``
     (consumed)."""
     if isinstance(like, dict):
-        out = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        out = {k: unflatten(like[k], leaves) for k in sorted(like)}
         return {k: out[k] for k in like}
     if isinstance(like, (tuple, list)):
-        return type(like)(_unflatten(v, leaves) for v in like)
+        return type(like)(unflatten(v, leaves) for v in like)
     return leaves.pop(0)
 
 
@@ -87,7 +87,7 @@ def save(ckpt_dir: str, step: int, state: Any, meta: dict | None = None,
     tmp = os.path.join(ckpt_dir, f".tmp-step_{step}.h{host}")
     os.makedirs(tmp, exist_ok=True)
 
-    leaves, paths = _flatten(state)
+    leaves, paths = flatten(state)
     for i, leaf in enumerate(leaves):
         path = os.path.join(tmp, f"leaf_{i:04d}.h{host}.npy")
         with open(path + ".part", "wb") as f:
@@ -162,7 +162,7 @@ def restore(ckpt_dir: str, state_like: Any, step: int | None = None,
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, f"meta.h{host}.json")) as f:
         meta = json.load(f)
-    leaves_like, _ = _flatten(state_like)
+    leaves_like, _ = flatten(state_like)
     n = meta["n_leaves"]
     if n != len(leaves_like):
         raise ValueError(f"leaf count mismatch: ckpt {n} vs state "
@@ -170,13 +170,13 @@ def restore(ckpt_dir: str, state_like: Any, step: int | None = None,
     leaves = [_from_numpy(
         np.load(os.path.join(d, f"leaf_{i:04d}.h{host}.npy")),
         meta["dtypes"][i], like, device) for i, like in enumerate(leaves_like)]
-    return _unflatten(state_like, leaves), meta
+    return unflatten(state_like, leaves), meta
 
 
 def _host_copy(tree: Any) -> Any:
     """Every tensor of ``tree`` copied to host memory now."""
-    leaves, _ = _flatten(tree)
-    return _unflatten(tree, [x.detach().to("cpu", copy=True)
+    leaves, _ = flatten(tree)
+    return unflatten(tree, [x.detach().to("cpu", copy=True)
                              if isinstance(x, torch.Tensor) else x
                              for x in leaves])
 

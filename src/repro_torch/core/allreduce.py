@@ -9,7 +9,9 @@ workers are dim 0 of the tensor:
   0 in <= ceil(log2 P) rounds with the Fig. 1 parking rule for
   non-power-of-two P, then the same tree back. A ``ppermute`` becomes
   indexing by the completed permutation (receiver ``dst`` reads row
-  ``src``).
+  ``src``). Each round runs under a ``tree/reduce{r}`` /
+  ``tree/bcast{r}`` span of the ambient tracer (``obs.trace``), as the
+  reference's rounds do.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.obs import trace as obtrace
 
 
 def reduce_schedule(p: int) -> list[list[tuple[int, int]]]:
@@ -84,14 +88,20 @@ def tree_allreduce(x: torch.Tensor, p: int) -> torch.Tensor:
     """Paper Alg. 1 all-reduce of ``x`` over its leading worker axis."""
     if p == 1:
         return x
+    tr = obtrace.current()
     sched = reduce_schedule(p)
-    for pairs in sched:
-        received, mask = masked_permute(x, pairs, p)
-        x = x + torch.where(mask, received, torch.zeros_like(received))
-    for pairs in reversed(sched):
+    for r, pairs in enumerate(sched):
+        with tr.span(f"tree/reduce{r}", cat="comm",
+                     args={"round": r, "pairs": len(pairs)}) as sp:
+            received, mask = masked_permute(x, pairs, p)
+            x = sp.sync(x + torch.where(mask, received,
+                                        torch.zeros_like(received)))
+    for r, pairs in enumerate(reversed(sched)):
         back = [(dst, src) for (src, dst) in pairs]
-        received, mask = masked_permute(x, back, p)
-        x = torch.where(mask, received, x)
+        with tr.span(f"tree/bcast{r}", cat="comm",
+                     args={"round": r, "pairs": len(pairs)}) as sp:
+            received, mask = masked_permute(x, back, p)
+            x = sp.sync(torch.where(mask, received, x))
     return x
 
 

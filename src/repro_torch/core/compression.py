@@ -562,6 +562,127 @@ class BucketedCommStats:
         return sum(s.time(alpha, beta) for s in self.per_bucket)
 
 
+# Schedule pricers (pure Python): the bucket pipeline's recurrences, which
+# ``sim/replay.py`` prices a step with.
+
+
+def _pipeline_chains(t_compute, t_comm, ready) -> tuple[float, float]:
+    """(encode-chain end, comm-chain end) of the bucket pipeline: bucket
+    i's encode starts once its input is ready and the previous encode
+    finished; its comm starts when both its encode and bucket i-1's comm
+    have finished — the classic pipeline recurrence. The single source of
+    the recurrence for ``overlap_schedule_time`` /
+    ``interleaved_schedule_time`` / the sim replay."""
+    done_enc = done_comm = 0.0
+    for tc, tm, rd in zip(t_compute, t_comm, ready):
+        done_enc = max(done_enc, float(rd)) + float(tc)
+        done_comm = max(done_comm, done_enc) + float(tm)
+    return done_enc, done_comm
+
+
+def overlap_schedule_time(t_compute, t_comm,
+                          ready=None) -> tuple[float, float]:
+    """(serial, pipelined) totals for the encode->comm bucket pipeline.
+
+    Serial = all stages back-to-back; pipelined = the comm chain's end
+    under ``_pipeline_chains``. The saving is 0 for a single bucket.
+
+    ready: optional per-bucket gradient-readiness times (monotone
+    nondecreasing, e.g. (i+1)/N of backward) for modeling a
+    backward-interleaved schedule; the serial baseline then waits for the
+    last bucket (= full backward) before encoding. None = inputs ready at
+    t=0 (the shipped post-accumulation schedule).
+    """
+    t_compute = [float(t) for t in t_compute]
+    t_comm = [float(t) for t in t_comm]
+    ready = [0.0] * len(t_compute) if ready is None else [
+        float(r) for r in ready]
+    serial = (ready[-1] if ready else 0.0) + sum(t_compute) + sum(t_comm)
+    _, done_comm = _pipeline_chains(t_compute, t_comm, ready)
+    return serial, done_comm
+
+
+def interleaved_schedule_time(t_compute, t_comm, ready, *,
+                              t_backward: float | None = None
+                              ) -> tuple[float, float, float, float]:
+    """3-stage backward/encode/comm recurrence of the readiness scheduler.
+
+    Models the reference's ``core/gs_sgd.exchange_interleaved`` (and the
+    port's): stage 0 is the backward
+    scan, which emits bucket i's gradient at ``ready[i]`` (any order —
+    buckets are re-sorted into readiness order here, exactly the order the
+    real scheduler exchanges them); stage 1 is the per-bucket encode chain
+    (one encode at a time, starting once the bucket is ready and the
+    previous encode finished); stage 2 is the comm chain (a bucket's
+    all-reduce starts when its encode and the previous bucket's comm are
+    done).
+
+    Returns ``(serial, pipelined, exposed, enc_done)``: serial is the
+    post-accumulation baseline (full backward, then every stage
+    back-to-back); pipelined is when the last comm finishes; exposed is
+    the wall-clock the exchange adds past the end of backward
+    (``t_backward``, default ``max(ready)``) — the quantity interleaving
+    exists to shrink; enc_done is the encode chain's end (the sim replay
+    splits exposed into encode/comm overhang with it). ``chunks=1`` (all
+    ready at t_backward) reduces to ``overlap_schedule_time`` shifted by
+    t_backward.
+    """
+    order = sorted(range(len(ready)), key=lambda i: (ready[i], i))
+    tc = [float(t_compute[i]) for i in order]
+    tm = [float(t_comm[i]) for i in order]
+    rd = [float(ready[i]) for i in order]
+    serial = (rd[-1] if rd else 0.0) + sum(tc) + sum(tm)
+    enc_done, pipelined = _pipeline_chains(tc, tm, rd)
+    t_b = (max(rd) if rd else 0.0) if t_backward is None else float(t_backward)
+    return serial, pipelined, max(0.0, pipelined - t_b), enc_done
+
+
+def fused_interleaved_schedule_time(piece_bucket, piece_compute, piece_ready,
+                                    t_comm, *,
+                                    t_backward: float | None = None
+                                    ) -> tuple[float, float, float, float]:
+    """Fused-encode variant of ``interleaved_schedule_time``.
+
+    The encode chain's work items are bucket FRAGMENTS (one per VJP chunk
+    overlapping the bucket), not whole buckets: fragment f of bucket
+    ``piece_bucket[f]`` becomes ready at ``piece_ready[f]`` and costs
+    ``piece_compute[f]`` to partial-encode; a bucket's wire sketch exists
+    once its LAST fragment's encode finishes. The comm chain is unchanged
+    (sketches still ship per bucket, in bucket-readiness order — the order
+    ``exchange_interleaved`` fires all-reduces).
+
+    Fragments encode in readiness order (ties broken toward the
+    earlier-complete bucket, matching the scheduler's emission order).
+    With exactly one fragment per bucket this reduces bit-for-bit to
+    ``interleaved_schedule_time`` — same sort keys, same recurrences.
+
+    Returns the same ``(serial, pipelined, exposed, enc_done)`` tuple.
+    """
+    n = len(t_comm)
+    bucket_ready = [0.0] * n  # when the bucket's LAST fragment emits
+    for b, rd in zip(piece_bucket, piece_ready):
+        bucket_ready[b] = max(bucket_ready[b], float(rd))
+    order = sorted(range(len(piece_ready)),
+                   key=lambda f: (piece_ready[f],
+                                  bucket_ready[piece_bucket[f]],
+                                  piece_bucket[f], f))
+    done_enc = 0.0
+    enc_done_b = [0.0] * n
+    for f in order:
+        done_enc = max(done_enc, float(piece_ready[f])) + float(
+            piece_compute[f])
+        enc_done_b[piece_bucket[f]] = done_enc
+    comm_order = sorted(range(n), key=lambda b: (bucket_ready[b], b))
+    done_comm = 0.0
+    for b in comm_order:
+        done_comm = max(done_comm, enc_done_b[b]) + float(t_comm[b])
+    rd_max = max((float(r) for r in piece_ready), default=0.0)
+    serial = (rd_max + sum(float(t) for t in piece_compute)
+              + sum(float(t) for t in t_comm))
+    t_b = rd_max if t_backward is None else float(t_backward)
+    return serial, done_comm, max(0.0, done_comm - t_b), done_enc
+
+
 _MIN_BUCKET_WIDTH = 256  # smallest usable sketch row (pow2)
 
 

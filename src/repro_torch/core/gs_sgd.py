@@ -25,15 +25,21 @@ sketches are summed at its event (as integers: the fused sketch is
 bit-equal to the whole-bucket encode). On one device every stage runs in program order
 on one stream; nothing overlaps yet.
 
-Spans: each phase of the step runs under ``torch.profiler.record_function``
-(``loss_and_grad``, or ``forward``, ``backward/chunk{j}`` and
+Spans: each phase of the step runs under a span of the ambient tracer
+(``obs.trace.current()``) with the reference's names and categories
+(``loss_and_grad`` cat backward, or ``forward`` and ``backward/chunk{j}``,
 ``backward/top`` for a chunked backward; ``encode/b{i}``,
-``allreduce/b{i}``, ``recover/b{i}``, ``exchange`` for the monolithic
-exchange, ``optimizer``): the reference's span names. A fused partial
-encode runs under its bucket's ``encode/b{i}``. Outside a profiler they
-cost one small host object each; under ``torch.profiler.profile`` each
-span's device time is the sum of the kernels launched inside it
-(``chip_smoke.py`` reads them).
+``allreduce/b{i}`` cat comm, ``recover/b{i}``, ``exchange`` cat comm for
+the monolithic exchange, ``optimizer``; ``ready/b{i}`` instants in the
+interleave), each ending in ``sp.sync`` of its result where the
+reference's does. A fused partial encode runs under its bucket's
+``encode/b{i}`` (the reference gives it no span of its own). With tracing
+off (``NULL``) a span is only a ``torch.profiler.record_function`` range
+and ``sync`` does nothing, so the step's device work is the same and it
+never waits on the card; under ``torch.profiler.profile`` each range's
+device time is the sum of the kernels launched inside it
+(``chip_smoke.py`` reads them). With a tracer active each span syncs the
+card at its end, so its host duration covers its kernels.
 
 ``microbatch=mb`` cuts each worker's batch into slices of mb rows and
 sums their losses and gradients in f32, then divides by the slice count
@@ -49,7 +55,6 @@ import math
 from typing import Any, Callable
 
 import torch
-from torch.profiler import record_function as span
 
 from repro_torch.api.spec import check_exchange_config
 from repro_torch.core import allreduce as ar
@@ -61,6 +66,7 @@ from repro_torch.models.flatten import (SEG_NAMES, BucketPlan, FlatSpec,
                                         bucket_plan, init_flat_params,
                                         make_flat_spec, pack_segs,
                                         unpack_segs)
+from repro_torch.obs import trace as obtrace
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -122,28 +128,35 @@ def exchange_bucketed(bc: comp.BucketedCompressor, ef_state, g_flat, *,
     """
     n = bc.spec.n
     staged = all(hasattr(c, "stage_encode") for c in bc.parts)
+    tr = obtrace.current()
     if not overlap or n == 1 or not staged:
-        with span("exchange"):
-            return bc.step(ef_state, g_flat, nworkers=nworkers,
-                           include=include)
+        with tr.span("exchange", cat="comm") as sp:
+            out = bc.step(ef_state, g_flat, nworkers=nworkers,
+                          include=include)
+            sp.sync(out[0])
+        return out
     parts = bc.spec.split(g_flat)
     us: list = [None] * n
     sks: list = [None] * n
     outs: list = [None] * n
-    with span("encode/b0"):
+    with tr.span("encode/b0", cat="encode") as sp:
         us[0], sks[0] = bc.parts[0].stage_encode(ef_state[0], parts[0])
+        sp.sync(sks[0])
     for i in range(n):
-        with span(f"allreduce/b{i}"):
+        with tr.span(f"allreduce/b{i}", cat="comm") as sp:
             sk_sum, scale = bc.parts[i].stage_reduce(
                 sks[i], nworkers=nworkers, include=include)
+            sp.sync(sk_sum)
         sks[i] = None
         if i + 1 < n:  # next bucket's encode — independent of the reduce
-            with span(f"encode/b{i + 1}"):
+            with tr.span(f"encode/b{i + 1}", cat="encode") as sp:
                 us[i + 1], sks[i + 1] = bc.parts[i + 1].stage_encode(
                     ef_state[i + 1], parts[i + 1])
-        with span(f"recover/b{i}"):
+                sp.sync(sks[i + 1])
+        with tr.span(f"recover/b{i}", cat="recover") as sp:
             outs[i] = bc.parts[i].stage_recover(
                 us[i], sk_sum, scale, nworkers=nworkers, include=include)
+            sp.sync(outs[i][0])
         us[i] = None
     upd = bc.spec.join([o[0] for o in outs])
     ef_new = tuple(o[1] for o in outs)
@@ -191,6 +204,7 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
     for off, m, ev in plan.emits:
         emits.setdefault(ev, []).append((off, m))
 
+    tr = obtrace.current()
     fusable = [bool(fuse_encode and getattr(p, "can_fuse", False))
                for p in parts]
     frags: list[list] = [[] for _ in range(n)]  # (off-in-bucket, u, sketch)
@@ -205,10 +219,11 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
             if not fusable[i]:
                 continue
             o = spec.offsets[i]
-            with span(f"encode/b{i}"):
+            with tr.span(f"encode/b{i}", cat="encode") as sp:
                 u_piece, sk = parts[i].stage_encode_partial(
                     ef_state[i][:, lo - o:hi - o], arr[:, lo - off:hi - off],
                     lo - o)
+                sp.sync(sk.limbs)
             frags[i].append((lo - o, u_piece, sk))
 
     def emit(ev: int, grads) -> None:
@@ -247,35 +262,42 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
     launched: list[int] = []
 
     def recover(i: int) -> None:
-        with span(f"recover/b{i}"):
+        with tr.span(f"recover/b{i}", cat="recover") as sp:
             outs[i] = parts[i].stage_recover(
                 us[i], sk_sum[i], scale[i], nworkers=nworkers,
                 include=include)
+            sp.sync(outs[i][0])
         us[i] = sk_sum[i] = None
 
     n_chunks = len(bwd_steps)
     for ev in range(plan.n_events):
         if ev < n_chunks:
-            with span(f"backward/chunk{ev}"):
+            with tr.span(f"backward/chunk{ev}", cat="backward") as sp:
                 _, d_cs, d_cr = bwd_steps[ev]()
+                sp.sync((d_cs, d_cr))
             emit(ev, (d_cs, d_cr))
             del d_cs, d_cr
         if ev == n_chunks - 1:  # top segments finalize with the last chunk
-            with span("backward/top"):
+            with tr.span("backward/top", cat="backward") as sp:
                 d_ts, d_tr = top_grads()
+                sp.sync((d_ts, d_tr))
             emit(n_chunks, (d_ts, d_tr))
             del d_ts, d_tr
         for i in by_event.get(ev, []):
-            with span(f"encode/b{i}"):
+            tr.instant(f"ready/b{i}", cat="encode",
+                       args={"bucket": i, "event": ev})
+            with tr.span(f"encode/b{i}", cat="encode") as sp:
                 if fusable[i]:
                     us[i], sk = parts[i].stage_encode_merge(frags[i])
                     frags[i] = []
                 else:
                     us[i], sk = parts[i].stage_encode(ef_state[i],
                                                       assemble(i))
-            with span(f"allreduce/b{i}"):
+                sp.sync(sk)
+            with tr.span(f"allreduce/b{i}", cat="comm") as sp:
                 sk_sum[i], scale[i] = parts[i].stage_reduce(
                     sk, nworkers=nworkers, include=include)
+                sp.sync(sk_sum[i])
             del sk
             launched.append(i)
             while len(launched) > 1:  # recover, one bucket behind
@@ -515,16 +537,22 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                    include: torch.Tensor | None = None) -> tuple[dict, dict]:
         params, opt_state, ef, step = (state["params"], state["opt"],
                                        state["ef"], state["step"])
+        tr = obtrace.current()
         g_flat = None
         if bwd_chunks is not None:
-            with span("forward"):
+            with tr.span("forward", cat="forward") as sp:
                 losses, (bwd_steps, top_grads) = forward(params, batch)
+                sp.sync(losses)
             if not interleave:
-                with span("backward"):
+                with tr.span("backward", cat="backward") as sp:
                     g_flat = flat_of_chunks(bwd_steps, top_grads, d_local)
+                    sp.sync(g_flat)
         else:
-            with span("loss_and_grad"):
+            # monolithic autodiff: forward and backward are one call, so
+            # the span carries both under cat='backward'
+            with tr.span("loss_and_grad", cat="backward") as sp:
                 losses, g_flat = loss_and_grad(params, batch)
+                sp.sync(g_flat)
         if interleave:
             kw = {} if include is None else {"include": include}
             upd, ef_new, _ = exchange_interleaved(
@@ -537,7 +565,7 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                 compressor, ef, g_flat, nworkers=nworkers, overlap=overlap,
                 **kw)
         else:
-            with span("exchange"):
+            with tr.span("exchange", cat="comm") as sp:
                 if compressor is not None:
                     kw = {} if include is None else {"include": include}
                     upd, ef_new, _ = compressor.step(
@@ -545,8 +573,9 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                 else:
                     upd = ar.psum_allreduce(g_flat) if comp_axes else g_flat
                     ef_new = ef
+                sp.sync(upd)
         del g_flat
-        with span("optimizer"):
+        with tr.span("optimizer", cat="optimizer") as sp:
             g_mean = upd / ma.dp_size
             del upd
             gnorm = torch.sqrt(torch.sum(g_mean * g_mean, dim=-1))
@@ -559,6 +588,7 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
             for k in SEG_NAMES:
                 new_params[k], new_opt[k] = opt.apply(
                     params[k], g_segs[k], opt_state[k], step)
+            sp.sync(new_params["top_s"])
         new_state = {"params": new_params, "opt": new_opt, "ef": ef_new,
                      "step": step + 1}
         return new_state, {"loss": losses.mean(), "grad_norm": gnorm,

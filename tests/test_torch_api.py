@@ -52,7 +52,7 @@ def test_spec_json_roundtrip_and_parity(tmp_path):
     assert TSpec.load(str(path)) == t
     # a spec dumped by the reference (with watch/serve blocks) loads too
     j.save(str(path))
-    assert TSpec.load(str(path)).watch == jj["watch"]
+    assert TSpec.load(str(path)).watch.to_json() == jj["watch"]
 
 
 def test_generated_flags_override_spec():

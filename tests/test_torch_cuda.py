@@ -617,3 +617,31 @@ def test_filler_scores_bit_equal_plain(card, d, width):
     s0, e0 = heavymix_scores_ts_plain(tcfg, tsk, thr, d, fill)
     assert _bits_equal(s, s0) and _bits_equal(e, e0)
     assert torch.equal(h, radix_hist_plain(s0).to(h.dtype))
+
+
+def test_span_lasts_at_least_its_kernels_event_time(card):
+    """An active span ends in ``sp.sync``, so on the card its host-clock
+    duration covers the kernels launched inside it: at least their
+    CUDA-event time. The NULL tracer's span does not wait on the card."""
+    from repro_torch import obs
+    from repro_torch.obs import trace as obtrace
+    cfg = cs.SketchConfig(rows=5, width=1 << 20, seed=3)
+    g = torch.randn(50_000_000, generator=torch.Generator(device=card)
+                    .manual_seed(0), device=card)
+    sketch_encode(cfg, g)              # build, load, warm
+    torch.cuda.synchronize()
+    tr = obs.Tracer()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with tr.activate():
+        with obtrace.current().span("encode/b0", cat="encode") as sp:
+            a.record()
+            sk = sketch_encode(cfg, g)
+            b.record()
+            assert sp.sync(sk) is sk
+    event_s = a.elapsed_time(b) / 1e3
+    span_s = obtrace.spans(tr.to_chrome(), cat="encode")[0]["dur"]
+    assert event_s > 0 and span_s >= event_s
+    torch.cuda.synchronize()
+    with obtrace.NULL.span("encode/b0", cat="encode") as sp:
+        assert sp.sync(sk) is sk
