@@ -116,12 +116,48 @@ Phases (any failure exits non-zero and prints no result line):
                 min(grad_norm, clip), within MINICPM_RTOL; a profiled step
                 (profile_minicpm); the filler scores kernel at the cell's
                 shapes, bit-equal to plain.
+6c. train_moe — granite-moe-3b-a800m at its published widths (d_model
+                1,536, 24/8 heads, 40 experts top-8 of d_ff 512, vocab
+                49,155 padded to 49,280, tied embeddings), 32 -> 4 layers,
+                under the main path's exchange (P=2, buckets=2, batch 8,
+                seq 64, AdamW, psum, R = 5): d = 478,606,848 in buckets
+                (277,022,208, 201,584,640), both past 2^22, so three
+                counted steps launch the encode, its finish, the decode and
+                the select 12 times each and the scores kernel never; the
+                capacity and each step's dropped share of the (token,
+                choice) pairs (an untimed no-grad forward before each
+                step); one profiled step (profile_moe); then one more step
+                whose worker-0 packed gradient of each bucket is run
+                through the path's kernels (the encode and its finish, the
+                decode, the select) and held bit-equal to their plain
+                versions (route checks).
+6d. train_hybrid — zamba2-2.7b at its published widths (d_model 2,560,
+                32 heads, d_ff 10,240, ssm_state 64, vocab 32,000), 54 ->
+                12 layers (two cycles of six Mamba2 blocks and the shared
+                attention block): d = 663,336,448; three counted steps as
+                in 6c and one profiled step (profile_hybrid); then three
+                steps at buckets=4, bwd_chunks=2 (one cycle a chunk),
+                fuse_encode (train_hybrid_interleave) against three at
+                bwd_chunks=None from the same seed (train_hybrid_bucketed4),
+                held as in 6: the first losses equal, the later ones within
+                INTERLEAVE_LOSS_RTOL, the same selected coordinates and the
+                params within INTERLEAVE_PARAM_RTOL / _ATOL. The route
+                checks of 6c after the profiled step and after the
+                interleave (there on each fused sketch too, against the
+                plain encode; bucket 3's 30,720 coordinates go the scores
+                route); the interleave's decode and scores launches as
+                each bucket's size and k route it.
 7. parity    — two steps of examples/specs/qwen3_smoke.json on the card
                 (kernels) and on the CPU (plain versions) from the same
                 params and batches: losses and selected coordinates agree.
                 Its buckets are below 2^22: the scores kernel's path (with
                 its histogram, then the select). The same for the smoke
                 configs of yi-9b, minicpm-2b and starcoder2-3b.
+7b. parity_families — the same for the smoke configs of granite-moe,
+                qwen3-moe, rwkv6, zamba2, llama-3.2-vision and musicgen;
+                llama-3.2-vision once more with seeded ``cross_kv`` patch
+                embeddings in its batches, and qwen3-moe once more with its
+                override row's SGD with momentum and bf16 EF, passed in.
 8. baselines — every compressor of the registry, two smoke-spec steps on the
                 card and on the CPU from the same params and batches.
 9. cli       — ``python -m repro_torch.launch.train --spec
@@ -138,7 +174,8 @@ Phases (any failure exits non-zero and prints no result line):
                 ``plan.train_argv()``: loss histories bit-equal.
 
 Every path that launches kernels (train, train_traced, train_watched,
-train_ts, train_interleave, train_minicpm, parity) runs with every
+train_ts, train_interleave, train_minicpm, train_moe, train_hybrid and its
+interleave, parity, parity_families) runs with every
 launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts. The
 select's slab-overflow counter is zeroed before each path too and read
@@ -209,6 +246,19 @@ MINICPM_RTOL = 1e-5  # step 0's microbatched loss (the mean of two slices'
 #                      a few ulp of values near 12 and near the norm
 NEW_SMOKE_ARCHS = ("yi-9b", "minicpm-2b", "starcoder2-3b")
 
+# The model zoo's other families at their published widths: granite-moe-
+# 3b-a800m cut from 32 to 4 layers and zamba2-2.7b from 54 to 12 (two
+# cycles of six Mamba2 blocks and the shared block), each under the main
+# path's exchange; zamba2 also at buckets 4 with the chunked backward
+# (one cycle a chunk) and the fused encode. d as tests/test_torch_families.py
+# pins them.
+MOE_LAYERS, MOE_D = 4, 478_606_848
+MOE_BUCKETS = (277_022_208, 201_584_640)
+HYBRID_LAYERS, HYBRID_D, HYBRID_CHUNKS = 12, 663_336_448, 2
+FAMILY_SMOKE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+                      "rwkv6-7b", "zamba2-2.7b", "llama-3.2-vision-11b",
+                      "musicgen-large")
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -278,14 +328,16 @@ def main_exchange():
 
 
 def full_width_step(torch, device, buckets=2, bwd_chunks=None,
-                    fuse_encode=False, exchange=None):
+                    fuse_encode=False, exchange=None, cfg=None):
     """The main path's train step (no state allocated yet); with other
     ``buckets`` / ``bwd_chunks`` / ``fuse_encode``, or a whole ``exchange``
-    spec (a re-plan's), the same cell with that exchange schedule."""
+    spec (a re-plan's), the same cell with that exchange schedule; with
+    ``cfg``, that arch's cell under the same exchange, P, optimizer and
+    lr."""
     from repro_torch.configs.qwen3_4b import CONFIG
     from repro_torch.core.gs_sgd import MeshAxes, make_train_step
     from repro_torch.optim import make as make_opt
-    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    cfg = cfg or dataclasses.replace(CONFIG, n_layers=2)
     opt = make_opt("adamw", lr=TRAIN_LR)
     spec = exchange or dataclasses.replace(
         main_exchange(), buckets=buckets, bwd_chunks=bwd_chunks,
@@ -1166,11 +1218,13 @@ def check_launches(tag, counts, launched, not_launched=()):
                  "path, which should not run it")
 
 
-def train_phase(torch, cfg, opt, ts, tag="train") -> dict:
+def train_phase(torch, cfg, opt, ts, tag="train", between=None) -> dict:
     """Three full-width steps; counts set to 0 just before, read after.
     Returns the state, the stream, the counts, the step seconds, the losses,
     the peak device memory and the select's CTAs whose slab overflowed
-    (the device counter, zeroed before the steps and read after them)."""
+    (the device counter, zeroed before the steps and read after them).
+    ``between(state, global batch)``: called before each step with the
+    state and batch that step gets, outside the step's timing."""
     from repro_torch.data import LMStream
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.kernels.topk_select import slab_overflows
@@ -1186,13 +1240,19 @@ def train_phase(torch, cfg, opt, ts, tag="train") -> dict:
         f"(k, W) {[(c.k, c.sketch.width) for c in ts.compressor.parts]} "
         f"encoder {ts.compressor.parts[0].encoder} "
         f"P={ts.nworkers} batch {TRAIN_BATCH} seq {TRAIN_SEQ}")
+    def before(step, st, *_):
+        if between is not None and step < TRAIN_STEPS:
+            between(st, stream.global_batch_at(step, ts.device))
+
+    before(0, state)
     slab_overflows(ts.device, reset=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     state, hist, times = train_loop(
         ts, state, lambda s: stream.global_batch_at(s, ts.device),
-        range(TRAIN_STEPS), log_every=1, last=TRAIN_STEPS - 1)
+        range(TRAIN_STEPS), log_every=1, last=TRAIN_STEPS - 1,
+        after_step=lambda s, st, _: before(s + 1, st))
     counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     overflows = slab_overflows(ts.device, reset=True)
@@ -1495,7 +1555,7 @@ def _snapshot(state) -> dict:
             "selected": [(e == 0).cpu() for e in state["ef"]]}
 
 
-def compare_snapshots(got, want) -> None:
+def compare_snapshots(got, want, tag="train_interleave") -> None:
     """The interleaved run's params and selection against the bucketed
     run's after the same counted steps: the selected coordinates equal,
     the params within INTERLEAVE_PARAM_RTOL / _ATOL."""
@@ -1508,7 +1568,7 @@ def compare_snapshots(got, want) -> None:
         bad += int((diff > INTERLEAVE_PARAM_ATOL
                     + INTERLEAVE_PARAM_RTOL * b.abs()).sum())
         worst = max(worst, float(diff.max()))
-    log(f"[train_interleave] after {TRAIN_STEPS} steps: selected "
+    log(f"[{tag}] after {TRAIN_STEPS} steps: selected "
         f"coordinates {n_sel} (EF zero pattern), {sel_diff} differ; params "
         f"max_abs_diff {worst:.4g}, {bad} beyond rtol "
         f"{INTERLEAVE_PARAM_RTOL} / atol {INTERLEAVE_PARAM_ATOL}")
@@ -1536,30 +1596,7 @@ def train_interleave_phase(torch, device) -> dict:
     with plain_calls() as plain:
         run = train_phase(torch, cfg, opt, ts, tag="train_interleave")
     counts = run["counts"]
-    want_enc = n_frags * ts.nworkers * TRAIN_STEPS
-    if counts.get("sketch_encode") != want_enc:
-        fail(f"sketch_encode launched {counts.get('sketch_encode')} times on "
-             f"the interleaved path, not {want_enc} ({n_frags} fragments x "
-             f"{ts.nworkers} workers x {TRAIN_STEPS} steps)")
-    check_launches("train_interleave", counts,
-                   ("sketch_decode", "heavymix_scores", "topk_select",
-                    "sketch_encode_finish"),
-                   ("ts_encode", "heavymix_scores_ts", "ts_transpose"))
-    recoveries = ts.nworkers * ts.n_buckets * TRAIN_STEPS
-    if counts.get("topk_select") != recoveries:
-        fail(f"topk_select launched {counts.get('topk_select')} times on the "
-             f"interleaved path, not once per recovery ({recoveries})")
-    merges = ts.n_buckets * TRAIN_STEPS
-    if counts.get("sketch_encode_finish") != merges:
-        fail(f"sketch_encode_finish launched "
-             f"{counts.get('sketch_encode_finish')} times on the interleaved "
-             f"path, not once per bucket and step ({merges}: each merge "
-             "finishes every worker's sketch in one launch)")
-    if plain:
-        fail(f"plain versions called on the interleaved path: {plain}")
-    log(f"[train_interleave] sketch_encode launches {want_enc} "
-        f"= {n_frags} fragments x {ts.nworkers} workers x {TRAIN_STEPS} "
-        "steps; no plain version called")
+    check_interleave_launches("train_interleave", ts, counts, plain)
     snap = _snapshot(run["state"])
     state = fused_sketch_check(torch, ts, run.pop("state"), run["stream"])
     state, _ = profile_phase(torch, ts, state, run["stream"],
@@ -1574,8 +1611,56 @@ def train_interleave_phase(torch, device) -> dict:
                              base["stream"], tag="profile_bucketed4")
     del state, ts_b
     torch.cuda.empty_cache()
+    check_interleaved_losses("train_interleave", run, base)
+    return {"counts": counts, "fragments": frag_rows,
+            "finish_row": finish_row}
+
+
+def decode_route(part, d: int) -> bool:
+    """Does ``ops.heavymix_recover`` take the decode route for a bucket of
+    ``d`` coordinates under compressor ``part``? (d > 2^22 and d > 4k,
+    greedy fill; else the scores kernel.)"""
+    from repro_torch.core.heavymix import _CHUNK
+    return not part.faithful_heavymix and d > _CHUNK and d > 4 * part.k
+
+
+def check_interleave_launches(tag, ts, counts, plain) -> int:
+    """The fused interleave's launch counts: a partial encode per fragment
+    and worker, one finish per bucket (each merge finishes every worker's
+    sketch), a select per recovery, and the decode or the scores kernel
+    per recovery as each bucket's size and k route it (``decode_route``);
+    no plain version. Returns the fragments a worker."""
+    n_frags = sum(len(f) for f in ts.plan.fragments())
+    n_dec = sum(decode_route(c, d) for c, d in zip(ts.compressor.parts,
+                                                    ts.compressor.spec.sizes))
+    per = ts.nworkers * TRAIN_STEPS
+    want = {"sketch_encode": n_frags * per,
+            "sketch_encode_finish": ts.n_buckets * TRAIN_STEPS,
+            "topk_select": ts.n_buckets * per,
+            "sketch_decode": n_dec * per,
+            "heavymix_scores": (ts.n_buckets - n_dec) * per}
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            fail(f"{name} launched {counts.get(name, 0)} times on the {tag} "
+                 f"path, not {n}")
+    check_launches(tag, counts, (), ("ts_encode", "heavymix_scores_ts",
+                                     "ts_transpose"))
+    if plain:
+        fail(f"plain versions called on the {tag} path: {plain}")
+    log(f"[{tag}] sketch_encode launches {want['sketch_encode']} = "
+        f"{n_frags} fragments x {ts.nworkers} workers x {TRAIN_STEPS} "
+        f"steps; {n_dec} bucket(s) on the decode route, "
+        f"{ts.n_buckets - n_dec} on the scores route ({want}); no plain "
+        "version called")
+    return n_frags
+
+
+def check_interleaved_losses(tag, run, base) -> None:
+    """The interleaved run's losses against the bucketed run's from the
+    same seed: the first equal (the same forward), the later ones within
+    INTERLEAVE_LOSS_RTOL."""
     li, lb = run["losses"], base["losses"]
-    log(f"[train_interleave] losses interleaved {li} / bucketed {lb}; "
+    log(f"[{tag}] losses interleaved {li} / bucketed {lb}; "
         f"steps after the first {run['times'][1:]} / {base['times'][1:]} s; "
         f"peak memory {run['peak']} / {base['peak']} bytes "
         f"({(run['peak'] - base['peak']) / 2**30:+.3f} GiB)")
@@ -1585,11 +1670,9 @@ def train_interleave_phase(torch, device) -> dict:
     if not _close(lb[1:], li[1:], INTERLEAVE_LOSS_RTOL):
         fail(f"interleaved losses {li} differ from the bucketed step's {lb} "
              f"beyond rtol {INTERLEAVE_LOSS_RTOL}")
-    log(f"[train_interleave] first losses equal; later ones within rtol "
+    log(f"[{tag}] first losses equal; later ones within rtol "
         f"{INTERLEAVE_LOSS_RTOL} (largest relative difference "
         f"{max(abs(a - b) / abs(b) for a, b in zip(li, lb)):.3g})")
-    return {"counts": counts, "fragments": frag_rows,
-            "finish_row": finish_row}
 
 
 def minicpm_step(torch, device):
@@ -1760,11 +1843,306 @@ def train_minicpm_phase(torch, device) -> dict:
             "profile": prof}
 
 
-def smoke_runs(torch, spec, steps=2, card="cuda"):
+def check_decode_route(tag, ts, counts, plain) -> None:
+    """A path whose buckets are all past 2^22 coordinates: the encode, its
+    finish, the decode and the select once a bucket, worker and step; the
+    scores kernels, the TS kernels and the plain versions never."""
+    recoveries = ts.nworkers * ts.n_buckets * TRAIN_STEPS
+    for name in ("sketch_encode", "sketch_encode_finish", "sketch_decode",
+                 "topk_select"):
+        if counts.get(name) != recoveries:
+            fail(f"{name} launched {counts.get(name)} times on the {tag} "
+                 f"path, not {recoveries} (once a bucket, worker and step)")
+    check_launches(tag, counts, (), ("heavymix_scores", "heavymix_scores_ts",
+                                     "ts_transpose", "ts_encode"))
+    if plain:
+        fail(f"plain versions called on the {tag} path: {plain}")
+    log(f"[{tag}] launches {counts}: encode, finish, decode and select "
+        f"{recoveries} each = {ts.nworkers} workers x {ts.n_buckets} "
+        f"buckets x {TRAIN_STEPS} steps; no plain version called")
+
+
+def family_cell(torch, device, cfg, want_d, **kw):
+    """``cfg`` under the main path's exchange (``full_width_step``), its d
+    checked against the value the tests pin."""
+    cfg, opt, ts = full_width_step(torch, device, cfg=cfg, **kw)
+    if ts.d_local != want_d:
+        fail(f"{cfg.name} at {cfg.n_layers} layers: d = {ts.d_local}, "
+             f"not {want_d}")
+    return cfg, opt, ts
+
+
+class recorded_drops:
+    """While open, ``models.moe.dispatch`` (which ``moe_block`` calls by its
+    module's global name) also appends, per call, a (2,) device tensor:
+    the kept (token, choice) pairs and all of them. Only the untimed
+    forwards of ``drop_share`` run under it."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+        self.mod, self.f, drops = moe, moe.dispatch, []
+
+        def counted(eidx, ne, cap, _f=self.f):
+            dests, keeps = _f(eidx, ne, cap)
+            kept = torch.stack([k.sum() for k in keeps]).sum()
+            drops.append(torch.stack([kept,
+                                      torch.full_like(kept, eidx.numel())]))
+            return dests, keeps
+
+        moe.dispatch = counted
+        return drops
+
+    def __exit__(self, *exc):
+        self.mod.dispatch = self.f
+
+
+def drop_share(torch, cfg, ts, state, gb) -> float:
+    """The dropped share of the (token, choice) pairs in the forward that
+    the next step runs: every worker's params on its shard of global batch
+    ``gb``, one no-grad ``loss_fn`` each under ``recorded_drops`` (the
+    routing is the step's: the same f32 forward)."""
+    from repro_torch.launch.train import shard_batch
+    from repro_torch.models import model as mdl
+    from repro_torch.models.flatten import SEG_NAMES
+    batch = shard_batch(gb, ts.nworkers)
+    with torch.no_grad(), recorded_drops() as drops:
+        for p in range(ts.nworkers):
+            mdl.loss_fn(cfg, ts.fs, {k: state["params"][k][p]
+                                     for k in SEG_NAMES},
+                        {k: v[p] for k, v in batch.items()},
+                        dtype=torch.float32)
+    kept, total = (int(v) for v in torch.stack(drops).sum(0))
+    return 1.0 - kept / total
+
+
+class captured_buckets:
+    """While open, ``GsSGD.stage_encode`` and ``stage_encode_merge`` (the
+    fused interleave's) also keep, once per bucket of ``ts``, a copy of
+    worker 0's packed vector u (the EF plus its gradient: the encode's
+    input) and of the f32 sketch the step made of it. Returns the dict
+    bucket -> (u, sketch)."""
+
+    def __init__(self, ts):
+        self.index = {id(c): b for b, c in enumerate(ts.compressor.parts)}
+
+    def __enter__(self):
+        from repro_torch.core import compression as comp
+        self.cls, got = comp.GsSGD, {}
+        self.saved = {n: getattr(self.cls, n)
+                      for n in ("stage_encode", "stage_encode_merge")}
+
+        def wrap(f):
+            def kept(part, *a, **kw):
+                u, sk = f(part, *a, **kw)
+                got.setdefault(self.index[id(part)],
+                               (u[0].clone(), sk[0].float().clone()))
+                return u, sk
+            return kept
+
+        for n, f in self.saved.items():
+            setattr(self.cls, n, wrap(f))
+        return got
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.cls, n, f)
+
+
+def capture_step(torch, ts, state, stream):
+    """One more step (not counted, not timed) under ``captured_buckets``.
+    Returns the state and worker 0's (u, sketch) of each bucket."""
+    from repro_torch.launch.train import shard_batch
+    batch = shard_batch(stream.global_batch_at(TRAIN_STEPS + 1, ts.device),
+                        ts.nworkers)
+    with captured_buckets(ts) as got:
+        state, m = ts.fn(state, batch)
+        float(m["loss"])
+    if sorted(got) != list(range(ts.n_buckets)):
+        fail(f"captured the encode of buckets {sorted(got)} only")
+    return state, got
+
+
+def route_checks(torch, tag, ts, got) -> None:
+    """The path's kernels at the path's own shapes, on worker 0's packed
+    vector u of each bucket (``capture_step``): the sketch the step made
+    and ``sketch_encode`` (the accumulate and its finish) of u bit-equal to
+    ``sketch_encode_plain``; on that sketch the bucket's route kernel
+    (``sketch_decode`` with its histogram, or ``heavymix_scores`` with
+    its histogram, as ``decode_route`` says) bit-equal to its plain
+    version and the histogram equal to the plain one; ``topk_select`` of
+    those keys equal to ``topk_select_plain``, indices and value bits."""
+    from repro_torch.core import count_sketch as cs
+    from repro_torch.kernels.sketch_decode import (sketch_decode_hist,
+                                                   sketch_decode_plain)
+    from repro_torch.kernels.sketch_encode import (sketch_encode,
+                                                   sketch_encode_plain)
+    from repro_torch.kernels.topk_select import (radix_hist_plain,
+                                                 topk_select,
+                                                 topk_select_plain)
+    for b in range(ts.n_buckets):
+        u, sk_step = got.pop(b)
+        part = ts.compressor.parts[b]
+        cfg, k, d = part.sketch, part.k, u.shape[0]
+        R, W = cfg.rows, cfg.width
+        sk = sketch_encode(cfg, u)
+        sk_p = sketch_encode_plain(cfg, u)
+        same = {"step's sketch": _bits_equal(torch, sk_step, sk_p),
+                "sketch_encode": _bits_equal(torch, sk, sk_p)}
+        if not all(same.values()):
+            fail(f"{tag} bucket {b} (d={d}, R={R}, W={W}): the encode is not "
+                 f"bit-equal to plain: {same}")
+        del sk_p, sk_step, u
+        if decode_route(part, d):
+            route = "sketch_decode"
+            key, hist = sketch_decode_hist(cfg, sk, d)
+            key_p = sketch_decode_plain(cfg, sk, d)
+            if not torch.equal(key, key_p):
+                fail(f"{tag} bucket {b} (d={d}): sketch_decode is not "
+                     f"bit-equal to plain ({int((key != key_p).sum())} "
+                     "coordinates differ)")
+            if not torch.equal(hist, radix_hist_plain(key_p)):
+                fail(f"{tag} bucket {b} (d={d}): sketch_decode's histogram "
+                     "differs from the plain one")
+            del key_p
+        else:   # scores, est and histogram held against plain inside
+            route = "heavymix_scores"
+            key, est, hist, _ = check_scores_hist(
+                torch, f"{tag} bucket {b}", cfg, sk, cs.l2sq_estimate(sk) / k,
+                d)
+            del est
+        v, i = topk_select(key, k, hist)
+        v_p, i_p = topk_select_plain(key, k, hist)
+        if not (torch.equal(i, i_p)
+                and torch.equal(v.view(torch.int32), v_p.view(torch.int32))):
+            fail(f"{tag} bucket {b} (d={d}, k={k}): topk_select differs from "
+                 f"plain ({int((i != i_p).sum())} of {k} indices)")
+        log(f"[{tag}] bucket {b} (d={d}, R={R}, W={W}, d*R={d * R}, k={k}), "
+            f"worker 0's packed gradient: the step's sketch and "
+            f"sketch_encode bit-equal to plain; {route} and its histogram "
+            "equal to plain; topk_select equal to plain (indices, value "
+            "bits)")
+        del key, hist, v, i, v_p, i_p, sk
+        torch.cuda.empty_cache()
+
+
+def train_moe_phase(torch, device) -> dict:
+    """granite-moe-3b-a800m at its published widths, MOE_LAYERS layers:
+    three counted steps on the decode route, the capacity and each step's
+    dropped share of the (token, choice) pairs, one profiled step."""
+    from repro_torch.configs.granite_moe_3b_a800m import CONFIG
+    from repro_torch.models import moe
+    from repro_torch.models.common import padded_vocab
+    cfg, opt, ts = family_cell(
+        torch, device, dataclasses.replace(CONFIG, n_layers=MOE_LAYERS),
+        MOE_D)
+    if tuple(ts.compressor.spec.sizes) != MOE_BUCKETS:
+        fail(f"train_moe buckets {ts.compressor.spec.sizes}, not "
+             f"{MOE_BUCKETS}")
+    T = TRAIN_BATCH // TRAIN_P * TRAIN_SEQ
+    cap = moe.expert_capacity(cfg, T)
+    log(f"[train_moe] granite-moe-3b-a800m widths (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts "
+        f"top-{cfg.experts_per_tok}, expert d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} padded to {padded_vocab(cfg, 1)}, tied "
+        f"{cfg.tie_embeddings}), {cfg.n_layers} layers; capacity C = {cap} "
+        f"for {T} tokens a worker and layer (mean load "
+        f"{T * cfg.experts_per_tok / cfg.n_experts:.1f})")
+    shares = []
+    with plain_calls() as plain:
+        run = train_phase(torch, cfg, opt, ts, tag="train_moe",
+                          between=lambda st, gb: shares.append(
+                              drop_share(torch, cfg, ts, st, gb)))
+    check_decode_route("train_moe", ts, run["counts"], plain)
+    log(f"[train_moe] dropped share of the (token, choice) pairs per step "
+        f"({cfg.n_layers} MoE blocks x {ts.nworkers} workers a step, "
+        f"capacity {cap}; each from an untimed no-grad forward of the "
+        f"step's params and batch): {shares}")
+    state, prof = profile_phase(torch, ts, run.pop("state"), run["stream"],
+                                tag="profile_moe")
+    state, got = capture_step(torch, ts, state, run["stream"])
+    del state
+    torch.cuda.empty_cache()
+    route_checks(torch, "train_moe", ts, got)
+    del ts
+    torch.cuda.empty_cache()
+    return {**run, "profile": prof, "capacity": cap, "drop_shares": shares}
+
+
+def train_hybrid_phase(torch, device) -> dict:
+    """zamba2-2.7b at its published widths, HYBRID_LAYERS layers (two
+    cycles of six Mamba2 blocks and the shared block): three counted steps
+    on the decode route and one profiled step; then three steps at
+    buckets=4 with the chunked backward (one cycle a chunk) and the fused
+    encode against three steps at bwd_chunks=None from the same seed,
+    held as ``train_interleave`` holds the main cell."""
+    from repro_torch.configs.zamba2_2_7b import CONFIG
+    hcfg = dataclasses.replace(CONFIG, n_layers=HYBRID_LAYERS)
+    cfg, opt, ts = family_cell(torch, device, hcfg, HYBRID_D)
+    log(f"[train_hybrid] zamba2-2.7b widths (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, ssm_state {cfg.ssm_state}, "
+        f"vocab {cfg.vocab_size}), {cfg.n_layers} Mamba2 layers in "
+        f"{cfg.n_cycles} cycles, each closed by the shared block")
+    with plain_calls() as plain:
+        run = train_phase(torch, cfg, opt, ts, tag="train_hybrid")
+    check_decode_route("train_hybrid", ts, run["counts"], plain)
+    state, prof = profile_phase(torch, ts, run.pop("state"), run["stream"],
+                                tag="profile_hybrid")
+    state, got = capture_step(torch, ts, state, run["stream"])
+    del state
+    torch.cuda.empty_cache()
+    route_checks(torch, "train_hybrid", ts, got)
+    del ts
+    torch.cuda.empty_cache()
+    _, _, ts_i = family_cell(torch, device, hcfg, HYBRID_D,
+                             buckets=INTERLEAVE_BUCKETS,
+                             bwd_chunks=HYBRID_CHUNKS, fuse_encode=True)
+    log(f"[train_hybrid_interleave] plan: sizes {list(ts_i.plan.sizes)}, "
+        f"readiness {list(ts_i.plan.readiness)}, chunks "
+        f"{list(ts_i.plan.chunks)}; fragments {ts_i.plan.fragments()}")
+    with plain_calls() as plain:
+        inter = train_phase(torch, cfg, opt, ts_i,
+                            tag="train_hybrid_interleave")
+    check_interleave_launches("train_hybrid_interleave", ts_i,
+                              inter["counts"], plain)
+    state = inter.pop("state")
+    snap = _snapshot(state)
+    state, got = capture_step(torch, ts_i, state, inter["stream"])
+    del state
+    torch.cuda.empty_cache()
+    route_checks(torch, "train_hybrid_interleave", ts_i, got)
+    del ts_i
+    torch.cuda.empty_cache()
+    _, _, ts_b = family_cell(torch, device, hcfg, HYBRID_D,
+                             buckets=INTERLEAVE_BUCKETS)
+    base = train_phase(torch, cfg, opt, ts_b, tag="train_hybrid_bucketed4")
+    compare_snapshots(snap, _snapshot(base.pop("state")), tag="train_hybrid")
+    del snap, ts_b
+    torch.cuda.empty_cache()
+    check_interleaved_losses("train_hybrid", inter, base)
+    return {**run, "profile": prof, "interleave_counts": inter["counts"],
+            "interleave": {k: inter[k] for k in ("losses", "times", "peak")},
+            "bucketed4": {k: base[k] for k in ("losses", "times", "peak")}}
+
+
+def cross_batch(torch, cfg, spec, step):
+    """The vlm's stub frontend: seeded (batch, n_cross_tokens, d_model)
+    patch embeddings for ``step``, the same on either device."""
+    import numpy as np
+    rs = np.random.RandomState(1000 * spec.seed + step)
+    return torch.from_numpy(rs.randn(spec.batch, cfg.n_cross_tokens,
+                                     cfg.d_model).astype(np.float32))
+
+
+def smoke_runs(torch, spec, steps=2, card="cuda", ef_dtype=None,
+               cross_kv=False):
     """``steps`` steps of ``spec`` on the CPU and on ``card`` from the same
     params and batches. Returns ((losses, ef states) on the CPU, the same
     on the card) and the card run's launch counts (set to 0 just before
-    it, read just after)."""
+    it, read just after). ``ef_dtype``: the EF's storage dtype
+    (``make_state``); ``cross_kv``: the batches carry the vlm's seeded
+    patch embeddings (``cross_batch``)."""
     from repro_torch.core.gs_sgd import make_state
     from repro_torch.data import LMStream
     from repro_torch.kernels.dispatch import LAUNCHES
@@ -1779,7 +2157,8 @@ def smoke_runs(torch, spec, steps=2, card="cuda"):
                 cfg, torch.Generator().manual_seed(spec.seed), 1, ts.fs)
         state = make_state({k: v.to(ts.device) for k, v in
                             params_cpu.items()}, opt, ts.compressor,
-                           ts.d_local, ts.nworkers)
+                           ts.d_local, ts.nworkers,
+                           ef_dtype=ef_dtype or torch.float32)
         stream = LMStream(vocab_size=cfg.vocab_size, seq_len=spec.seq,
                           global_batch=spec.batch, seed=spec.seed)
         losses, efs = [], []
@@ -1789,8 +2168,10 @@ def smoke_runs(torch, spec, steps=2, card="cuda"):
             torch.cuda.synchronize()
             LAUNCHES.clear()
         for step in range(steps):
-            batch = ttrain.shard_batch(stream.global_batch_at(step, dev),
-                                       ts.nworkers)
+            gb = stream.global_batch_at(step, dev)
+            if cross_kv:
+                gb["cross_kv"] = cross_batch(torch, cfg, spec, step).to(dev)
+            batch = ttrain.shard_batch(gb, ts.nworkers)
             state, m = ts.fn(state, batch)
             losses.append(float(m["loss"]))
             efs.append(state["ef"])
@@ -1833,6 +2214,29 @@ def parity_phase(torch, card="cuda") -> dict:
     return counts
 
 
+def hold_parity(torch, tag, label, results, counts) -> None:
+    """Card against CPU: losses within PARITY_LOSS_RTOL, the selected
+    coordinates (the EF zero pattern) equal every step, the EF in the same
+    dtype, and the scores route's kernels launched."""
+    (lc, ec), (lg, eg) = results
+    log(f"[{tag}] {label} smoke losses cpu {lc} cuda {lg}; card launches "
+        f"{counts}")
+    if not _close(lc, lg, PARITY_LOSS_RTOL):
+        fail(f"{label}: card and CPU losses differ: {lc} vs {lg}")
+    for s, (a, b) in enumerate(zip(ec, eg)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x.dtype != y.dtype:
+                fail(f"{label}: EF dtype {y.dtype} on the card, {x.dtype} "
+                     "on the CPU")
+            if not torch.equal(x == 0, (y == 0).cpu()):
+                fail(f"{label}: selected coordinates differ at step {s} "
+                     f"bucket {i}")
+    check_launches(f"{tag} {label}", counts, ("sketch_encode",
+                                              "sketch_encode_finish",
+                                              "heavymix_scores",
+                                              "topk_select"))
+
+
 def parity_configs_phase(torch, card="cuda") -> dict:
     """Two steps of each new dense smoke config (the smoke spec with the
     arch replaced), card against CPU from the same params and batches:
@@ -1841,24 +2245,42 @@ def parity_configs_phase(torch, card="cuda") -> dict:
     for arch in NEW_SMOKE_ARCHS:
         spec = dataclasses.replace(smoke_spec(), arch=arch)
         results, c = smoke_runs(torch, spec, card=card)
-        (lc, ec), (lg, eg) = results
-        log(f"[parity] {arch} smoke losses cpu {lc} cuda {lg}; card "
-            f"launches {c}")
-        if not _close(lc, lg, PARITY_LOSS_RTOL):
-            fail(f"{arch}: card and CPU losses differ: {lc} vs {lg}")
-        for s, (a, b) in enumerate(zip(ec, eg)):
-            for i, (x, y) in enumerate(zip(a, b)):
-                if not torch.equal(x == 0, (y == 0).cpu()):
-                    fail(f"{arch}: selected coordinates differ at step {s} "
-                         f"bucket {i}")
-        check_launches(f"parity {arch}", c, ("sketch_encode",
-                                             "sketch_encode_finish",
-                                             "heavymix_scores",
-                                             "topk_select"))
+        hold_parity(torch, "parity", arch, results, c)
         counts[arch] = c
     log(f"[parity] {', '.join(NEW_SMOKE_ARCHS)}: losses within rtol "
         f"{PARITY_LOSS_RTOL}; selected coordinates equal every step")
     return counts
+
+
+def parity_families_phase(torch, card="cuda") -> dict:
+    """Two steps of each other family's smoke config (the smoke spec with
+    the arch replaced), card against CPU as ``parity_configs_phase``
+    holds the dense ones; the vlm once more with ``cross_kv`` in its
+    batches, and qwen3-moe once more under its override row's optimizer
+    and EF dtype (SGD with momentum, a bf16 EF), passed in: the row is
+    keyed by the full config's name. Returns the summed card launches."""
+    runs = [(arch, arch, {}) for arch in FAMILY_SMOKE_ARCHS]
+    runs += [("llama-3.2-vision-11b", "llama-3.2-vision-11b + cross_kv",
+              {"cross_kv": True}),
+             ("qwen3-moe-235b-a22b", "qwen3-moe-235b-a22b + sgdm, bf16 EF",
+              {"optimizer": "sgdm", "ef_dtype": torch.bfloat16})]
+    total: dict = {}
+    for arch, label, kw in runs:
+        spec = dataclasses.replace(smoke_spec(), arch=arch,
+                                   optimizer=kw.get("optimizer"))
+        results, c = smoke_runs(torch, spec, card=card,
+                                ef_dtype=kw.get("ef_dtype"),
+                                cross_kv=kw.get("cross_kv", False))
+        hold_parity(torch, "parity_families", label, results, c)
+        if kw.get("ef_dtype") is not None and results[1][1][-1][0].dtype \
+                != kw["ef_dtype"]:
+            fail(f"{label}: the EF is {results[1][1][-1][0].dtype} after "
+                 "the steps")
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    log(f"[parity_families] {len(runs)} runs: losses within rtol "
+        f"{PARITY_LOSS_RTOL}; selected coordinates equal every step")
+    return total
 
 
 def baselines_phase(torch, card="cuda"):
@@ -2384,9 +2806,18 @@ def main() -> int:
     log(f"[train_minicpm] phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
+    moe_run = train_moe_phase(torch, device)
+    log(f"[train_moe] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    hybrid = train_hybrid_phase(torch, device)
+    log(f"[train_hybrid] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
     parity_counts = parity_phase(torch)
     parity_configs_phase(torch)
     log(f"[parity] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    families = parity_families_phase(torch)
+    log(f"[parity_families] phase took {time.time() - t0:.1f} s")
     kernels.append(inter["finish_row"])
     launches = {"sketch_encode": counts, "sketch_decode": counts,
                 "topk_select": counts, "ts_encode": ts_counts,
@@ -2399,6 +2830,11 @@ def main() -> int:
         kr["launches_minicpm"] = mini["counts"].get(kr["name"], 0)
         kr["launches_parity"] = parity_counts.get(kr["name"], 0)
         kr["launches_traced"] = traced["counts"].get(kr["name"], 0)
+        kr["launches_moe"] = moe_run["counts"].get(kr["name"], 0)
+        kr["launches_hybrid"] = hybrid["counts"].get(kr["name"], 0)
+        kr["launches_hybrid_interleave"] = hybrid["interleave_counts"].get(
+            kr["name"], 0)
+        kr["launches_parity_families"] = families.get(kr["name"], 0)
         if kr["name"] == "sketch_encode":
             kr["interleave_fragments"] = inter["fragments"]
         if kr["name"] == "heavymix_scores":  # the main path's shapes first

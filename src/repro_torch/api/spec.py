@@ -561,19 +561,17 @@ class RunSpec:
                         lr=self.lr)
 
     def make_train_step(self, opt=None, dtype=None, device=None):
-        """Spec-first train-step construction (the CLI's build path). A
-        full-size arch runs in its production data-axis mode
-        (``configs.DP_MODE``: yi-9b's fsdp is not ported, so it raises);
-        smoke configs run in dp."""
+        """Spec-first train-step construction (the CLI's build path). Every
+        arch, smoke or full size, runs in 'dp' on the simulated workers,
+        as the reference's ``RunSpec`` builds it (``configs.DP_MODE`` is
+        the production policy, which this path does not consult)."""
         import torch
 
-        from repro_torch.configs import DP_MODE
         from repro_torch.core.gs_sgd import make_train_step
-        dp_mode = "dp" if self.smoke else DP_MODE.get(self.arch, "dp")
         return make_train_step(
             self.arch_config(), self.mesh_axes(),
             opt if opt is not None else self.make_optimizer(),
-            dp_mode=dp_mode, spec=self.exchange, remat=self.remat,
+            dp_mode="dp", spec=self.exchange, remat=self.remat,
             dtype=dtype if dtype is not None else torch.float32,
             device=device)
 

@@ -12,7 +12,10 @@ of ``core.allreduce``.
 Order of one step (gs_sgd.py:553 onward in the reference):
 loss+grad per worker -> pack_segs -> exchange (monolithic, or bucketed
 with the skewed schedule encode(0); reduce(i); encode(i+1); recover(i))
--> g_mean = upd / P -> optimizer.
+-> g_mean = upd / P -> optimizer. The error feedback may be stored in
+another dtype (``make_state(..., ef_dtype=)``, bf16 for qwen3-moe's
+override row): the step casts it to f32 before the exchange and the new
+residual back to its own dtype after it, as the reference's does.
 
 With ``bwd_chunks=K`` the backward is cut into K chunks
 (``model.chunked_loss_vjp``): the forward runs for every worker, then
@@ -387,15 +390,37 @@ class TrainStep:
                           self.nworkers)
 
 
+def _cast_tree(tree, dtype: torch.dtype):
+    """Every tensor of an EF state (a tensor or nested tuples of them) cast
+    to ``dtype``."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cast_tree(t, dtype) for t in tree)
+    return tree.to(dtype)
+
+
+def _stored_dtype(tree) -> torch.dtype:
+    """The EF state's storage dtype (``make_state`` gives every tensor
+    one); f32 for a state that holds none."""
+    while isinstance(tree, (tuple, list)):
+        if not tree:
+            return torch.float32
+        tree = tree[0]
+    return tree.dtype
+
+
 def make_state(params: dict, opt: Optimizer, compressor, d_local: int,
-               nworkers: int) -> dict:
-    """Replicate single-copy flat params to P workers; zero opt/EF state."""
+               nworkers: int, ef_dtype: torch.dtype = torch.float32) -> dict:
+    """Replicate single-copy flat params to P workers; zero opt/EF state.
+    ``ef_dtype``: the error-feedback state's storage dtype (the step adds
+    and encodes in f32 and stores the new residual back in this dtype)."""
     dev = params["top_s"].device
     rep = {k: v.unsqueeze(0).expand((nworkers,) + tuple(v.shape)).clone()
            for k, v in params.items()}
     opt_state = {k: opt.init(v.shape, dev) for k, v in rep.items()}
     ef = (compressor.init(d_local, nworkers, dev) if compressor is not None
           else torch.zeros((nworkers, 0), device=dev))
+    if compressor is not None and ef_dtype != torch.float32:
+        ef = _cast_tree(ef, ef_dtype)
     return {"params": rep, "opt": opt_state, "ef": ef, "step": 0}
 
 
@@ -501,7 +526,7 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
             raise ValueError(f"local batch {b_loc} is not divisible by "
                              f"microbatch {mb}")
         for p in range(nworkers):
-            wb = {k: batch[k][p] for k in ("tokens", "labels")}
+            wb = {k: v[p] for k, v in batch.items()}
             if mb >= b_loc:
                 loss, g_flat[p] = worker_loss_and_grad(params, wb, p)
             else:
@@ -525,7 +550,7 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         losses, vjps = [], []
         for p in range(nworkers):
             segs = {k: params[k][p] for k in SEG_NAMES}
-            wb = {k: batch[k][p] for k in ("tokens", "labels")}
+            wb = {k: v[p] for k, v in batch.items()}
             loss, steps, top = mdl.chunked_loss_vjp(
                 cfg, fs, segs, wb, chunks=bwd_chunks, dtype=dtype,
                 remat=remat)
@@ -535,8 +560,12 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
 
     def train_step(state: dict, batch: dict,
                    include: torch.Tensor | None = None) -> tuple[dict, dict]:
-        params, opt_state, ef, step = (state["params"], state["opt"],
-                                       state["ef"], state["step"])
+        params, opt_state, ef_stored, step = (
+            state["params"], state["opt"], state["ef"], state["step"])
+        # the EF is stored in its own dtype and added/encoded in f32
+        ef_dtype = _stored_dtype(ef_stored)
+        ef = (_cast_tree(ef_stored, torch.float32)
+              if compressor is not None else ef_stored)
         tr = obtrace.current()
         g_flat = None
         if bwd_chunks is not None:
@@ -575,6 +604,8 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                     ef_new = ef
                 sp.sync(upd)
         del g_flat
+        if compressor is not None:
+            ef_new = _cast_tree(ef_new, ef_dtype)
         with tr.span("optimizer", cat="optimizer") as sp:
             g_mean = upd / ma.dp_size
             del upd

@@ -1,9 +1,10 @@
 """Shared model machinery: configs, padded geometry, param specs.
 
-Port of ``repro/models/common.py`` for the dense ``attn`` block at any TP
-degree's *geometry* (the port itself runs tp=1). A ``Spec``'s ``pspec`` is
-a plain tuple of ``"model"``/``None`` entries, the PartitionSpec's
-contents.
+Port of ``repro/models/common.py`` for every block kind (attention, the
+cross-attention layer, MoE, RWKV6, Mamba2 and the hybrid's weight-tied
+shared attention block) at any TP degree's *geometry* (the port itself
+runs tp=1). A ``Spec``'s ``pspec`` is a plain tuple of ``"model"``/``None``
+entries, the PartitionSpec's contents.
 
 Leaf order: ``jax.tree_util.tree_flatten`` visits dict keys SORTED, and
 every ``FlatSpec`` offset follows that order. ``tree_leaves`` below walks
@@ -86,6 +87,19 @@ class ArchConfig:
         return sum(math.prod(s.shape)
                    for _, s in tree_leaves(param_specs(self, tp=tp)))
 
+    def active_params_count(self, tp: int = 1) -> int:
+        """Active-per-token params (MoE: only experts_per_tok experts)."""
+        total = self.params_count(tp)
+        if self.n_experts:
+            ex_total = sum(
+                math.prod(s.shape)
+                for path, s in tree_leaves(param_specs(self, tp)["layers"])
+                if "experts" in path)
+            n_exp = pad_to(self.n_experts, max(1, tp))
+            total = (total - ex_total
+                     + int(ex_total * self.experts_per_tok / n_exp))
+        return total
+
 
 # ---------------------------------------------------------------------------
 # Sorted-key pytree helpers (the jax.tree_util order for nested dicts)
@@ -151,6 +165,10 @@ def padded_vocab(cfg: ArchConfig, tp: int) -> int:
     return pad_to(cfg.vocab_size, max(128, tp))
 
 
+def padded_experts(cfg: ArchConfig, tp: int) -> int:
+    return pad_to(cfg.n_experts, tp) if cfg.n_experts else 0
+
+
 # ---------------------------------------------------------------------------
 # Parameter specs
 # ---------------------------------------------------------------------------
@@ -172,7 +190,7 @@ class Spec:
         return tuple(out)
 
 
-def _attn_specs(cfg: ArchConfig, tp: int) -> dict:
+def _attn_specs(cfg: ArchConfig, tp: int, cross: bool = False) -> dict:
     g = head_geometry(cfg, tp)
     d, hd = cfg.d_model, cfg.hd
     kv_pspec = (None, None) if g.kv_replicated else (None, "model")
@@ -187,6 +205,8 @@ def _attn_specs(cfg: ArchConfig, tp: int) -> dict:
     if cfg.qk_norm:
         s["q_norm"] = Spec((hd,), (None,), scale=0.0)
         s["k_norm"] = Spec((hd,), (None,), scale=0.0)
+    if cross:
+        s["kv_norm"] = Spec((d,), (None,), scale=0.0)
     return s
 
 
@@ -200,8 +220,70 @@ def _mlp_specs(cfg: ArchConfig, tp: int) -> dict:
     }
 
 
+def _moe_specs(cfg: ArchConfig, tp: int) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff  # cfg.d_ff is the per-expert ff dim
+    ne = padded_experts(cfg, tp)
+    return {
+        "router": Spec((d, ne), (None, None)),
+        "experts": {
+            "wi": Spec((ne, d, 2 * ff), ("model", None, None)),
+            "wo": Spec((ne, ff, d), ("model", None, None)),
+        },
+        "norm": Spec((d,), (None,), scale=0.0),
+    }
+
+
+def _rwkv_specs(cfg: ArchConfig, tp: int) -> dict:
+    d = cfg.d_model
+    nh = pad_to(d // cfg.ssm_head_dim, tp)  # wkv heads
+    dh = nh * cfg.ssm_head_dim              # padded inner width
+    ff = pad_to(cfg.d_ff, tp)
+    return {
+        "wr": Spec((d, dh), (None, "model")),
+        "wk": Spec((d, dh), (None, "model")),
+        "wv": Spec((d, dh), (None, "model")),
+        "wg": Spec((d, dh), (None, "model")),
+        "ww": Spec((d, dh), (None, "model"), scale=0.002),  # decay lora
+        "w_bias": Spec((dh,), ("model",), scale=0.0),
+        "bonus": Spec((dh,), ("model",), scale=0.02),        # 'u' term
+        "wo": Spec((dh, d), ("model", None)),
+        "mu": Spec((4, d), (None, None), scale=0.0),         # token-shift mix
+        "norm": Spec((d,), (None,), scale=0.0),
+        "ck": Spec((d, ff), (None, "model")),                # channel mix
+        "cv": Spec((ff, d), ("model", None)),
+        "cmu": Spec((1, d), (None, None), scale=0.0),
+        "cnorm": Spec((d,), (None,), scale=0.0),
+    }
+
+
+def _mamba_specs(cfg: ArchConfig, tp: int) -> dict:
+    d = cfg.d_model
+    nh = pad_to(max(1, d // cfg.ssm_head_dim), tp)
+    dh = nh * cfg.ssm_head_dim
+    ns = cfg.ssm_state
+    return {
+        "wx": Spec((d, dh), (None, "model")),
+        "wz": Spec((d, dh), (None, "model")),
+        "wB": Spec((d, nh * ns), (None, "model")),
+        "wC": Spec((d, nh * ns), (None, "model")),
+        "wdt": Spec((d, nh), (None, "model")),
+        "dt_bias": Spec((nh,), ("model",), scale=0.0),
+        "A_log": Spec((nh,), ("model",), scale=0.0),
+        "D": Spec((nh,), ("model",), scale=0.0),
+        "conv": Spec((4, dh), (None, "model"), scale=0.1),  # depthwise conv
+        "wo": Spec((dh, d), ("model", None)),
+        "norm": Spec((d,), (None,), scale=0.0),
+        "gnorm": Spec((dh,), ("model",), scale=0.0),  # gated RMSNorm
+    }
+
+
 _BLOCK_SPECS = {
     "attn": lambda c, t: {**_attn_specs(c, t), "mlp": _mlp_specs(c, t)},
+    "cross": lambda c, t: {**_attn_specs(c, t, cross=True),
+                           "mlp": _mlp_specs(c, t)},
+    "moe": lambda c, t: {**_attn_specs(c, t), "moe": _moe_specs(c, t)},
+    "rwkv": _rwkv_specs,
+    "mamba": _mamba_specs,
 }
 
 
@@ -221,17 +303,20 @@ def param_specs(cfg: ArchConfig, tp: int = 1) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["head"] = Spec((d, vp), (None, "model"))
+    # One sub-tree per block kind of the cycle, stacked over its
+    # occurrences and then over n_cycles; the weight-tied shared block is
+    # not per cycle and sits at the top of the tree.
     layer: dict = {}
     counts: dict[str, int] = {}
     for kind in cfg.cycle:
-        counts[kind] = counts.get(kind, 0) + 1
+        if kind != "shared_attn":
+            counts[kind] = counts.get(kind, 0) + 1
     for kind, cnt in counts.items():
-        if kind not in _BLOCK_SPECS:
-            raise NotImplementedError(
-                f"block kind {kind!r} ({cfg.family} family) is not ported "
-                "yet; the port runs the dense family")
         layer[kind] = _stack(_BLOCK_SPECS[kind](cfg, tp), cnt)
     specs["layers"] = _stack(layer, cfg.n_cycles)
+    if "shared_attn" in cfg.cycle:
+        specs["shared_attn"] = {**_attn_specs(cfg, tp),
+                                "mlp": _mlp_specs(cfg, tp)}
     return specs
 
 

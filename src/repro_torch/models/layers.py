@@ -1,5 +1,5 @@
-"""Block library for the dense family at tp=1: norms, RoPE, GQA attention,
-SwiGLU MLP, embedding, LM loss.
+"""Block library at tp=1: norms, RoPE, GQA self- and cross-attention, the
+PaLM-style parallel attention+MLP block, SwiGLU MLP, embedding, LM loss.
 
 Port of ``repro/models/layers.py`` (``mode="train"``, single device). The
 reference's flash-style blockwise attention is plain jnp, not a Pallas
@@ -39,6 +39,11 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def linear_row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Row-parallel matmul; at tp=1 the reference's psum is the identity."""
+    return x @ w.to(x.dtype)
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, q_pos: torch.Tensor,
                         kv_pos: torch.Tensor) -> torch.Tensor:
@@ -71,8 +76,47 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                    pos: torch.Tensor) -> torch.Tensor:
-    """Pre-norm causal self-attention block (train mode). x: (B,S,d)."""
+                    pos: torch.Tensor,
+                    cross_kv: torch.Tensor | None = None) -> torch.Tensor:
+    """Pre-norm attention block (train mode). x: (B,S,d).
+
+    With ``cross_kv`` (the vlm's (B, n_cross, d) precomputed patch
+    embeddings) the keys and values come from ``rmsnorm(cross_kv,
+    kv_norm)``, without RoPE, and every query sees every patch
+    (non-causal over kv_pos = 0). Without it the block is causal
+    self-attention with RoPE, as the reference runs a ``cross`` layer whose
+    batch carries no ``cross_kv`` (``kv_norm`` then gets a zero gradient).
+    """
+    hd = cfg.hd
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    B, S, _ = h.shape
+    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, -1, hd)
+    kv_src = h
+    if cross_kv is not None:
+        kv_src = rmsnorm(cross_kv.to(h.dtype), p["kv_norm"], cfg.norm_eps)
+    T = kv_src.shape[1]
+    k = (kv_src @ p["wk"].to(h.dtype)).reshape(B, T, -1, hd)
+    v = (kv_src @ p["wv"].to(h.dtype)).reshape(B, T, -1, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if cross_kv is None:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+        o = blockwise_attention(q, k, v, causal=True, q_pos=pos, kv_pos=pos)
+    else:
+        kv_pos = torch.zeros((B, T), dtype=pos.dtype, device=pos.device)
+        o = blockwise_attention(q, k, v, causal=False, q_pos=pos,
+                                kv_pos=kv_pos)
+    y = linear_row(o.reshape(B, S, -1), p["wo"])
+    return x + y.to(x.dtype)
+
+
+def parallel_attn_mlp_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                            pos: torch.Tensor) -> torch.Tensor:
+    """PaLM-style parallel block (train mode): attention and MLP branch
+    from one norm each and their outputs are summed before the residual
+    add (the reference's one row-parallel psum)."""
     hd = cfg.hd
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     B, S, _ = h.shape
@@ -85,7 +129,11 @@ def attention_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
     o = blockwise_attention(q, k, v, causal=True, q_pos=pos, kv_pos=pos)
-    y = o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+    mp = p["mlp"]
+    hm = rmsnorm(x, mp["norm"], cfg.norm_eps)
+    act = F.silu(hm @ mp["wg"].to(h.dtype)) * (hm @ mp["wu"].to(h.dtype))
+    y = (o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
+         + act @ mp["wo"].to(h.dtype))
     return x + y.to(x.dtype)
 
 

@@ -645,3 +645,74 @@ def test_span_lasts_at_least_its_kernels_event_time(card):
     torch.cuda.synchronize()
     with obtrace.NULL.span("encode/b0", cat="encode") as sp:
         assert sp.sync(sk) is sk
+
+
+FAMILY_RUNS = [("granite-moe-3b-a800m", {}), ("qwen3-moe-235b-a22b", {}),
+               ("qwen3-moe-235b-a22b", {"optimizer": "sgdm",
+                                        "ef_bf16": True}),
+               ("rwkv6-7b", {}), ("zamba2-2.7b", {}),
+               ("llama-3.2-vision-11b", {}),
+               ("llama-3.2-vision-11b", {"cross_kv": True}),
+               ("musicgen-large", {})]
+
+
+@pytest.mark.parametrize("arch,kw", FAMILY_RUNS,
+                         ids=[a + "".join(f"-{k}" for k in kw)
+                              for a, kw in FAMILY_RUNS])
+def test_family_smoke_steps_card_match_cpu(card, arch, kw):
+    """Two steps of each other family's smoke config (the smoke spec with
+    the arch replaced) on the card and on the CPU from the same params and
+    batches: losses within 1e-3 (f32 matmuls and sums in another order,
+    then the optimizer), the selected coordinates (the EF zero pattern)
+    equal every step, the EF's dtype kept, and the kernels of the scores
+    route launched on the card. The vlm also with seeded ``cross_kv``
+    patch embeddings; qwen3-moe also under its override row's SGD with
+    momentum and bf16 EF, passed in."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from repro_torch.api import RunSpec
+    from repro_torch.core.gs_sgd import make_state
+    from repro_torch.data import LMStream
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.flatten import init_flat_params
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "specs", "qwen3_smoke.json")
+    spec = dataclasses.replace(RunSpec.load(path), arch=arch,
+                               optimizer=kw.get("optimizer"))
+    ef_dtype = torch.bfloat16 if kw.get("ef_bf16") else torch.float32
+    runs = []
+    for dev in (torch.device("cpu"), card):
+        cfg, opt, _, ts = ttrain.build(spec, dev)
+        params = init_flat_params(cfg, torch.Generator().manual_seed(0), 1,
+                                  ts.fs)
+        st = make_state({k: v.to(dev) for k, v in params.items()}, opt,
+                        ts.compressor, ts.d_local, ts.nworkers,
+                        ef_dtype=ef_dtype)
+        stream = LMStream(vocab_size=cfg.vocab_size, seq_len=spec.seq,
+                          global_batch=spec.batch, seed=spec.seed)
+        LAUNCHES.clear()
+        losses, sel = [], []
+        for step in range(2):
+            gb = stream.global_batch_at(step, dev)
+            if kw.get("cross_kv"):
+                rs = np.random.RandomState(step)
+                gb["cross_kv"] = torch.from_numpy(rs.randn(
+                    spec.batch, cfg.n_cross_tokens, cfg.d_model).astype(
+                        np.float32)).to(dev)
+            st, m = ts.fn(st, ttrain.shard_batch(gb, ts.nworkers))
+            losses.append(float(m["loss"]))
+            sel.append([(e == 0).cpu() for e in st["ef"]])
+        runs.append((losses, sel, [e.dtype for e in st["ef"]],
+                     dict(LAUNCHES)))
+    (lc, sc, dc, _), (lg, sg, dg, counts) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+    for a, b in zip(sc, sg):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert dc == dg == [ef_dtype] * len(dc)
+    for name in ("sketch_encode", "sketch_encode_finish", "heavymix_scores",
+                 "topk_select"):
+        assert counts.get(name, 0) > 0, name

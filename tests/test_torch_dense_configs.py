@@ -1,7 +1,9 @@
 """Port parity: the dense architectures' configs (yi-9b, minicpm-2b,
-starcoder2-3b) and ``configs/shapes.py``.
+starcoder2-3b), the registry's rows for all ten archs, the spec's
+full-size train step and ``configs/shapes.py``.
 
-The registry rows must equal the reference's field for field. Two gs-SGD
+The registry rows (ARCHS, SMOKES, DP_MODE, TRAIN_OVERRIDES) must equal
+the reference's field for field. Two gs-SGD
 steps of each new smoke config (examples/specs/qwen3_smoke.json with the
 arch replaced: P = 2, buckets 2, psum, AdamW) run in both packages from the
 reference's params and batches, as tests/test_torch_gs_sgd.py does for
@@ -29,7 +31,7 @@ from tests.test_torch_gs_sgd import SPEC, _run
 NEW = ("yi-9b", "minicpm-2b", "starcoder2-3b")
 
 
-@pytest.mark.parametrize("arch", NEW + ("qwen3-4b",))
+@pytest.mark.parametrize("arch", sorted(jconf.ARCHS))
 def test_registry_rows_equal_reference(arch):
     assert (dataclasses.asdict(tconf.ARCHS[arch])
             == dataclasses.asdict(jconf.ARCHS[arch]))
@@ -38,6 +40,15 @@ def test_registry_rows_equal_reference(arch):
     assert tconf.DP_MODE[arch] == jconf.DP_MODE[arch]
     assert tconf.get(arch) == tconf.ARCHS[arch]
     assert tconf.get_smoke(arch) == tconf.SMOKES[arch]
+    name = tconf.ARCHS[arch].name
+    assert tconf.TRAIN_OVERRIDES.get(name) == jconf.TRAIN_OVERRIDES.get(name)
+
+
+def test_registries_hold_the_reference_archs():
+    assert list(tconf.ARCHS) == list(jconf.ARCHS)
+    assert list(tconf.SMOKES) == list(jconf.SMOKES)
+    assert tconf.DP_MODE == jconf.DP_MODE
+    assert tconf.TRAIN_OVERRIDES == jconf.TRAIN_OVERRIDES
 
 
 def test_shapes_equal_reference():
@@ -71,14 +82,39 @@ def test_smoke_config_two_steps_match_reference(arch):
 
 
 def test_fsdp_arch_at_full_size_raises():
-    """yi-9b's production mode is fsdp, which the port does not run: the
-    spec's train step raises before allocating anything; its smoke config
-    runs in dp."""
+    """The fsdp storage mode itself is not ported: ``make_train_step`` with
+    ``dp_mode="fsdp"`` raises before allocating anything. A full-size
+    fsdp arch's spec does not ask for it: like the reference's
+    ``RunSpec``, it builds the dp step (see the test below); its smoke
+    config runs in dp too."""
+    from repro_torch.core.gs_sgd import make_train_step
     spec = dataclasses.replace(TSpec.load(SPEC), arch="yi-9b", smoke=False)
     with pytest.raises(NotImplementedError, match="fsdp"):
-        spec.make_train_step(device="cpu")
+        make_train_step(spec.arch_config(), spec.mesh_axes(),
+                        spec.make_optimizer(), dp_mode="fsdp",
+                        spec=spec.exchange, device="cpu")
+    assert spec.make_train_step(device="cpu").dp_mode == "dp"
     smoke = dataclasses.replace(spec, smoke=True)
     assert smoke.make_train_step(device="cpu").dp_mode == "dp"
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "rwkv6-7b",
+                                  "llama-3.2-vision-11b"])
+def test_fsdp_arch_at_full_size_builds_dp_step(arch):
+    """Every full-size arch whose production mode is fsdp builds the dp
+    step through its spec, as the reference's ``RunSpec.make_train_step``
+    does (the fault F4 of ROADMAP.md raised here). Only the step is
+    built: nothing of the full-size state is allocated."""
+    assert jconf.DP_MODE[arch] == "fsdp"
+    tspec = dataclasses.replace(TSpec.load(SPEC), arch=arch, smoke=False)
+    jspec = dataclasses.replace(JSpec.load(SPEC), arch=arch, smoke=False)
+    t, j = tspec.make_train_step(device="cpu"), jspec.make_train_step()
+    assert t.dp_mode == j.dp_mode == "dp"
+    assert t.d_local == j.d_local == tspec.resolve_d()
+    assert t.compressor.spec.sizes == j.compressor.spec.sizes
+    assert [(c.k, c.sketch.rows, c.sketch.width) for c in t.compressor.parts
+            ] == [(c.k, c.sketch.rows, c.sketch.width)
+                  for c in j.compressor.parts]
 
 
 def test_cli_runs_a_new_config_on_cpu(capsys):

@@ -51,32 +51,40 @@ def _batches(spec, steps):
             for s in range(steps)]
 
 
-def _run(jspec, jts, opt, tts, topt, steps=2):
+def _run(jspec, jts, opt, tts, topt, steps=2, ef_bf16=False):
     """Both packages' steps from the reference's initial params, on the
-    reference's batches."""
+    reference's batches. ``ef_bf16``: both states store the error
+    feedback in bfloat16 (``make_state(..., ef_dtype=)``); the EF is
+    returned as f32 numpy either way, and its dtypes under ``ef_dtypes``."""
     P = jspec.cluster.p
     batches = _batches(jspec, steps)
     params = j_init(jspec.arch_config(), jax.random.PRNGKey(jspec.seed), 1,
                     jts.fs)
     seg_np = {k: np.asarray(v) for k, v in params.items()}
-    jstate = j_make_state(params, opt, jts.compressor, jts.d_local)
+    jstate = j_make_state(params, opt, jts.compressor, jts.d_local,
+                          **({"ef_dtype": jnp.bfloat16} if ef_bf16 else {}))
     jstate = jax.tree_util.tree_map(
         lambda a: jnp.broadcast_to(a, (P,) + a.shape), jstate)
     jstep = jax.jit(jax.vmap(jts.fn, axis_name="data"))
     tstate = t_make_state(params_from_numpy(seg_np, tts.fs, "cpu"), topt,
-                          tts.compressor, tts.d_local, P)
+                          tts.compressor, tts.d_local, P,
+                          **({"ef_dtype": torch.bfloat16} if ef_bf16
+                             else {}))
     out = {"j_loss": [], "t_loss": [], "j_ef": [], "t_ef": [], "t_u": []}
     for gb in batches:
         jb = {k: jnp.asarray(v.reshape((P, -1) + v.shape[1:]))
               for k, v in gb.items()}
         jstate, jm = jstep(jstate, jb)
         out["j_loss"].append(float(jm["loss"][0]))
-        out["j_ef"].append([np.asarray(e) for e in jstate["ef"]])
+        out["j_ef"].append([np.asarray(e, dtype=np.float32)
+                            for e in jstate["ef"]])
         tb = ttrain.shard_batch({k: torch.from_numpy(v.copy())
                                  for k, v in gb.items()}, P)
         tstate, tm = tts.fn(tstate, tb)
         out["t_loss"].append(float(tm["loss"]))
-        out["t_ef"].append([e.numpy().copy() for e in tstate["ef"]])
+        out["t_ef"].append([e.float().numpy().copy() for e in tstate["ef"]])
+    out["ef_dtypes"] = ([str(e.dtype) for e in jstate["ef"]],
+                        [e.dtype for e in tstate["ef"]])
     out["j_params"] = {k: np.asarray(v) for k, v in jstate["params"].items()}
     out["t_params"] = {k: v.numpy() for k, v in tstate["params"].items()}
     out["tts"] = tts
