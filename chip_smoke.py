@@ -158,6 +158,29 @@ Phases (any failure exits non-zero and prints no result line):
                 llama-3.2-vision once more with seeded ``cross_kv`` patch
                 embeddings in its batches, and qwen3-moe once more with its
                 override row's SGD with momentum and bf16 EF, passed in.
+7c. train_cnn — the paper's experiment at full size (bench/cnn_dist.py):
+                ResNet-20 (d = 272,282) and VGG-16 (d = 14,724,042), P = 4,
+                global batch 32, gs-SGD at time_breakdown.paper_geometry's
+                (k, W) ((1,089, 1,024) and (58,896, 32,768)), R = 5, SGD
+                with momentum at lr 0.02, cuDNN deterministic and TF32 off:
+                five counted steps each (the encode, its finish and the
+                select once a worker and step; ResNet-20 the scores kernel
+                and never the decode, VGG-16 the reverse; no plain version
+                called); a second run with the same loss bits; five steps
+                with cuDNN nondeterministic and its autotuner (the cost of
+                the deterministic mode); one more step whose worker-0
+                gradient runs through the cell's kernels, bit-equal to
+                plain and timed at its shapes (``cnn_shapes`` in the kernels
+                line); the CPU port's steps from the same params and
+                batches (ResNet-20 all five, VGG-16 the first): losses
+                within PARITY_LOSS_RTOL, and the first step's selection
+                equal but for near-ties (CNN_TIE_RTOL).
+7d. paper_table2 — ``bench.throughput.main`` on the card (Table II at full
+                size): each method's t_compu, t_compr, t_commu (Eq. 1 at
+                1 GbE), images/s measured and modelled, g/k and g/s; no
+                ratio asserted.
+7e. paper_figs — ``bench.convergence.main`` and ``bench.k_sensitivity.main``
+                (Figs. 2-3, 6-7) for 10 steps on the card: finite losses.
 8. baselines — every compressor of the registry, two smoke-spec steps on the
                 card and on the CPU from the same params and batches.
 9. cli       — ``python -m repro_torch.launch.train --spec
@@ -175,7 +198,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 Every path that launches kernels (train, train_traced, train_watched,
 train_ts, train_interleave, train_minicpm, train_moe, train_hybrid and its
-interleave, parity, parity_families) runs with every
+interleave, parity, parity_families, train_cnn) runs with every
 launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts. The
 select's slab-overflow counter is zeroed before each path too and read
@@ -258,6 +281,24 @@ HYBRID_LAYERS, HYBRID_D, HYBRID_CHUNKS = 12, 663_336_448, 2
 FAMILY_SMOKE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
                       "rwkv6-7b", "zamba2-2.7b", "llama-3.2-vision-11b",
                       "musicgen-large")
+
+# The paper's experiment (train_cnn): ResNet-20 and VGG-16 at full size,
+# P = 4, global batch 32, gs-SGD at time_breakdown.paper_geometry's (k, W),
+# R = 5, SGD with momentum 0.9 at lr 0.02 (bench/cnn_dist.py). d as
+# tests/test_torch_paper_bench.py pins them; VGG-16's d is past 2^22 and
+# 4k (the decode route), ResNet-20's is not (the scores route). The CPU
+# side runs ResNet-20's steps in full and VGG-16's first step (its plain
+# encode and decode take ~8 s a worker on a CPU).
+CNN_P, CNN_BATCH, CNN_STEPS, CNN_LR, CNN_FIG_STEPS = 4, 32, 5, 0.02, 10
+CNN_CELLS = (("resnet20", 272_282, False, CNN_STEPS),
+             ("vgg16", 14_724_042, True, 1))
+CNN_TIE_RTOL = 1e-3  # a coordinate the card and the CPU select differently
+#                      must score within this of the k-th score (or its
+#                      est^2 of the heavy threshold) in the card's recovery:
+#                      the two f32 backwards round their convolutions in
+#                      another order, and a pre-activation within rounding
+#                      of 0 moves a few gradients by up to ~2e-3
+#                      (tests/test_torch_cnn_dist.py)
 
 
 def log(msg: str) -> None:
@@ -1331,18 +1372,30 @@ def span_split(events) -> dict:
 def profile_phase(torch, ts, state, stream, tag="profile"):
     """One more step under torch.profiler: device time per span. Returns
     the state and the split (wall, busy, spans, idle share, peak)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch.train import shard_batch
     batch = shard_batch(stream.global_batch_at(TRAIN_STEPS, ts.device),
                         ts.nworkers)
+
+    def step():
+        st, m = ts.fn(state, batch)
+        float(m["loss"])
+        return st
+
+    return profile_call(torch, tag, step)
+
+
+def profile_call(torch, tag, fn):
+    """``fn()`` once under torch.profiler: device time per span (``PHASES``;
+    a path without spans has all of it outside them), the idle share, the
+    peak memory and the largest kernels. Returns (fn's result, the
+    split)."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        state, m = ts.fn(state, batch)
-        float(m["loss"])
+        result = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     path = os.path.join(ROOT, "build", f"{tag}_trace.json")
@@ -1371,7 +1424,7 @@ def profile_phase(torch, ts, state, stream, tag="profile"):
         log(f"[{tag}] kernel {ms:10.3f} ms  {name[:110]}")
     if busy_ms <= 0:
         log(f"[{tag}] the profiler saw no device time: not measured")
-    return state, out
+    return result, out
 
 
 def fragment_encode_checks(torch, device, ts) -> tuple[list[dict], dict]:
@@ -1843,23 +1896,26 @@ def train_minicpm_phase(torch, device) -> dict:
             "profile": prof}
 
 
-def check_decode_route(tag, ts, counts, plain) -> None:
-    """A path whose buckets are all past 2^22 coordinates: the encode, its
-    finish, the decode and the select once a bucket, worker and step; the
-    scores kernels, the TS kernels and the plain versions never."""
-    recoveries = ts.nworkers * ts.n_buckets * TRAIN_STEPS
-    for name in ("sketch_encode", "sketch_encode_finish", "sketch_decode",
+def check_route(tag, counts, plain, recoveries, decode=True) -> None:
+    """A path whose recoveries all take one route: the encode, its finish,
+    the select and the route's kernel (``sketch_decode``, or with
+    ``decode=False`` ``heavymix_scores``) ``recoveries`` times each (once a
+    bucket, worker and step); the other route's kernel, the TS kernels and
+    the plain versions never."""
+    route, other = (("sketch_decode", "heavymix_scores") if decode
+                    else ("heavymix_scores", "sketch_decode"))
+    for name in ("sketch_encode", "sketch_encode_finish", route,
                  "topk_select"):
         if counts.get(name) != recoveries:
             fail(f"{name} launched {counts.get(name)} times on the {tag} "
                  f"path, not {recoveries} (once a bucket, worker and step)")
-    check_launches(tag, counts, (), ("heavymix_scores", "heavymix_scores_ts",
+    check_launches(tag, counts, (), (other, "heavymix_scores_ts",
                                      "ts_transpose", "ts_encode"))
     if plain:
         fail(f"plain versions called on the {tag} path: {plain}")
-    log(f"[{tag}] launches {counts}: encode, finish, decode and select "
-        f"{recoveries} each = {ts.nworkers} workers x {ts.n_buckets} "
-        f"buckets x {TRAIN_STEPS} steps; no plain version called")
+    log(f"[{tag}] launches {counts}: encode, finish, {route} and select "
+        f"{recoveries} each (buckets x workers x steps); no plain version "
+        "called")
 
 
 def family_cell(torch, device, cfg, want_d, **kw):
@@ -1919,13 +1975,13 @@ def drop_share(torch, cfg, ts, state, gb) -> float:
 
 class captured_buckets:
     """While open, ``GsSGD.stage_encode`` and ``stage_encode_merge`` (the
-    fused interleave's) also keep, once per bucket of ``ts``, a copy of
-    worker 0's packed vector u (the EF plus its gradient: the encode's
-    input) and of the f32 sketch the step made of it. Returns the dict
-    bucket -> (u, sketch)."""
+    fused interleave's) also keep, once per bucket (one compressor of
+    ``parts``), a copy of worker 0's packed vector u (the EF plus its
+    gradient: the encode's input) and of the f32 sketch the step made of
+    it. Returns the dict bucket -> (u, sketch)."""
 
-    def __init__(self, ts):
-        self.index = {id(c): b for b, c in enumerate(ts.compressor.parts)}
+    def __init__(self, parts):
+        self.index = {id(c): b for b, c in enumerate(parts)}
 
     def __enter__(self):
         from repro_torch.core import compression as comp
@@ -1956,7 +2012,7 @@ def capture_step(torch, ts, state, stream):
     from repro_torch.launch.train import shard_batch
     batch = shard_batch(stream.global_batch_at(TRAIN_STEPS + 1, ts.device),
                         ts.nworkers)
-    with captured_buckets(ts) as got:
+    with captured_buckets(ts.compressor.parts) as got:
         state, m = ts.fn(state, batch)
         float(m["loss"])
     if sorted(got) != list(range(ts.n_buckets)):
@@ -1964,16 +2020,21 @@ def capture_step(torch, ts, state, stream):
     return state, got
 
 
-def route_checks(torch, tag, ts, got) -> None:
+def route_checks(torch, tag, parts, got, timed=False) -> dict:
     """The path's kernels at the path's own shapes, on worker 0's packed
-    vector u of each bucket (``capture_step``): the sketch the step made
-    and ``sketch_encode`` (the accumulate and its finish) of u bit-equal to
-    ``sketch_encode_plain``; on that sketch the bucket's route kernel
-    (``sketch_decode`` with its histogram, or ``heavymix_scores`` with
-    its histogram, as ``decode_route`` says) bit-equal to its plain
-    version and the histogram equal to the plain one; ``topk_select`` of
-    those keys equal to ``topk_select_plain``, indices and value bits."""
+    vector u of each bucket (``capture_step``; bucket b's compressor is
+    ``parts[b]``): the sketch the step made and ``sketch_encode`` (the
+    accumulate and its finish) of u bit-equal to ``sketch_encode_plain``;
+    on that sketch the bucket's route kernel (``sketch_decode`` with its
+    histogram, or ``heavymix_scores`` with its histogram, as
+    ``decode_route`` says) bit-equal to its plain version and the
+    histogram equal to the plain one; ``topk_select`` of those keys equal
+    to ``topk_select_plain``, indices and value bits. ``timed``: also
+    time each kernel, its plain version and its library call at these
+    shapes; returns kernel name -> [shape row, a bucket]."""
     from repro_torch.core import count_sketch as cs
+    from repro_torch.kernels.heavymix_topk import (heavymix_scores_hist,
+                                                   heavymix_scores_plain)
     from repro_torch.kernels.sketch_decode import (sketch_decode_hist,
                                                    sketch_decode_plain)
     from repro_torch.kernels.sketch_encode import (sketch_encode,
@@ -1981,9 +2042,10 @@ def route_checks(torch, tag, ts, got) -> None:
     from repro_torch.kernels.topk_select import (radix_hist_plain,
                                                  topk_select,
                                                  topk_select_plain)
-    for b in range(ts.n_buckets):
+    rows: dict = {}
+    for b in range(len(parts)):
         u, sk_step = got.pop(b)
-        part = ts.compressor.parts[b]
+        part = parts[b]
         cfg, k, d = part.sketch, part.k, u.shape[0]
         R, W = cfg.rows, cfg.width
         sk = sketch_encode(cfg, u)
@@ -1993,7 +2055,20 @@ def route_checks(torch, tag, ts, got) -> None:
         if not all(same.values()):
             fail(f"{tag} bucket {b} (d={d}, R={R}, W={W}): the encode is not "
                  f"bit-equal to plain: {same}")
-        del sk_p, sk_step, u
+        del sk_p, sk_step
+        shape = f"{tag} bucket {b} (d={d}, R={R}, W={W}, k={k})"
+        if timed:
+            def ids_vals(lo, hi):
+                bk, sg = cs.hash_buckets(cfg, torch.arange(lo, hi,
+                                                           device=u.device))
+                return bk, sg * u[lo:hi]
+
+            rows.setdefault("sketch_encode", []).append(_timed_shape(
+                torch, shape, lambda: sketch_encode(cfg, u),
+                lambda: sketch_encode_plain(cfg, u),
+                _index_add_ms(torch, u.device, R, W, d, ids_vals)[0],
+                bound_ms(d * 4 + R * W * 4, d * R * 7.0)))
+        ops_per = R * 6.0 + R * (R - 1)   # hashes + compare-exchanges
         if decode_route(part, d):
             route = "sketch_decode"
             key, hist = sketch_decode_hist(cfg, sk, d)
@@ -2006,25 +2081,56 @@ def route_checks(torch, tag, ts, got) -> None:
                 fail(f"{tag} bucket {b} (d={d}): sketch_decode's histogram "
                      "differs from the plain one")
             del key_p
+            if timed:
+                rows.setdefault(route, []).append(_timed_shape(
+                    torch, shape, lambda: sketch_decode_hist(cfg, sk, d),
+                    lambda: sketch_decode_plain(cfg, sk, d),
+                    _decode_library_ms(torch, u.device, cfg, sk, d)[0],
+                    bound_ms(R * W * 4 + d * 4 + 2048 * 4, d * ops_per)))
         else:   # scores, est and histogram held against plain inside
             route = "heavymix_scores"
+            thr = cs.l2sq_estimate(sk) / k
             key, est, hist, _ = check_scores_hist(
-                torch, f"{tag} bucket {b}", cfg, sk, cs.l2sq_estimate(sk) / k,
-                d)
+                torch, f"{tag} bucket {b}", cfg, sk, thr, d)
             del est
+            if timed:
+                rows.setdefault(route, []).append(_timed_shape(
+                    torch, shape, lambda: heavymix_scores_hist(cfg, sk, thr,
+                                                               d),
+                    lambda: heavymix_scores_plain(cfg, sk, thr, d), None,
+                    bound_ms(R * W * 4 + 4 + 2 * d * 4 + 2048 * 4,
+                             d * (ops_per + 4))))
         v, i = topk_select(key, k, hist)
         v_p, i_p = topk_select_plain(key, k, hist)
         if not (torch.equal(i, i_p)
                 and torch.equal(v.view(torch.int32), v_p.view(torch.int32))):
             fail(f"{tag} bucket {b} (d={d}, k={k}): topk_select differs from "
                  f"plain ({int((i != i_p).sum())} of {k} indices)")
+        if timed:
+            rows.setdefault("topk_select", []).append(_timed_shape(
+                torch, shape, lambda: topk_select(key, k, hist),
+                lambda: topk_select_plain(key, k, hist),
+                time_ms(torch, lambda: torch.topk(key, k, sorted=False),
+                        reps=3),
+                bound_ms(d * 4 + 2048 * 4 + k * 12, d * 3.0)))
         log(f"[{tag}] bucket {b} (d={d}, R={R}, W={W}, d*R={d * R}, k={k}), "
             f"worker 0's packed gradient: the step's sketch and "
             f"sketch_encode bit-equal to plain; {route} and its histogram "
             "equal to plain; topk_select equal to plain (indices, value "
             "bits)")
-        del key, hist, v, i, v_p, i_p, sk
+        del key, hist, v, i, v_p, i_p, sk, u
         torch.cuda.empty_cache()
+    return rows
+
+
+def _timed_shape(torch, shape, call, plain, library_ms, bound) -> dict:
+    """A kernel's numbers at one shape (bit-equal to plain: checked by
+    the caller)."""
+    return {"shape": shape, "max_abs_err": 0.0,
+            "ms": time_ms(torch, call, reps=10),
+            "plain_ms": time_ms(torch, plain, reps=2),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
 
 
 def train_moe_phase(torch, device) -> dict:
@@ -2054,7 +2160,8 @@ def train_moe_phase(torch, device) -> dict:
         run = train_phase(torch, cfg, opt, ts, tag="train_moe",
                           between=lambda st, gb: shares.append(
                               drop_share(torch, cfg, ts, st, gb)))
-    check_decode_route("train_moe", ts, run["counts"], plain)
+    check_route("train_moe", run["counts"], plain,
+                ts.nworkers * ts.n_buckets * TRAIN_STEPS)
     log(f"[train_moe] dropped share of the (token, choice) pairs per step "
         f"({cfg.n_layers} MoE blocks x {ts.nworkers} workers a step, "
         f"capacity {cap}; each from an untimed no-grad forward of the "
@@ -2064,7 +2171,7 @@ def train_moe_phase(torch, device) -> dict:
     state, got = capture_step(torch, ts, state, run["stream"])
     del state
     torch.cuda.empty_cache()
-    route_checks(torch, "train_moe", ts, got)
+    route_checks(torch, "train_moe", ts.compressor.parts, got)
     del ts
     torch.cuda.empty_cache()
     return {**run, "profile": prof, "capacity": cap, "drop_shares": shares}
@@ -2086,13 +2193,14 @@ def train_hybrid_phase(torch, device) -> dict:
         f"{cfg.n_cycles} cycles, each closed by the shared block")
     with plain_calls() as plain:
         run = train_phase(torch, cfg, opt, ts, tag="train_hybrid")
-    check_decode_route("train_hybrid", ts, run["counts"], plain)
+    check_route("train_hybrid", run["counts"], plain,
+                ts.nworkers * ts.n_buckets * TRAIN_STEPS)
     state, prof = profile_phase(torch, ts, run.pop("state"), run["stream"],
                                 tag="profile_hybrid")
     state, got = capture_step(torch, ts, state, run["stream"])
     del state
     torch.cuda.empty_cache()
-    route_checks(torch, "train_hybrid", ts, got)
+    route_checks(torch, "train_hybrid", ts.compressor.parts, got)
     del ts
     torch.cuda.empty_cache()
     _, _, ts_i = family_cell(torch, device, hcfg, HYBRID_D,
@@ -2111,7 +2219,8 @@ def train_hybrid_phase(torch, device) -> dict:
     state, got = capture_step(torch, ts_i, state, inter["stream"])
     del state
     torch.cuda.empty_cache()
-    route_checks(torch, "train_hybrid_interleave", ts_i, got)
+    route_checks(torch, "train_hybrid_interleave", ts_i.compressor.parts,
+                 got)
     del ts_i
     torch.cuda.empty_cache()
     _, _, ts_b = family_cell(torch, device, hcfg, HYBRID_D,
@@ -2124,6 +2233,214 @@ def train_hybrid_phase(torch, device) -> dict:
     return {**run, "profile": prof, "interleave_counts": inter["counts"],
             "interleave": {k: inter[k] for k in ("losses", "times", "peak")},
             "bucketed4": {k: base[k] for k in ("losses", "times", "peak")}}
+
+
+class kept_recoveries:
+    """While open, ``GsSGD.stage_reduce`` and ``_SketchBased._recover``
+    also keep worker 0's copy of each summed sketch and of the indices
+    HEAVYMIX selects from it: {"sums": [...], "idx": [...]}, in call
+    order."""
+
+    def __enter__(self):
+        from repro_torch.core import compression as comp
+        kept = {"sums": [], "idx": []}
+        self.saved = [(comp.GsSGD, "stage_reduce", comp.GsSGD.stage_reduce),
+                      (comp._SketchBased, "_recover",
+                       comp._SketchBased._recover)]
+
+        def reduce(part, *a, _f=self.saved[0][2], **kw):
+            sk_sum, scale = _f(part, *a, **kw)
+            kept["sums"].append(sk_sum[0].clone())
+            return sk_sum, scale
+
+        def recover(part, *a, _f=self.saved[1][2], **kw):
+            upd, idx = _f(part, *a, **kw)
+            kept["idx"].append(idx[0].clone())
+            return upd, idx
+
+        comp.GsSGD.stage_reduce, comp._SketchBased._recover = reduce, recover
+        return kept
+
+    def __exit__(self, *exc):
+        for cls, name, f in self.saved:
+            setattr(cls, name, f)
+
+
+def cnn_steps(torch, model, part, device, steps):
+    """``steps`` steps of the paper's step (``cnn_dist.make_step``) from
+    seed 0's params (drawn on the CPU, so every device starts equal) and
+    ``ImageStream`` seed 0. Returns (step fn, state, losses, host seconds
+    a step)."""
+    from repro_torch.bench import cnn_dist
+    params = cnn_dist.init_params(model, "cpu")
+    step, state, _, _ = cnn_dist.make_step(
+        model, part, CNN_P, lr=CNN_LR, device=device,
+        params={k: {j: v.to(device) for j, v in blk.items()}
+                for k, blk in params.items()})
+    losses, times = [], []
+    for i in range(steps):
+        b = cnn_batch(i, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, (loss, _) = step(state, *b)
+        losses.append(float(loss))   # a device sync
+        times.append(time.perf_counter() - t0)
+    return step, state, losses, times
+
+
+def unexplained_swaps(torch, part, sk_sum, d, coords, decode) -> list:
+    """The coordinates of ``coords`` that a near-tie does not explain in
+    the recovery from ``sk_sum``: |score - k-th score| and |est^2 - l2^2/k|
+    both above CNN_TIE_RTOL of their reference (the decode route ranks
+    |est| alone)."""
+    from repro_torch.core import count_sketch as cs
+    if not coords:
+        return []
+    est = cs.decode(part.sketch, sk_sum.cpu(), d)
+    thr = float(cs.l2sq_estimate(sk_sum.cpu())) / part.k
+    score = est.abs() if decode else torch.where(
+        est * est >= thr, est.abs() + 1e30, est.abs())
+    kth = float(torch.topk(score, part.k).values[-1])
+    return [i for i in coords
+            if abs(float(score[i]) - kth) > CNN_TIE_RTOL * kth
+            and abs(float(est[i]) ** 2 - thr) > CNN_TIE_RTOL * thr]
+
+
+def train_cnn_phase(torch, device) -> dict:
+    """The paper's experiment at full size, each model: CNN_STEPS counted
+    steps on the route its d gives it, a second run with the same bits,
+    the cost of cuDNN's deterministic mode, the route checks (timed) on
+    worker 0's gradient of one more step, and the CPU port's steps from the
+    same params and batches (losses, the first step's selection); one
+    profiled step."""
+    from repro_torch.bench import cnn_dist
+    from repro_torch.bench.time_breakdown import paper_geometry
+    from repro_torch.core.count_sketch import l2sq_estimate as cs_l2sq
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.kernels.sketch_decode import sketch_decode
+    out = {}
+    for model, want_d, decode, cpu_steps in CNN_CELLS:
+        tag = f"train_cnn_{model}"
+        d = sum(x.numel() for blk in cnn_dist.init_params(model, "cpu")
+                .values() for x in blk.values())
+        if d != want_d:
+            fail(f"{model}: d = {d}, not {want_d}")
+        k, width = paper_geometry(d)
+        part = cnn_dist.make_compressor("gs-sgd", k=k, rows=5, width=width)
+        log(f"[{tag}] full size, d={d}, P={CNN_P}, global batch "
+            f"{CNN_BATCH}, gs-SGD k={k} R=5 W={width}, SGD momentum 0.9 "
+            f"lr {CNN_LR}; route {'decode' if decode else 'scores'}")
+        with plain_calls() as plain, kept_recoveries() as kept:
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            step, state, losses, times = cnn_steps(torch, model, part,
+                                                   device, CNN_STEPS)
+            counts = dict(LAUNCHES)
+        check_route(tag, counts, plain, CNN_P * CNN_STEPS, decode=decode)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"non-finite loss on the {tag} path: {losses}")
+        again = cnn_steps(torch, model, part, device, CNN_STEPS)[2]
+        if again != losses:
+            fail(f"{tag}: a second run's losses {again} are not the first's "
+                 f"{losses} (cuDNN deterministic)")
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+        try:
+            fast = cnn_steps(torch, model, part, device, CNN_STEPS)[3]
+        finally:
+            cnn_dist.prepare_device(device)
+        ms = sorted(t * 1e3 for t in times[1:])
+        fast_ms = sorted(t * 1e3 for t in fast[1:])
+        log(f"[{tag}] losses {losses}; the same bits in a second run; step "
+            f"ms after the first {ms} (median {ms[len(ms) // 2]:.3f}); "
+            f"cuDNN nondeterministic with its autotuner: {fast_ms} (median "
+            f"{fast_ms[len(fast_ms) // 2]:.3f})")
+        prof = profile_call(torch, f"profile_cnn_{model}", lambda: float(
+            step(state, *cnn_batch(CNN_STEPS, device))[1][0]))[1]
+        with captured_buckets([part]) as got:
+            step(state, *cnn_batch(CNN_STEPS + 1, device))
+        del state
+        shapes = route_checks(torch, tag, [part], got, timed=True)
+        with kept_recoveries() as kept_cpu:
+            cpu_losses = cnn_steps(torch, model, part, torch.device("cpu"),
+                                   cpu_steps)[2]
+        if not _close(losses[:cpu_steps], cpu_losses, PARITY_LOSS_RTOL):
+            fail(f"{tag}: card losses {losses[:cpu_steps]}, CPU {cpu_losses}")
+        swaps = sorted(set(kept["idx"][0].tolist())
+                       ^ set(kept_cpu["idx"][0].tolist()))
+        bad = unexplained_swaps(torch, part, kept["sums"][0], d, swaps,
+                                decode)
+        sk0 = kept["sums"][0]
+        est = sketch_decode(part.sketch, sk0, d)
+        heavy = int((est * est >= cs_l2sq(sk0) / k).sum())
+        del est
+        if bad or len(swaps) > part.k // 100:
+            fail(f"{tag}: the first step selects {len(swaps)} coordinates "
+                 f"differently on the card and the CPU; not near-ties: {bad}")
+        log(f"[{tag}] card vs CPU: losses within rtol {PARITY_LOSS_RTOL} "
+            f"over {cpu_steps} step(s) (CPU {cpu_losses}); the first step's "
+            f"heavy set {heavy} (k={k}); its selection: {len(swaps)} "
+            f"coordinates differ, each a "
+            f"near-tie (within {CNN_TIE_RTOL} of the k-th score or the "
+            "heavy threshold)")
+        out[model] = {"counts": counts, "shapes": shapes, "losses": losses,
+                      "step_ms": ms, "nondeterministic_step_ms": fast_ms,
+                      "profile": prof}
+        del step, part
+        torch.cuda.empty_cache()
+    return out
+
+
+def cnn_batch(i, device):
+    """Step i's global batch of ``ImageStream`` seed 0, split over the
+    CNN cell's workers: (images (P, b, 32, 32, 3), labels (P, b))."""
+    from repro_torch.data import ImageStream
+    b = ImageStream(global_batch=CNN_BATCH, seed=0).global_batch_at(i, device)
+    per = CNN_BATCH // CNN_P
+    return (b["images"].reshape(CNN_P, per, 32, 32, 3),
+            b["labels"].reshape(CNN_P, per))
+
+
+def paper_table2_phase(torch, device) -> dict:
+    """Table II on the card: ``bench.throughput.main`` at full size. Prints
+    each method's t_compu, t_compr and t_commu (Eq. 1 at 1 GbE), images/s
+    measured and modelled, and g/k, g/s; asserts no ratio."""
+    from repro_torch.bench import throughput
+    res = throughput.main(device=device)
+    for model in ("resnet20", "vgg16"):
+        per = res[model]
+        for m in throughput.METHODS:
+            r = per[m]
+            log(f"[paper_table2] {model} {m}: d={r['d']} k={r['k']} "
+                f"W={r['width']} t_compu {r['t_compu'] * 1e3:.4f} ms "
+                f"t_compr {r['t_compr'] * 1e3:.4f} ms t_commu "
+                f"{r['t_commu'] * 1e3:.4f} ms (Eq. 1, 1 GbE: {r['rounds']} "
+                f"rounds, {r['bytes']:.0f} B); images/s measured "
+                f"{r['img_per_s']:.2f}, modelled {r['img_per_s_accel']:.2f}")
+        log(f"[paper_table2] {model}: g/k measured "
+            f"{per['speedup_vs_gtopk_img_per_s']:.4f}x modelled "
+            f"{per['speedup_vs_gtopk_img_per_s_accel']:.4f}x; g/s measured "
+            f"{per['speedup_vs_sketched_img_per_s']:.4f}x modelled "
+            f"{per['speedup_vs_sketched_img_per_s_accel']:.4f}x (paper: g/k "
+            "1.3-3.1x, g/s 1.1-1.2x)")
+    return res
+
+
+def paper_figs_phase(torch, device) -> None:
+    """Figs. 2-3 and 6-7 on the card: ``bench.convergence.main`` and
+    ``bench.k_sensitivity.main`` for CNN_FIG_STEPS steps; finite losses."""
+    from repro_torch.bench import convergence, k_sensitivity
+    conv = convergence.main(steps=CNN_FIG_STEPS, device=device)
+    ks = k_sensitivity.main(steps=CNN_FIG_STEPS, device=device)
+    finals = {f"{m} {meth}": r["losses"][-1] for m in ("resnet20", "vgg16")
+              for meth, r in conv[m].items()}
+    finals.update({f"resnet20 gs-sgd k={k}": r["losses"][-1]
+                   for k, r in ks.items()})
+    bad = {n: v for n, v in finals.items() if not math.isfinite(v)}
+    if bad:
+        fail(f"paper_figs: non-finite final losses {bad}")
+    log(f"[paper_figs] final losses after {CNN_FIG_STEPS} steps: {finals}")
 
 
 def cross_batch(torch, cfg, spec, step):
@@ -2818,6 +3135,15 @@ def main() -> int:
     t0 = time.time()
     families = parity_families_phase(torch)
     log(f"[parity_families] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cnn = train_cnn_phase(torch, device)
+    log(f"[train_cnn] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    paper_table2_phase(torch, device)
+    log(f"[paper_table2] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    paper_figs_phase(torch, device)
+    log(f"[paper_figs] phase took {time.time() - t0:.1f} s")
     kernels.append(inter["finish_row"])
     launches = {"sketch_encode": counts, "sketch_decode": counts,
                 "topk_select": counts, "ts_encode": ts_counts,
@@ -2835,6 +3161,10 @@ def main() -> int:
         kr["launches_hybrid_interleave"] = hybrid["interleave_counts"].get(
             kr["name"], 0)
         kr["launches_parity_families"] = families.get(kr["name"], 0)
+        for model, run in cnn.items():
+            kr[f"launches_cnn_{model}"] = run["counts"].get(kr["name"], 0)
+            kr.setdefault("cnn_shapes", []).extend(
+                run["shapes"].get(kr["name"], []))
         if kr["name"] == "sketch_encode":
             kr["interleave_fragments"] = inter["fragments"]
         if kr["name"] == "heavymix_scores":  # the main path's shapes first

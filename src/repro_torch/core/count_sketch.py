@@ -302,3 +302,52 @@ def merge(*sketches: torch.Tensor) -> torch.Tensor:
     for s in sketches[1:]:
         out = out + s
     return out
+
+
+# ---------------------------------------------------------------------------
+# Convenience: sketch a tree of tensors by raveling it into one flat vector.
+# ---------------------------------------------------------------------------
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, lists and tuples, in the reference's
+    (``jax.tree_util.tree_leaves``) order: a dict's entries by sorted key,
+    a sequence's in order. The hashes read coordinate indices, so the
+    flat vector must follow exactly this order."""
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s structure with its leaves taken from iterator ``leaves``
+    in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        out = {key: _rebuild(tree[key], leaves) for key in sorted(tree)}
+        return {key: out[key] for key in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, leaves) for v in tree)
+    return next(leaves)
+
+
+def ravel_tree(tree) -> tuple[torch.Tensor, tuple]:
+    """Flatten a tree of tensors into one f32 vector + its unravel info
+    (the tree's structure, and each leaf's shape and dtype)."""
+    leaves = tree_leaves(tree)
+    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in leaves])
+    skeleton = _rebuild(tree, iter([None] * len(leaves)))
+    return flat, (skeleton, [(tuple(x.shape), x.dtype) for x in leaves])
+
+
+def unravel_tree(flat: torch.Tensor, info: tuple):
+    """The tree of ``ravel_tree``'s info with its leaves cut from ``flat``
+    (views of it where the dtype is f32)."""
+    tree, shapes = info
+    leaves, off = [], 0
+    for shape, dtype in shapes:
+        n = int(np.prod(shape)) if shape else 1
+        leaves.append(flat[off:off + n].reshape(shape).to(dtype))
+        off += n
+    return _rebuild(tree, iter(leaves))

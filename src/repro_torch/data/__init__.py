@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import LMStream
+from repro_torch.data.pipeline import ImageStream, LMStream
 
-__all__ = ["LMStream"]
+__all__ = ["ImageStream", "LMStream"]

@@ -54,6 +54,9 @@ _I32 = 4
 # benchmarks/time_breakdown.HBM_BW), kept so the port prices what the
 # reference prices; it is not the H100's rate
 ENCODE_BW = 819e9
+# flop/s the reference model assumes for the CNNs' compute
+# (benchmarks/time_breakdown.ACCEL_FLOPS): an assumed rate, not the H100's
+ACCEL_FLOPS = 50e12
 TOPK_PASSES = 10    # multi-pass radix-select passes for a top-k over d
 
 

@@ -716,3 +716,57 @@ def test_family_smoke_steps_card_match_cpu(card, arch, kw):
     for name in ("sketch_encode", "sketch_encode_finish", "heavymix_scores",
                  "topk_select"):
         assert counts.get(name, 0) > 0, name
+
+
+@pytest.mark.parametrize("d,width", [
+    (272_282, 1024),        # ResNet-20 full size: R*W = 5,120 < one tile
+    (68_690, 256),          # ResNet-20 width 8 at paper_geometry
+    (923_130, 8192),        # VGG-16 width 0.25 at the figures' W
+    (923_130, 256),         # W = 256 at an odd d
+    (14_724_042, 32_768)])  # VGG-16 full size: the decode route
+def test_paper_cells_encode_and_recover_bit_equal(card, d, width):
+    """The paper's CNN cells' shapes: the exact encode (one tile and
+    less) bit-equal to plain and to a second launch; the recovery's
+    kernel (decode or scores, as the cell's d and k route it) and the
+    select equal to plain."""
+    from repro_torch.bench.time_breakdown import paper_geometry
+    from repro_torch.core.heavymix import _CHUNK
+    k = paper_geometry(d)[0]
+    cfg = cs.SketchConfig(rows=5, width=width, seed=0)
+    gen = torch.Generator(device=card).manual_seed(d % 101)
+    g = torch.randn(d, generator=gen, device=card)
+    g *= torch.exp(-20 * torch.rand(d, generator=gen, device=card))
+    sk = sketch_encode(cfg, g)
+    assert _bits_equal(sk, sketch_encode_plain(cfg, g))
+    assert _bits_equal(sk, sketch_encode(cfg, g))
+    if d > _CHUNK and d > 4 * k:
+        key, hist = sketch_decode_hist(cfg, sk, d)
+        assert torch.equal(key, sketch_decode_plain(cfg, sk, d))
+    else:
+        thr = cs.l2sq_estimate(sk) / k
+        key, est, hist = heavymix_scores_hist(cfg, sk, thr, d)
+        s_p, e_p = heavymix_scores_plain(cfg, sk, thr, d)
+        assert torch.equal(key, s_p) and torch.equal(est, e_p)
+    assert torch.equal(hist, radix_hist_plain(key))
+    v, i = topk_select(key, k, hist)
+    v_p, i_p = topk_select_plain(key, k, hist)
+    assert torch.equal(i, i_p) and _bits_equal(v, v_p)
+
+
+def test_cnn_step_same_bits_twice(card):
+    """Two runs of three ResNet-20 (full size) gs-SGD steps on the card,
+    cuDNN deterministic (``cnn_dist.prepare_device``): the same losses,
+    bit for bit; the scores route's kernel once a worker and step."""
+    from repro_torch.bench import cnn_dist
+    from repro_torch.bench.time_breakdown import paper_geometry
+    k, width = paper_geometry(272_282)
+    runs = []
+    for _ in range(2):
+        LAUNCHES.clear()
+        r = cnn_dist.run("resnet20", "gs-sgd", P=4, steps=3, k=k, rows=5,
+                         width=width, device=card)
+        assert LAUNCHES["heavymix_scores"] == 12
+        assert LAUNCHES["sketch_decode"] == 0
+        runs.append(r.losses)
+    assert runs[0] == runs[1]
+    assert torch.backends.cudnn.deterministic
