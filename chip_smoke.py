@@ -195,12 +195,46 @@ Phases (any failure exits non-zero and prints no result line):
                 --calibrate`` on the three trace@2 files ``--out PLAN``,
                 then ``train --auto-tune PLAN`` and ``train`` with
                 ``plan.train_argv()``: loss histories bit-equal.
+11. serve     — qwen3-4b at its published widths and all 36 layers (f32,
+                4,022,468,096 parameters) through ``ServeEngine`` with the
+                paged cache: 8 slots, block 16, max_len 256, 12 seeded
+                prompts of 16-192 tokens, 64 new tokens each. A cold and a
+                steady run (tok/s, TTFT and per-token wall p50/p95/p99,
+                peak memory); a lockstep against ``ContiguousKVCache``
+                (the same emissions every step, the gathered KV bit-equal
+                on every valid position of every active slot, the state
+                on every slot); each request alone in an engine of its own
+                (continuous batching's tokens equal); prefill/decode
+                consistency (tokens equal unless the prefill's top-2 logit
+                margin is within SERVE_TIE_ATOL); one decode step with 8
+                active slots under the profiler (profile_serve); a
+                ``ReplicaSet`` of 2 with one killed after 3 rounds against
+                one replica (the same tokens, re-planned once, replays).
+                No kernel of the sketch path may launch (counts zeroed
+                before, read after: all 0).
+11b. serve_families — the same checks (without the profile and the
+                replicas) at published widths for zamba2-2.7b (Mamba2
+                state + the shared block's KV), rwkv6-7b (state only) and
+                granite-moe-3b-a800m (MoE decode); the depth each runs at
+                is in SERVE_CELLS.
+11c. serve_parity — the ten smoke configs' ``prefill_fn`` (logits within
+                SERVE_PARITY_ATOL) and two ``decode_fn`` steps (scalar,
+                then per-row ``kv_len``: ids equal unless the CPU's top-2
+                margin is within SERVE_TIE_ATOL), card against the CPU
+                port from the same params, the vlm with ``cross_kv``; the
+                engine for the nine non-vlm ones: the same completions.
+11d. serve_load, cli_serve — ``python -m repro_torch.bench.serve_load``
+                on the card (all four checks), ``python -m
+                repro_torch.launch.serve --smoke`` (the demo) and ``--smoke
+                --load-test`` on the card; JSON into a temporary directory.
 
 Every path that launches kernels (train, train_traced, train_watched,
 train_ts, train_interleave, train_minicpm, train_moe, train_hybrid and its
 interleave, parity, parity_families, train_cnn) runs with every
 launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts. The
+serve phases run no kernel of the sketch path: their counts, summed
+(``launches_serve``), must be 0. The
 select's slab-overflow counter is zeroed before each path too and read
 after it (a host sync, outside the path).
 
@@ -3040,6 +3074,424 @@ def cli_tune_phase(device_args=()):
     return {"plan": plan.choice.label(), "losses": losses["auto"]}
 
 
+# ---------------------------------------------------------------------------
+# Serving: serve, serve_families, serve_parity, serve_load, cli_serve
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS, SERVE_BLOCK, SERVE_MAX_LEN = 8, 16, 256
+# (tag, arch, layers (None: all), requests, prompt lengths lo-hi, gen)
+SERVE_CELLS = (
+    ("serve", "qwen3-4b", None, 12, 16, 192, 64),
+    ("serve_zamba2", "zamba2-2.7b", 12, 10, 16, 192, 32),
+    ("serve_rwkv6", "rwkv6-7b", 8, 10, 16, 192, 32),
+    ("serve_granite", "granite-moe-3b-a800m", 4, 10, 16, 192, 32),
+)
+SERVE_REPLICA_REQUESTS, SERVE_REPLICA_GEN = 6, 16
+SERVE_TIE_ATOL = 1e-3  # a greedy token may differ between two computations
+#                        of the same logits (prefill against decode; the
+#                        card against the CPU) only where the top two
+#                        logits are within this: f32 sums in another order
+#                        move logits near 1 by ~1e-6
+SERVE_PARITY_ATOL = 1e-4  # smoke logits card vs CPU (f32, TF32 off)
+
+
+def serve_spec(arch, slots, block, max_len, prompt_hi, gen):
+    from repro_torch.api import RunSpec, ServeSpec
+    spec = RunSpec(arch=arch, serve=ServeSpec(
+        batch=slots, block_size=block, max_len=max_len,
+        prompt_len=prompt_hi, gen=gen))
+    spec.validate()
+    return spec
+
+
+def serve_requests(vocab, n, lo, hi, gen, seed=7):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(i, tuple(int(x) for x in rng.integers(
+        1, vocab, int(rng.integers(lo, hi + 1)))), gen) for i in range(n)]
+
+
+def top2_margin(torch, logits):
+    v = torch.topk(logits.float(), 2, dim=-1).values
+    return (v[..., 0] - v[..., 1]).cpu()
+
+
+def check_near_ties(tag, what, got, want, margin):
+    """Greedy ids equal, or differing only where the reference logits'
+    top-2 margin is within SERVE_TIE_ATOL. Returns the near-tie count."""
+    diff = (got.cpu() != want.cpu()).nonzero().flatten().tolist()
+    bad = [i for i in diff if float(margin[i]) > SERVE_TIE_ATOL]
+    if bad:
+        fail(f"{tag}: {what} differ at rows {bad} (top-2 margins "
+             f"{[float(margin[i]) for i in bad]})")
+    return len(diff)
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_cell(torch, device, cfg, tag, n_req, lo, hi, gen, *,
+               slots=SERVE_SLOTS, block=SERVE_BLOCK, max_len=SERVE_MAX_LEN,
+               profile=False, replicas=False) -> dict:
+    """One architecture through the serving engine on ``device``; see the
+    module docstring (phase 11). Returns the measured numbers."""
+    import numpy as np
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.flatten import init_flat_params, make_flat_spec
+    from repro_torch.serve import ReplicaSet, Request, ServeEngine
+    from repro_torch.serve.loadtest import _latency_report
+    from repro_torch.serve.scheduler import serve_fns
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t_phase = time.time()
+    fs = make_flat_spec(cfg, 1)
+    segs = init_flat_params(cfg, torch.Generator(device=device).manual_seed(
+        0), 1, fs, device=device)
+    n_params = fs.total
+    spec = serve_spec(cfg.name, slots, block, max_len, hi, gen)
+    reqs = serve_requests(cfg.vocab_size, n_req, lo, hi, gen)
+    fns = serve_fns(cfg, fs)
+
+    def engine(paged=True, subset=None):
+        sp = dataclasses.replace(spec, serve=dataclasses.replace(
+            spec.serve, paged=paged))
+        eng = ServeEngine(cfg, fs, segs, sp, fns=fns)
+        for rid, prompt, max_new in (reqs if subset is None else subset):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+        return eng
+
+    def timed(eng):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        comps = eng.run()
+        _sync(torch, device)
+        return comps, time.perf_counter() - t0
+
+    cold_eng = engine()
+    cold, t_cold = timed(cold_eng)
+    steady_eng = engine()
+    steady, t_steady = timed(steady_eng)
+    toks = {c.rid: c.tokens for c in steady}
+    if {c.rid: c.tokens for c in cold} != toks:
+        fail(f"{tag}: the cold and steady runs emitted different tokens")
+    if any(c.finish != "length" or len(c.tokens) != gen for c in steady):
+        fail(f"{tag}: a request did not run to its length: "
+             f"{[(c.rid, c.finish, len(c.tokens)) for c in steady]}")
+    n_tok = sum(len(t) for t in toks.values())
+    rep = _latency_report(steady_eng, steady)
+    first: dict = {}
+    for rid, _tok, _tv, tw in steady_eng.emissions:
+        first.setdefault(rid, tw)
+    ttft = sorted(first.values())
+    q = lambda v, p: v[min(len(v) - 1, int(math.ceil(p * len(v))) - 1)]  # noqa: E731
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "requests": n_req, "tokens": n_tok,
+           "decode_steps": steady_eng.n_steps,
+           "tok_per_s_steady": n_tok / t_steady,
+           "tok_per_s_cold": n_tok / t_cold,
+           "steady_s": t_steady, "cold_s": t_cold,
+           "ttft_wall_s": {p: q(ttft, v) for p, v in
+                           (("p50", .5), ("p95", .95), ("p99", .99))},
+           "per_token_wall_s": {k: rep["per_token_wall"][k]
+                                for k in ("p50", "p95", "p99")},
+           "num_blocks": steady_eng.cache.num_blocks}
+    del cold_eng, steady_eng
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers, {n_params:,} params: "
+        f"{n_tok} tokens, steady {out['tok_per_s_steady']:.1f} tok/s "
+        f"({t_steady:.3f} s), cold {out['tok_per_s_cold']:.1f} tok/s "
+        f"({t_cold:.3f} s); TTFT wall {out['ttft_wall_s']}; per-token wall "
+        f"{out['per_token_wall_s']}; {out['decode_steps']} decode steps")
+
+    # the paged cache in lockstep with the contiguous one
+    ep, ec = engine(True), engine(False)
+    steps = checked = 0
+    while ep.pending() or ec.pending():
+        if ep.step() != ec.step():
+            fail(f"{tag}: paged and contiguous emissions differ at step "
+                 f"{steps}")
+        steps += 1
+        kvp, stp = M.split_cache(ep.cache.gather())
+        kvc, stc = M.split_cache(ec.cache.gather())
+        for i, sl in enumerate(ep.slots):
+            if sl is None:
+                continue
+            for (path, a), (_, b) in zip(tree_leaves(kvp), tree_leaves(kvc)):
+                if not torch.equal(a[:, :, i, :sl.pos], b[:, :, i, :sl.pos]):
+                    fail(f"{tag}: paged KV {path} of slot {i} differs from "
+                         f"the contiguous cache at step {steps}")
+                checked += 1
+        for (path, a), (_, b) in zip(tree_leaves(stp), tree_leaves(stc)):
+            if not torch.equal(a, b):
+                fail(f"{tag}: recurrent state {path} differs at step {steps}")
+        del kvp, stp, kvc, stc
+    if {c.rid: c.tokens for c in ep.run()} != toks or \
+            {c.rid: c.tokens for c in ec.run()} != toks:
+        fail(f"{tag}: the lockstep runs' tokens differ from the steady run")
+    del ep, ec
+    log(f"[{tag}] paged == contiguous: {steps} lockstep steps, the same "
+        f"emissions, {checked} (slot, KV leaf) valid regions bit-equal")
+
+    # continuous batching against one request at a time
+    for rid, prompt, max_new in reqs:
+        solo = engine(subset=[(rid, prompt, max_new)])
+        [c] = solo.run()
+        if c.tokens != toks[rid]:
+            fail(f"{tag}: request {rid} alone emitted other tokens than in "
+                 "the continuous batch")
+    log(f"[{tag}] continuous batching == sequential for all {n_req} "
+        "requests")
+
+    # prefill/decode consistency (tests/test_models_smoke.py's check). An
+    # MoE prefill drops (token, choice) pairs past the expert capacity, so
+    # a prefill over S tokens and a decode of the S-th differ by design
+    # where a drop hits; its rows run one at a time with S = 8 <= the
+    # capacity floor of 8 (a token picks an expert at most once), so no
+    # pair can be dropped
+    moe = bool(cfg.n_experts)
+    B, S, T = 4, (8 if moe else 12), 32
+    rs = np.random.RandomState(11)
+    tk = torch.from_numpy(rs.randint(1, cfg.vocab_size, (B, S))).to(device)
+    ties = 0
+    for rows in ([slice(i, i + 1) for i in range(B)] if moe
+                 else [slice(0, B)]):
+        t, b = tk[rows], tk[rows].shape[0]
+        lg, _ = M.prefill_fn(cfg, fs, segs, {"tokens": t},
+                             M.init_cache(cfg, b, T, torch.float32, device))
+        _, cache = M.prefill_fn(cfg, fs, segs, {"tokens": t[:, :S - 1]},
+                                M.init_cache(cfg, b, T, torch.float32,
+                                             device))
+        got, cache = M.decode_fn(cfg, fs, segs, t[:, S - 1:], S - 1, cache)
+        ties += check_near_ties(tag, "prefill and decode tokens", got,
+                                torch.argmax(lg, -1), top2_margin(torch, lg))
+        got2, _ = M.decode_fn(cfg, fs, segs, got[:, None].long(), S, cache)
+        if got2.shape != (b,) or not torch.isfinite(lg).all():
+            fail(f"{tag}: decode after the consistency step failed")
+        del cache
+    log(f"[{tag}] prefill/decode consistency on {B} rows of {S} tokens"
+        f"{' (one row a prefill)' if moe else ''}: equal ({ties} near-ties "
+        f"within {SERVE_TIE_ATOL})")
+
+    if profile:
+        eng = engine(subset=reqs[:slots])
+        eng.step()
+        eng.step()
+        if eng.active() != slots:
+            fail(f"{tag}: {eng.active()} of {slots} slots active")
+        _, out["profile"] = profile_call(torch, f"profile_{tag}", eng.step)
+        del eng
+
+    if replicas:
+        rgen = min(SERVE_REPLICA_GEN, gen)
+        sub = [(rid, prompt, rgen) for rid, prompt, _ in
+               reqs[:SERVE_REPLICA_REQUESTS]]
+        one = ReplicaSet([engine(subset=[])])
+        two = ReplicaSet([engine(subset=[]) for _ in range(2)],
+                         heartbeat_timeout=1.5)
+        for rset in (one, two):
+            for rid, prompt, max_new in sub:
+                rset.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+        for _ in range(3):
+            two.step_round()
+        two.kill(1)
+        want = {c.rid: c.tokens for c in one.run()}
+        got_c = two.run()
+        if {c.rid: c.tokens for c in got_c} != want:
+            fail(f"{tag}: the failed-over replica set emitted other tokens")
+        if any(want[rid] != toks[rid][:rgen] for rid in want):
+            fail(f"{tag}: the replicas' tokens are not the steady run's "
+                 "prefix")
+        if two.plan.generation != 1 or 1 in two.live() or \
+                not any(c.replays for c in got_c):
+            fail(f"{tag}: no failover happened ({two.plan}, replays "
+                 f"{[c.replays for c in got_c]})")
+        log(f"[serve_replica] 2 replicas, replica 1 killed after 3 rounds: "
+            f"{len(got_c)} requests replayed identically (replays "
+            f"{[c.replays for c in got_c]}, generation "
+            f"{two.plan.generation})")
+        del one, two
+
+    if on_card:
+        _sync(torch, device)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        out["card"] = card_line()
+        log(f"[{tag}] peak memory {out['peak_bytes'] / 2 ** 30:.2f} GiB on "
+            f"{out['card']}")
+    del segs
+    out["phase_s"] = time.time() - t_phase
+    return out
+
+
+def serve_phases(torch, device) -> dict:
+    """Phases 11 and 11b: every SERVE_CELLS row at its published widths.
+    Returns the launch counts of the whole run (which must be 0) and each
+    cell's numbers."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.dispatch import LAUNCHES
+    cells = {}
+    _sync(torch, device)
+    LAUNCHES.clear()
+    for tag, arch, layers, n_req, lo, hi, gen in SERVE_CELLS:
+        cfg = ARCHS[arch]
+        if layers is not None and layers != cfg.n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        first = tag == "serve"
+        cells[tag] = serve_cell(torch, device, cfg, tag, n_req, lo, hi, gen,
+                                profile=first, replicas=first)
+        log(f"[{tag}] phase took {cells[tag]['phase_s']:.1f} s")
+    _sync(torch, device)
+    counts = dict(LAUNCHES)
+    if any(counts.values()):
+        fail(f"the serve path launched sketch kernels: {counts}")
+    log(f"[serve] launches on the serve path: {counts} (none)")
+    log("[serve] cells " + json.dumps(cells))
+    return counts
+
+
+def serve_parity_phase(torch, card="cuda") -> dict:
+    """Phase 11c. Returns the card's launch counts (which must be 0)."""
+    import numpy as np
+    from repro_torch.configs import SMOKES
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.flatten import init_flat_params, make_flat_spec
+    from repro_torch.models.layers import lm_logits
+    from repro_torch.serve import Request, ServeEngine
+    card = torch.device(card)
+    cpu = torch.device("cpu")
+
+    def decode_logits(cfg, fs, segs, tok, kl, cache, ck):
+        """decode_fn's logits (its ids are their argmax) on a copy of the
+        cache: the recurrent state advances in place."""
+        cache = tree_map(lambda a: a.clone(), cache)
+        B, S = tok.shape
+        kl = torch.as_tensor(kl, device=tok.device)
+        pos = (kl[:, None] if kl.ndim else kl).expand(B, S)
+        with torch.no_grad():
+            hid, _, top = M._backbone(cfg, fs, segs, tok, pos, torch.float32,
+                                      ck, "decode", cache, kl)
+            return lm_logits(hid, M._head_w(cfg, top), cfg)[:, 0]
+
+    _sync(torch, card)
+    LAUNCHES.clear()
+    worst, ties, engines = 0.0, 0, 0
+    for arch, cfg in SMOKES.items():
+        fs = make_flat_spec(cfg, 1)
+        segs = init_flat_params(cfg, torch.Generator().manual_seed(0), 1, fs)
+        rs = np.random.RandomState(3)
+        B, S, T = 2, 7, 16
+        tokens = torch.from_numpy(rs.randint(1, cfg.vocab_size, (B, S)))
+        ck = (torch.from_numpy(rs.randn(B, cfg.n_cross_tokens, cfg.d_model)
+                               .astype(np.float32))
+              if cfg.family == "vlm" else None)
+        res = {}
+        for key, dev in (("cpu", cpu), ("card", card)):
+            sg = {k: v.to(dev) for k, v in segs.items()}
+            ckd = None if ck is None else ck.to(dev)
+            batch = {"tokens": tokens.to(dev)}
+            if ckd is not None:
+                batch["cross_kv"] = ckd
+            lg, cache = M.prefill_fn(cfg, fs, sg, batch, M.init_cache(
+                cfg, B, T, torch.float32, dev))
+            res[key] = {"prefill": lg.cpu(), "steps": []}
+            tok = torch.argmax(res["cpu"]["prefill"], -1)[:, None]
+            for step, kl in enumerate((S, torch.tensor([S + 1, S + 1]))):
+                if step:
+                    tok = res["cpu"]["steps"][0][0][:, None].long()
+                kld = kl.to(dev) if torch.is_tensor(kl) else kl
+                dl = decode_logits(cfg, fs, sg, tok.to(dev), kld, cache, ckd)
+                ids, cache = M.decode_fn(cfg, fs, sg, tok.to(dev), kld,
+                                         cache, cross_kv=ckd)
+                if not torch.equal(ids.long(), torch.argmax(dl, -1)):
+                    fail(f"serve_parity {arch}: decode_fn's ids are not the "
+                         f"argmax of its logits on {dev.type}")
+                res[key]["steps"].append((ids.cpu(), dl.cpu()))
+        err = float((res["cpu"]["prefill"] - res["card"]["prefill"]).abs()
+                    .max())
+        worst = max(worst, err)
+        if err > SERVE_PARITY_ATOL:
+            fail(f"serve_parity {arch}: prefill logits differ by {err}")
+        for (ic, lc), (ig, _) in zip(res["cpu"]["steps"],
+                                     res["card"]["steps"]):
+            ties += check_near_ties(f"serve_parity {arch}", "decode ids",
+                                    ig, ic, top2_margin(torch, lc))
+        if cfg.family != "vlm":
+            spec = serve_spec(arch, 3, 4, 16, 8, 4)
+            spec = dataclasses.replace(spec, smoke=True)
+            reqs = serve_requests(cfg.vocab_size, 6, 1, 7, 4, seed=1)
+            comps = []
+            for dev in (cpu, card):
+                eng = ServeEngine(cfg, fs, {k: v.to(dev) for k, v in
+                                            segs.items()}, spec)
+                for rid, prompt, max_new in reqs:
+                    eng.submit(Request(rid=rid, prompt=prompt,
+                                       max_new=max_new))
+                comps.append([dataclasses.asdict(c) for c in eng.run()])
+            if comps[0] != comps[1]:
+                fail(f"serve_parity {arch}: the card's engine completions "
+                     "differ from the CPU's")
+            engines += 1
+    _sync(torch, card)
+    counts = dict(LAUNCHES)
+    if any(counts.values()):
+        fail(f"serve_parity launched sketch kernels: {counts}")
+    log(f"[serve_parity] {len(SMOKES)} smoke configs: prefill logits within "
+        f"{worst:.3g} (atol {SERVE_PARITY_ATOL}), two decode steps' ids "
+        f"equal ({ties} near-ties within {SERVE_TIE_ATOL}); {engines} "
+        "engines' completions equal, card against CPU")
+    return counts
+
+
+def cli_serve_phase(device_args=()):
+    """Phase 11d: the load-test audit and the serve CLI on the card
+    (``device_args`` ("--device", "cpu") rehearses it on the CPU)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        bench = os.path.join(tmp, "BENCH_serve.json")
+        run_cli("repro_torch.bench.serve_load",
+                ["--out", bench, *device_args], tag="serve_load")
+        with open(bench) as f:
+            doc = json.load(f)
+        if not all(doc["checks"].values()) or \
+                doc["provenance"]["backend"] != (device_args[-1]
+                                                 if device_args else "cuda"):
+            fail(f"serve_load: checks {doc['checks']}, backend "
+                 f"{doc['provenance']['backend']}")
+        w = doc["wall"]
+        log(f"[serve_load] checks {doc['checks']}; wall steady "
+            f"{w['tok_per_s_steady']:.1f} tok/s, cold "
+            f"{w['tok_per_s_cold']:.1f} tok/s")
+        lines = run_cli("repro_torch.launch.serve",
+                        ["--smoke", *device_args], tag="cli_serve")
+        if not any("steady" in ln and "cold" in ln for ln in lines):
+            fail("the serve demo printed no steady/cold tok/s line")
+        path = os.path.join(tmp, "serve.json")
+        run_cli("repro_torch.launch.serve",
+                ["--smoke", "--load-test", "--json", path, *device_args],
+                tag="cli_serve")
+        with open(path) as f:
+            rep = json.load(f)
+        if not (rep["tokens_match_static"]
+                and rep["continuous"]["dropped"] == 0
+                and rep["speedup_vs_static"] > 1.0
+                and rep["provenance"]["backend"] == doc["provenance"][
+                    "backend"]):
+            fail("the serve CLI's load test failed its checks: tokens "
+                 f"match {rep['tokens_match_static']}, speedup "
+                 f"{rep['speedup_vs_static']}")
+        log(f"[cli_serve] load test: speedup vs static "
+            f"{rep['speedup_vs_static']:.3f}, tokens match static")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3184,6 +3636,17 @@ def main() -> int:
     t0 = time.time()
     cli_tune_phase()
     log(f"[cli_tune] phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    serve_counts = serve_phases(torch, device)
+    t0 = time.time()
+    for k, v in serve_parity_phase(torch).items():
+        serve_counts[k] = serve_counts.get(k, 0) + v
+    log(f"[serve_parity] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cli_serve_phase()
+    log(f"[serve_load, cli_serve] phases took {time.time() - t0:.1f} s")
+    for kr in kernels:
+        kr["launches_serve"] = serve_counts.get(kr["name"], 0)
     log(f"[done] in {time.time() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,6 +19,7 @@ SPEC_TREE = (
     (("exchange", "sketch"), S.SketchSpec),
     (("cluster",), S.ClusterSpec),
     (("watch",), S.WatchSpec),
+    (("serve",), S.ServeSpec),
 )
 
 SURFACES = ("train", "sim", "tune", "serve")
@@ -96,3 +97,9 @@ def apply_args(base: "S.RunSpec", args: argparse.Namespace,
             v = None
         spec = _replace_path(spec, path, f.name, v)
     return spec
+
+
+def build_parser(surface: str, **kw) -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(**kw)
+    add_spec_args(ap, surface)
+    return ap

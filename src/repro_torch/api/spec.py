@@ -1,17 +1,17 @@
-"""repro_torch.api — the typed run spec, train surface.
+"""repro_torch.api — the typed run spec, train and serve surfaces.
 
 Port of ``repro/api/spec.py``: ``SketchSpec``, ``ExchangeSpec``,
-``ClusterSpec``, ``WatchSpec`` and ``RunSpec`` with the same fields,
-defaults, CLI metadata and JSON schema (``repro.api/runspec@1``), so a
-spec file drives either package. ``default_geometry`` — the paper-regime
-sketch-geometry rule the reference keeps in ``repro/sim/replay.py`` —
-lives here, beside the one spec that resolves through it
-(``sim/replay.py`` re-exports it).
+``ClusterSpec``, ``WatchSpec``, ``ServeSpec`` and ``RunSpec`` with the
+same fields, defaults, CLI metadata and JSON schema
+(``repro.api/runspec@1``), so a spec file drives either package.
+``default_geometry`` — the paper-regime sketch-geometry rule the
+reference keeps in ``repro/sim/replay.py`` — lives here, beside the one
+spec that resolves through it (``sim/replay.py`` re-exports it).
 
 ``RunSpec`` converts into the other surfaces' objects as the reference's
 does: ``sim_config()`` -> ``sim.SimConfig``, ``env()`` -> ``tune.Env``,
-``cluster.network()`` -> the modeled network. The reference's ``serve``
-block is carried through JSON untouched (serving is not ported yet).
+``cluster.network()`` -> the modeled network. ``ServeSpec`` is the
+serve surface's block (``launch/serve.py``).
 """
 
 from __future__ import annotations
@@ -449,9 +449,129 @@ class WatchSpec:
         return cls(**(d or {}))
 
 
+# ---------------------------------------------------------------------------
+# ServeSpec — the serving engine
+# ---------------------------------------------------------------------------
+
+
+SERVE_POLICIES = ("continuous", "static")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    """The ``repro_torch.serve`` engine: continuous-batching slots, the
+    paged KV cache, streaming/stop conditions, replication, and the
+    load-test arrival process (the reference's fields, defaults, flags
+    and checks).
+
+    ``batch`` is the number of serving slots, NOT the training global
+    batch (``RunSpec.batch`` on the train surface). Deadlines, rates and
+    the load-test timeline are in *modeled* (virtual) seconds priced by
+    ``serve.scheduler.predict_admission`` from the ClusterSpec link and
+    compute parameters, so scheduling decisions are deterministic.
+    """
+
+    batch: int = _field(
+        4, "--batch", parse=int, surfaces=("serve",),
+        help="serving slots (continuous-batching concurrency; not the "
+             "training global batch)")
+    prompt_len: int = _field(
+        32, "--prompt-len", parse=int, surfaces=("serve",),
+        help="demo / load-test max prompt length (tokens)")
+    gen: int = _field(
+        16, "--gen", parse=int, surfaces=("serve",),
+        help="max new tokens generated per request")
+    block_size: int = _field(
+        8, "--block-size", parse=int, surfaces=("serve",),
+        help="paged KV cache block size (tokens per block)")
+    max_len: int | None = _field(
+        None, "--max-len", parse=parse_opt_int, surfaces=("serve",),
+        help="per-request sequence capacity ('none' = prompt_len + gen, "
+             "rounded up to whole blocks)")
+    paged: bool = _field(
+        True, "--no-paged", const=False, surfaces=("serve",), dest="paged",
+        help="use the contiguous per-slot KV cache instead of the paged "
+             "pool (the bit-exactness baseline)")
+    kv_frac: float = _field(
+        0.5, "--kv-frac", parse=float, surfaces=("serve",),
+        help="fraction of cluster.mem_gb the paged KV pool may use")
+    kv_blocks: int | None = _field(
+        None, "--kv-blocks", parse=parse_opt_int, surfaces=("serve",),
+        help="explicit paged-pool block count override ('none' = size "
+             "from cluster.mem_gb * kv_frac)")
+    policy: str = _field(
+        "continuous", "--policy", choices=SERVE_POLICIES,
+        surfaces=("serve",),
+        help="admission policy: continuous (admit/evict mid-generation) "
+             "| static (gang-admit a full batch, drain, repeat)")
+    replicas: int = _field(
+        1, "--replicas", parse=int, surfaces=("serve",),
+        help="replica count for multi-replica serving with heartbeat "
+             "failover")
+    stop_token: int | None = _field(
+        None, "--stop-token", parse=parse_opt_int, surfaces=("serve",),
+        help="token id that ends a generation early ('none' = length "
+             "stop only)")
+    deadline: float | None = _field(
+        None, "--deadline", parse=parse_opt_float, surfaces=("serve",),
+        help="per-request completion deadline in modeled seconds from "
+             "arrival; admission rejects and mid-run eviction drops "
+             "LOUDLY past it ('none' = no deadline)")
+    rate: float = _field(
+        50.0, "--rate", parse=float, surfaces=("serve",),
+        help="load-test Poisson arrival rate (requests per modeled "
+             "second)")
+    n_requests: int = _field(
+        32, "--requests", parse=int, surfaces=("serve",),
+        dest="n_requests", help="load-test request count")
+
+    def validate(self) -> None:
+        for f in ("batch", "prompt_len", "gen", "block_size", "replicas",
+                  "n_requests"):
+            if getattr(self, f) < 1:
+                raise ValueError(f"serve {f} must be >= 1, got "
+                                 f"{getattr(self, f)}")
+        for f in ("max_len", "kv_blocks"):
+            v = getattr(self, f)
+            if v is not None and v < 1:
+                raise ValueError(f"serve {f} must be >= 1, got {v}")
+        if self.max_len is not None and self.max_len < self.prompt_len + 1:
+            raise ValueError(
+                f"serve max_len must cover prompt_len + 1 token, got "
+                f"max_len={self.max_len} prompt_len={self.prompt_len}")
+        if self.policy not in SERVE_POLICIES:
+            raise ValueError(f"unknown serve policy {self.policy!r}; "
+                             f"choose from {SERVE_POLICIES}")
+        if not (0.0 < self.kv_frac <= 1.0):
+            raise ValueError(f"serve kv_frac must be in (0, 1], got "
+                             f"{self.kv_frac}")
+        if not (self.rate > 0 and math.isfinite(self.rate)):
+            raise ValueError(f"serve rate must be positive and finite, "
+                             f"got {self.rate}")
+        if self.deadline is not None and self.deadline <= 0:
+            raise ValueError(f"serve deadline must be > 0, got "
+                             f"{self.deadline}")
+
+    def resolved_max_len(self) -> int:
+        """Sequence capacity rounded up to whole paged blocks — the ONE
+        derivation both cache layouts and the load test use."""
+        base = (self.max_len if self.max_len is not None
+                else self.prompt_len + self.gen)
+        bs = self.block_size
+        return ((int(base) + bs - 1) // bs) * bs
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ServeSpec":
+        # pre-serving spec JSONs have no "serve" block: all defaults
+        return cls(**(d or {}))
+
+
 @dataclasses.dataclass(frozen=True)
 class RunSpec:
-    """Everything one training run needs."""
+    """Everything one run needs, on the train and serve surfaces."""
 
     arch: str = _field(
         "qwen3-4b", "--arch", choices=_arch_choices,
@@ -495,7 +615,7 @@ class RunSpec:
     exchange: ExchangeSpec = _field(factory=ExchangeSpec)
     cluster: ClusterSpec = _field(factory=ClusterSpec)
     watch: WatchSpec = _field(factory=WatchSpec)
-    serve: dict | None = None   # reference's ServeSpec block, carried as-is
+    serve: ServeSpec = _field(factory=ServeSpec)
 
     def validate(self) -> None:
         for f in ("steps", "batch", "seq", "ckpt_every"):
@@ -506,12 +626,10 @@ class RunSpec:
         self.exchange.validate()
         self.cluster.validate()
         self.watch.validate()
+        self.serve.validate()
 
     def to_json(self) -> dict:
-        d = dataclasses.asdict(self)
-        if d["serve"] is None:
-            del d["serve"]
-        return {"schema": SCHEMA, **d}
+        return {"schema": SCHEMA, **dataclasses.asdict(self)}
 
     @classmethod
     def from_json(cls, d: dict) -> "RunSpec":
@@ -522,6 +640,7 @@ class RunSpec:
         d["exchange"] = ExchangeSpec.from_json(d.get("exchange") or {})
         d["cluster"] = ClusterSpec.from_json(d.get("cluster") or {})
         d["watch"] = WatchSpec.from_json(d.get("watch") or {})
+        d["serve"] = ServeSpec.from_json(d.get("serve") or {})
         return cls(**d)
 
     def save(self, path: str) -> None:

@@ -47,8 +47,9 @@ card at its end, so its host duration covers its kernels.
 ``microbatch=mb`` cuts each worker's batch into slices of mb rows and
 sums their losses and gradients in f32, then divides by the slice count
 (``jax.lax.scan`` in the reference, a Python loop here). ``clip_norm``
-scales the aggregated gradient to at most that global norm. Left to later
-slices: tp > 1 and fsdp.
+scales the aggregated gradient to at most that global norm.
+``make_serve_fns`` binds the serving targets (prefill, decode) to the
+same layout. Left to later slices: tp > 1 and fsdp.
 """
 
 from __future__ import annotations
@@ -633,3 +634,33 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                                               comp.BucketedCompressor) else 1),
                      overlap=overlap, bwd_chunks=(bwd_chunks or 0),
                      plan=plan, fuse_encode=fuse_encode)
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+
+def make_serve_fns(cfg: ArchConfig, ma: MeshAxes, *, dp_mode: str = "dp",
+                   dtype=torch.bfloat16, comm_dtype=None,
+                   fs: FlatSpec | None = None):
+    """(prefill, decode) bound to the storage layout: params segments only,
+    no optimizer or EF state at serving time. Each runs where the params
+    it is given lie. dp at tp = 1 only (the data axis replicates the
+    params, so there is nothing to gather); ``comm_dtype`` is accepted
+    and, as in the reference at tp = 1, has no effect (it is the wire
+    dtype of the tensor-parallel activation reductions)."""
+    del comm_dtype
+    if dp_mode != "dp" or ma.tp != 1:
+        raise _unsupported(f"dp_mode={dp_mode!r} with tp={ma.tp}")
+    fs = fs or make_flat_spec(cfg, ma.tp)
+
+    def prefill(params: dict, batch: dict, cache: Any):
+        return mdl.prefill_fn(cfg, fs, params, batch, cache, dtype=dtype)
+
+    def decode(params: dict, tokens: torch.Tensor, kv_len, cache: Any,
+               cross_kv: torch.Tensor | None = None):
+        return mdl.decode_fn(cfg, fs, params, tokens, kv_len, cache,
+                             cross_kv=cross_kv, dtype=dtype)
+
+    return prefill, decode

@@ -183,6 +183,22 @@ def params_from_numpy(segs: dict, fs: FlatSpec,
     return out
 
 
+def cache_from_numpy(cache: dict, device: str | torch.device) -> dict:
+    """A serving cache exported from the JAX package (its
+    ``models.model.init_cache`` pytree, or one that ``prefill_fn`` /
+    ``decode_fn`` returned, as nested dicts of numpy arrays) -> the
+    port's cache: the same kinds, leaf names, shapes and dtypes."""
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return {kind: {name: conv(leaf) for name, leaf in leaves.items()}
+            for kind, leaves in cache.items()}
+
+
 # ---------------------------------------------------------------------------
 # Segment-dict helpers
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Mamba2 (SSD) block (tp=1), train path — the state-space mixer of the
-zamba2 hybrid.
+"""Mamba2 (SSD) block (tp=1) — the state-space mixer of the zamba2 hybrid.
 
-Port of ``repro/models/mamba.py`` (``state=None``). Per head, with a
-scalar decay per step:
+Port of ``repro/models/mamba.py``: the train path (``state=None``) and
+the serving path (``state=`` the block's recurrent state, ``{"h": (B, H,
+ns, hd) f32, "conv": (B, W-1, dh)}``; the block then also returns the
+new state: the SSM state after the last token and the depthwise conv's
+input tail). Per head, with a scalar decay per step:
 
     dt_t = softplus(x W_dt + dt_bias),  a_t = exp(-exp(A_log) dt_t)
     h_t  = a_t h_{t-1} + dt_t B_t x_t^T,  y_t = C_t^T h_t + D x_t
@@ -32,9 +34,14 @@ def mamba_geometry(cfg: ArchConfig, tp: int = 1) -> tuple[int, int, int]:
     return nh, cfg.ssm_head_dim, cfg.ssm_state
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv from zeros. x: (B,S,C); w: (W,C)."""
-    xp = F.pad(x, (0, 0, _CONV_W - 1, 0))
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 prev: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv. x: (B,S,C); w: (W,C); prev: the (B,W-1,C)
+    input tail of the tokens before, or None for zeros."""
+    if prev is None:
+        xp = F.pad(x, (0, 0, _CONV_W - 1, 0))
+    else:
+        xp = torch.cat([prev.to(x.dtype), x], dim=1)
     S = x.shape[1]
     return sum(xp[:, i:i + S, :] * w[i].to(x.dtype) for i in range(_CONV_W))
 
@@ -84,15 +91,30 @@ def ssd_chunked(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return torch.cat(ys, dim=1)[:, :S], h
 
 
-def mamba_block(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm Mamba2 block (train). x: (B,S,d)."""
+def ssd_step(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             dt: torch.Tensor, a_neg: torch.Tensor, h0: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-token SSD. xh: (B,H,hd), b/c: (B,H,ns), dt: (B,H); h0:
+    (B,H,ns,hd) f32. Returns (y (B,H,hd), h1)."""
+    decay = torch.exp(dt * a_neg)                          # (B,H)
+    h1 = (decay[..., None, None] * h0
+          + (dt[..., None] * b)[..., :, None] * xh[..., None, :])
+    y = torch.einsum("bhn,bhnd->bhd", c, h1)
+    return y, h1
+
+
+def mamba_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                state: dict | None = None):
+    """Pre-norm Mamba2 block. x: (B,S,d). Returns the output; with
+    ``state`` (serving), ``(output, new state)``."""
     B, S, d = x.shape
     nh, hd, ns = mamba_geometry(cfg)
 
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
     xz = h @ p["wx"].to(h.dtype)                     # (B,S,dh)
     z = h @ p["wz"].to(h.dtype)
-    xc = F.silu(_causal_conv(xz, p["conv"]))
+    prev_conv = state["conv"] if state is not None else None
+    xc = F.silu(_causal_conv(xz, p["conv"], prev_conv))
 
     b = (h @ p["wB"].to(h.dtype)).reshape(B, S, nh, ns)
     c = (h @ p["wC"].to(h.dtype)).reshape(B, S, nh, ns)
@@ -102,18 +124,31 @@ def mamba_block(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
     xh = xc.reshape(B, S, nh, hd).to(torch.float32)
     bf, cf = b.to(torch.float32), c.to(torch.float32)
-    h0 = torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=x.device)
+    h0 = (state["h"] if state is not None else
+          torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=x.device))
     if S == 1:   # the reference's one-token step
-        dt0 = dt[:, 0]
-        h1 = (torch.exp(dt0 * a_neg)[..., None, None] * h0
-              + (dt0[..., None] * bf[:, 0])[..., :, None]
-              * xh[:, 0, ..., None, :])
-        y = torch.einsum("bhn,bhnd->bhd", cf[:, 0], h1)[:, None]
+        y1, h1 = ssd_step(xh[:, 0], bf[:, 0], cf[:, 0], dt[:, 0], a_neg, h0)
+        y = y1[:, None]
     else:
-        y, _ = ssd_chunked(xh, bf, cf, dt, a_neg, h0)
+        y, h1 = ssd_chunked(xh, bf, cf, dt, a_neg, h0)
     y = y + p["D"].to(torch.float32)[:, None] * xh    # skip term
     y = y.reshape(B, S, nh * hd).to(h.dtype)
 
     # gated RMSNorm over the channels, then the output projection
     y = rmsnorm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
-    return x + linear_row(y, p["wo"]).to(x.dtype)
+    x = x + linear_row(y, p["wo"]).to(x.dtype)
+    if state is None:
+        return x
+    conv_tail = torch.cat([prev_conv.to(xz.dtype), xz], dim=1)
+    return x, {"h": h1, "conv": conv_tail[:, -(_CONV_W - 1):, :]}
+
+
+def init_mamba_state(cfg: ArchConfig, batch: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: str | torch.device = "cpu") -> dict:
+    """Zeroed recurrent state of one Mamba2 block for ``batch`` rows."""
+    nh, hd, ns = mamba_geometry(cfg)
+    return {"h": torch.zeros((batch, nh, ns, hd), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, _CONV_W - 1, nh * hd), dtype=dtype,
+                                device=device)}

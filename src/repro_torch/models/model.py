@@ -1,7 +1,10 @@
-"""Training forward for every family (tp=1): embed -> cycles -> norm -> CE.
+"""Forward for every family (tp=1): embed -> cycles -> norm -> CE for
+training, and the serving targets ``prefill_fn`` / ``decode_fn`` over a
+KV / recurrent-state cache.
 
-Port of ``repro/models/model.py`` (``_apply_cycle``, ``_backbone`` and
-``loss_fn``, ``mode="train"``). Parameters arrive as flat segments
+Port of ``repro/models/model.py`` (``_apply_cycle``, ``_backbone``,
+``loss_fn``, ``chunked_loss_vjp``, ``prefill_fn``, ``decode_fn`` and the
+cache helpers). Parameters arrive as flat segments
 (``flatten.FlatSpec``); the per-cycle views are sliced from the cycle
 segments, so autograd lands the gradient of every leaf in its segment.
 A cycle applies its blocks in ``cfg.cycle`` order and returns ``(x,
@@ -20,6 +23,15 @@ optimizer state, so the port keeps them.
 ``chunked_loss_vjp`` is the same forward with the graph cut at K chunk
 boundaries of the cycle stack, so the backward can run (and emit each
 chunk's cycle gradients) one chunk at a time.
+
+The cache (``init_cache``) is a dict by block kind of stacked leaves,
+``(n_cycles, count in the cycle, B, ...)``: K/V ``(.., B, T, Hkv, hd)``
+for the attention, MoE and shared kinds, the recurrent state for rwkv
+and mamba, nothing for the vlm's cross layers. The serve forward writes
+each block's slice of it IN PLACE (views ``cache[kind][leaf][c, j]``)
+and returns the same dict, as the reference's serve body updates its
+scan carry in place: no cache-sized buffer is built per cycle or step.
+A caller that needs the cache it passed in unchanged passes a copy.
 """
 
 from __future__ import annotations
@@ -29,47 +41,101 @@ import torch
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rk
-from repro_torch.models.common import ArchConfig, tree_from_paths, tree_map
+from repro_torch.models.common import (ArchConfig, head_geometry,
+                                       tree_from_paths, tree_map)
 from repro_torch.models.flatten import FlatSpec, chunk_plan
 from repro_torch.models.layers import (attention_block, embed_lookup,
-                                       lm_loss, mlp_block,
-                                       parallel_attn_mlp_block, rmsnorm)
+                                       lm_logits, lm_loss, mlp_block,
+                                       parallel_attn_mlp_block, rmsnorm,
+                                       sharded_argmax)
 
 MOE_AUX_COEF = 0.01
 
 
+def _kind_counts(cfg: ArchConfig) -> dict[str, int]:
+    counts: dict[str, int] = {}
+    for kind in cfg.cycle:
+        if kind != "shared_attn":
+            counts[kind] = counts.get(kind, 0) + 1
+    return counts
+
+
+def _write_state(view: dict, new: dict) -> None:
+    """A recurrent block's new state into its cache slice, in place."""
+    for name, leaf in new.items():
+        view[name].copy_(leaf)
+
+
 def _apply_cycle(cfg: ArchConfig, cyc_p: dict, shared_p: dict | None,
                  x: torch.Tensor, pos: torch.Tensor,
-                 cross_kv: torch.Tensor | None
+                 cross_kv: torch.Tensor | None, mode: str = "train",
+                 cache: dict | None = None, kv_len=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Apply one cycle of blocks. Returns (x, the cycle's MoE aux loss)."""
+    """Apply one cycle of blocks. Returns (x, the cycle's MoE aux loss).
+
+    ``cache`` (serving): this cycle's slice of the cache, ``{kind: {leaf:
+    (count, B, ...)}}``; block j of a kind reads and writes its row j in
+    place (the reference's ``sub`` / ``put``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     occ: dict[str, int] = {}
+
+    def sub(kind: str, j: int):
+        return None if cache is None else tree_map(lambda a: a[j],
+                                                   cache[kind])
+
+    serve = mode != "train"
     for kind in cfg.cycle:
         j = occ.get(kind, 0)
         occ[kind] = j + 1
         if kind == "shared_attn":
-            x = attention_block(shared_p, cfg, x, pos)
+            if serve:
+                x, _ = attention_block(shared_p, cfg, x, pos, mode=mode,
+                                       cache=sub(kind, j), kv_len=kv_len)
+            else:
+                x = attention_block(shared_p, cfg, x, pos)
             x = mlp_block(shared_p["mlp"], cfg, x)
             continue
         p = tree_map(lambda a: a[j], cyc_p[kind])
         if kind == "attn":
-            if cfg.parallel_block:
-                x = parallel_attn_mlp_block(p, cfg, x, pos)
+            blk = (parallel_attn_mlp_block if cfg.parallel_block
+                   else attention_block)
+            if serve:
+                x, _ = blk(p, cfg, x, pos, mode=mode, cache=sub(kind, j),
+                           kv_len=kv_len)
             else:
-                x = attention_block(p, cfg, x, pos)
+                x = blk(p, cfg, x, pos)
+            if not cfg.parallel_block:
                 x = mlp_block(p["mlp"], cfg, x)
         elif kind == "cross":
-            x = attention_block(p, cfg, x, pos, cross_kv=cross_kv)
+            if serve and cross_kv is None:
+                raise ValueError("the vlm's cross layers serve only with "
+                                 "cross_kv (its static patch embeddings)")
+            x = attention_block(p, cfg, x, pos, cross_kv=cross_kv,
+                                mode=mode)
+            x = x[0] if serve else x
             x = mlp_block(p["mlp"], cfg, x)
         elif kind == "moe":
-            x = attention_block(p, cfg, x, pos)
+            if serve:
+                x, _ = attention_block(p, cfg, x, pos, mode=mode,
+                                       cache=sub(kind, j), kv_len=kv_len)
+            else:
+                x = attention_block(p, cfg, x, pos)
             x, a = moe_lib.moe_block(p["moe"], cfg, x)
             aux = aux + a
         elif kind == "rwkv":
-            x = rk.rwkv_block(p, cfg, x)
+            st = sub(kind, j)
+            if st is None:
+                x = rk.rwkv_block(p, cfg, x)
+            else:
+                x, new = rk.rwkv_block(p, cfg, x, state=st)
+                _write_state(st, new)
         elif kind == "mamba":
-            x = mb.mamba_block(p, cfg, x)
+            st = sub(kind, j)
+            if st is None:
+                x = mb.mamba_block(p, cfg, x)
+            else:
+                x, new = mb.mamba_block(p, cfg, x, state=st)
+                _write_state(st, new)
         else:
             raise ValueError(f"unknown block kind {kind!r}")
     return x, aux
@@ -77,16 +143,23 @@ def _apply_cycle(cfg: ArchConfig, cyc_p: dict, shared_p: dict | None,
 
 def _backbone(cfg: ArchConfig, fs: FlatSpec, segs: dict,
               tokens: torch.Tensor, pos: torch.Tensor, dtype: torch.dtype,
-              cross_kv: torch.Tensor | None
+              cross_kv: torch.Tensor | None, mode: str = "train",
+              cache: dict | None = None, kv_len=None
               ) -> tuple[torch.Tensor, torch.Tensor, dict]:
-    """Embed -> cycles -> final norm. Returns (hidden, aux, top params)."""
+    """Embed -> cycles -> final norm. Returns (hidden, aux, top params).
+
+    With ``cache`` each cycle c works on the views ``cache[kind][leaf][c]``
+    (the reference's serve body, whose carry is updated in place)."""
     top = fs.top_params(segs["top_s"], segs["top_r"], dtype)
     x = embed_lookup(top["embed"], tokens, dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cs, cr = segs["cycles_s"], segs["cycles_r"]
     for c in range(fs.n_cycles):
+        cyc_cache = (None if cache is None
+                     else tree_map(lambda a: a[c], cache))
         x, a = _apply_cycle(cfg, fs.cycle_params(cs[c], cr[c], dtype),
-                            top.get("shared_attn"), x, pos, cross_kv)
+                            top.get("shared_attn"), x, pos, cross_kv, mode,
+                            cyc_cache, kv_len)
         aux = aux + a
     return rmsnorm(x, top["final_norm"], cfg.norm_eps), aux, top
 
@@ -272,3 +345,114 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
                 torch.zeros_like(tr) if d_tr is None else d_tr)
 
     return loss.detach(), [make_step(j) for j in range(K)], top_grads
+
+
+# ---------------------------------------------------------------------------
+# Serving targets
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def prefill_fn(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
+               cache: dict, *, dtype: torch.dtype = torch.float32
+               ) -> tuple[torch.Tensor, dict]:
+    """Prompt forward; fills ``cache`` (in place) from position 0.
+    batch: tokens (B, S) [cross_kv]. Returns (last-token logits (B,
+    V_pad) f32, the cache)."""
+    tokens = batch["tokens"]
+    hid, _, top = _backbone(cfg, fs, segs, tokens, _positions(tokens),
+                            dtype, batch.get("cross_kv"), "prefill", cache,
+                            0)
+    logits = lm_logits(hid[:, -1:, :], _head_w(cfg, top), cfg)
+    return logits[:, 0, :], cache
+
+
+@torch.no_grad()
+def decode_fn(cfg: ArchConfig, fs: FlatSpec, segs: dict,
+              tokens: torch.Tensor, kv_len, cache: dict, *,
+              cross_kv: torch.Tensor | None = None,
+              dtype: torch.dtype = torch.float32
+              ) -> tuple[torch.Tensor, dict]:
+    """One decode step: tokens (B, 1) at position ``kv_len`` -> (next-token
+    ids (B,) int32, the cache, updated in place).
+
+    ``kv_len`` is the valid cache length BEFORE this token: an int or
+    0-dim tensor (the whole batch at one position) or a (B,) tensor (each
+    row at its own position: continuous batching)."""
+    B, S = tokens.shape
+    kl = torch.as_tensor(kv_len, device=tokens.device)
+    pos = (kl[:, None] if kl.ndim else kl).expand(B, S)
+    hid, _, top = _backbone(cfg, fs, segs, tokens, pos, dtype, cross_kv,
+                            "decode", cache, kl)
+    logits = lm_logits(hid, _head_w(cfg, top), cfg)
+    return sharded_argmax(logits[:, 0, :]), cache
+
+
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, b_loc: int, t_cache: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "cpu") -> dict:
+    """Zeroed cache, stacked ``(n_cycles, count, ...)`` leaves.
+
+    Attention/MoE kinds and the hybrid's shared block (count 1) get KV
+    caches ``(n, cnt, b_loc, t_cache, Hkv, hd)`` in ``dtype``; rwkv and
+    mamba their recurrent states (f32 but mamba's conv tail); the vlm's
+    cross blocks none. ``device="meta"`` gives shapes and dtypes with no
+    allocation (``cache_shapes``)."""
+    n = cfg.n_cycles
+    nkv = head_geometry(cfg, 1).nkv_loc
+
+    def stack(cnt, leaf):
+        return torch.zeros((n, cnt) + tuple(leaf.shape), dtype=leaf.dtype,
+                           device=device)
+
+    def kv(cnt):
+        shape = (n, cnt, b_loc, t_cache, nkv, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    cache: dict = {}
+    for kind, cnt in _kind_counts(cfg).items():
+        if kind in ("attn", "moe"):
+            cache[kind] = kv(cnt)
+        elif kind == "rwkv":
+            st = rk.init_rwkv_state(cfg, b_loc, device="meta")
+            cache[kind] = tree_map(lambda a: stack(cnt, a), st)
+        elif kind == "mamba":
+            st = mb.init_mamba_state(cfg, b_loc, dtype, device="meta")
+            cache[kind] = tree_map(lambda a: stack(cnt, a), st)
+        # 'cross': no cache
+    if "shared_attn" in cfg.cycle:
+        cache["shared_attn"] = kv(1)
+    return cache
+
+
+def cache_shapes(cfg: ArchConfig, b_loc: int, t_cache: int,
+                 dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The cache on the meta device: shapes and dtypes, no allocation."""
+    return init_cache(cfg, b_loc, t_cache, dtype, device="meta")
+
+
+# Cache kinds whose leaves carry a time axis (axis 3 of the stacked
+# (n, cnt, B, T, nkv, hd) layout) and are therefore pageable; rwkv/mamba
+# kinds hold fixed-size recurrent state with batch axis 2 and no time axis.
+KV_CACHE_KINDS = ("attn", "moe", "shared_attn")
+
+
+def split_cache(cache: dict) -> tuple[dict, dict]:
+    """Split a cache into (kv_kinds, state_kinds) sub-dicts sharing the
+    input's leaves (no copy). The serve layer pages only the KV kinds."""
+    kv = {k: v for k, v in cache.items() if k in KV_CACHE_KINDS}
+    state = {k: v for k, v in cache.items() if k not in KV_CACHE_KINDS}
+    return kv, state
+
+
+def merge_cache(kv: dict, state: dict) -> dict:
+    """Inverse of :func:`split_cache`."""
+    out = dict(kv)
+    out.update(state)
+    return out

@@ -1,8 +1,11 @@
-"""RWKV6 ("Finch") block (tp=1), train path: time-mix with data-dependent
-decay, then the relu^2 channel-mix.
+"""RWKV6 ("Finch") block (tp=1): time-mix with data-dependent decay, then
+the relu^2 channel-mix.
 
-Port of ``repro/models/rwkv.py`` (``state=None``: training and prefill
-from scratch). The recurrence per head
+Port of ``repro/models/rwkv.py``: the train path (``state=None``) and
+the serving path (``state=`` ``{"s": (B, H, hd, hd) f32, "tm_prev": (B,
+d) f32, "cm_prev": (B, d) f32}``: the WKV state and the last token's
+normed inputs of the two token shifts; the block then also returns the
+new state). The recurrence per head
 
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
@@ -20,6 +23,8 @@ at ties as the reference's does.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -34,22 +39,34 @@ def rwkv_geometry(cfg: ArchConfig, tp: int = 1) -> tuple[int, int]:
     return pad_to(cfg.d_model // cfg.ssm_head_dim, tp), cfg.ssm_head_dim
 
 
+@functools.lru_cache(maxsize=None)
+def _const(v: float, dtype: torch.dtype, device: torch.device
+           ) -> torch.Tensor:
+    """A 0-dim constant, made once per (value, dtype, device): building it
+    is a host-to-device copy, which syncs the card."""
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
 def _max(x: torch.Tensor, lo: float) -> torch.Tensor:
     """``jnp.maximum(x, lo)``: the gradient splits in half at a tie."""
-    return torch.maximum(x, torch.tensor(lo, dtype=x.dtype, device=x.device))
+    return torch.maximum(x, _const(lo, x.dtype, x.device))
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)`` = minimum(maximum(x, lo), hi)."""
-    return torch.minimum(_max(x, lo),
-                         torch.tensor(hi, dtype=x.dtype, device=x.device))
+    return torch.minimum(_max(x, lo), _const(hi, x.dtype, x.device))
 
 
-def _token_shift(h: torch.Tensor) -> torch.Tensor:
-    """x_{t-1} per position; position 0 sees zeros."""
-    if h.shape[1] == 1:
-        return torch.zeros_like(h)
-    return F.pad(h, (0, 0, 1, 0))[:, :-1, :]
+def _token_shift(h: torch.Tensor,
+                 prev: torch.Tensor | None = None) -> torch.Tensor:
+    """x_{t-1} per position; position 0 sees ``prev`` (B, d) or zeros."""
+    if h.shape[1] == 1:   # decode fast path
+        return (torch.zeros_like(h) if prev is None
+                else prev[:, None, :].to(h.dtype))
+    shifted = F.pad(h, (0, 0, 1, 0))[:, :-1, :]
+    if prev is not None:
+        shifted[:, 0, :] = prev.to(h.dtype)
+    return shifted
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -93,14 +110,27 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(ys, dim=1)[:, :S], s
 
 
-def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Full RWKV6 block = time-mix + channel-mix (train). x: (B, S, d)."""
+def wkv_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token recurrence. r/k/v/logw: (B,H,hd); s0: (B,H,hd,hd).
+    Returns (y (B,H,hd), s1)."""
+    kv = k[..., :, None] * v[..., None, :]           # (B,H,hd_k,hd_v)
+    y = torch.einsum("bhc,bhcd->bhd", r, s0 + u[..., None] * kv)
+    s1 = torch.exp(logw)[..., None] * s0 + kv
+    return y, s1
+
+
+def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
+               state: dict | None = None):
+    """Full RWKV6 block = time-mix + channel-mix. x: (B, S, d). Returns
+    the output; with ``state`` (serving), ``(output, new state)``."""
     B, S, d = x.shape
     nh, hd = rwkv_geometry(cfg)
 
     # ---- time mix -------------------------------------------------------
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    hs = _token_shift(h)
+    hs = _token_shift(h, state["tm_prev"] if state is not None else None)
     mu = p["mu"].to(h.dtype)                         # (4, d)
     xr, xk, xv, xg = (h + mu[i] * (hs - h) for i in range(4))
 
@@ -115,20 +145,36 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     logw = -torch.exp(_clip(wx, -12.0, 3.0)).reshape(B, S, nh, hd)
     u = p["bonus"].to(torch.float32).reshape(nh, hd)
 
-    s0 = torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=x.device)
+    s0 = (state["s"] if state is not None else
+          torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=x.device))
     rf, kf, vf = (t.to(torch.float32) for t in (r, kk, vv))
     if S == 1:   # the reference's single-token recurrence
-        kv = kf[:, 0, ..., :, None] * vf[:, 0, ..., None, :]
-        y = torch.einsum("bhc,bhcd->bhd", rf[:, 0],
-                         s0 + u[..., None] * kv)[:, None]
+        y1, s1 = wkv_step(rf[:, 0], kf[:, 0], vf[:, 0], logw[:, 0], u, s0)
+        y = y1[:, None]
     else:
-        y, _ = wkv_chunked(rf, kf, vf, logw, u, s0)
+        y, s1 = wkv_chunked(rf, kf, vf, logw, u, s0)
     y = y.reshape(B, S, nh * hd).to(h.dtype) * g
     x = x + linear_row(y, p["wo"]).to(x.dtype)
 
     # ---- channel mix ----------------------------------------------------
     h2 = rmsnorm(x, p["cnorm"], cfg.norm_eps)
-    hs2 = _token_shift(h2)
+    hs2 = _token_shift(h2, state["cm_prev"] if state is not None else None)
     xin = h2 + p["cmu"].to(h2.dtype)[0] * (hs2 - h2)
     kx = torch.square(torch.relu(xin @ p["ck"].to(h2.dtype)))
-    return x + linear_row(kx, p["cv"]).to(x.dtype)
+    x = x + linear_row(kx, p["cv"]).to(x.dtype)
+    if state is None:
+        return x
+    return x, {"s": s1, "tm_prev": h[:, -1, :].to(torch.float32),
+               "cm_prev": h2[:, -1, :].to(torch.float32)}
+
+
+def init_rwkv_state(cfg: ArchConfig, batch: int,
+                    device: str | torch.device = "cpu") -> dict:
+    """Zeroed recurrent state of one RWKV6 block for ``batch`` rows."""
+    nh, hd = rwkv_geometry(cfg)
+    f32 = torch.float32
+    return {"s": torch.zeros((batch, nh, hd, hd), dtype=f32, device=device),
+            "tm_prev": torch.zeros((batch, cfg.d_model), dtype=f32,
+                                   device=device),
+            "cm_prev": torch.zeros((batch, cfg.d_model), dtype=f32,
+                                   device=device)}

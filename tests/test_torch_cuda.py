@@ -770,3 +770,83 @@ def test_cnn_step_same_bits_twice(card):
         runs.append(r.losses)
     assert runs[0] == runs[1]
     assert torch.backends.cudnn.deterministic
+
+
+# ---------------------------------------------------------------------------
+# Serving on the card (no kernel of its own: the engine, the caches and the
+# masked decode attention, against the CPU port)
+# ---------------------------------------------------------------------------
+
+
+def test_decode_attention_ignores_garbage_on_card(card):
+    """Positions past kv_len hold huge finite garbage: the card's output is
+    the same bits as with zeros there (softmax weight exactly 0)."""
+    from repro_torch.models.layers import decode_attention
+    g = torch.Generator(device=card).manual_seed(0)
+    B, T, hq, hkv, hd = 8, 256, 32, 8, 128
+    q = torch.randn(B, 1, hq, hd, generator=g, device=card)
+    k = torch.randn(B, T, hkv, hd, generator=g, device=card)
+    v = torch.randn(B, T, hkv, hd, generator=g, device=card)
+    lens = torch.randint(1, T + 1, (B,), generator=g, device=card)
+    valid = (torch.arange(T, device=card)[None] < lens[:, None])[..., None,
+                                                                 None]
+    junk = torch.full_like(k, 1e18)
+    clean = decode_attention(q, torch.where(valid, k, 0.0),
+                             torch.where(valid, v, 0.0), lens)
+    dirty = decode_attention(q, torch.where(valid, k, junk),
+                             torch.where(valid, v, junk * 3e19), lens)
+    assert torch.equal(clean, dirty) and torch.isfinite(dirty).all()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b", "rwkv6-7b",
+                                  "granite-moe-3b-a800m"])
+def test_serve_engine_card_matches_cpu(card, arch):
+    """The smoke config's engine on the card and on the CPU from the same
+    params: the same completions (tokens, finish, virtual times); on the
+    card the paged and contiguous caches in lockstep, the valid KV
+    bit-equal; no kernel of the sketch path launched."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.api import RunSpec
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import model as M
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.flatten import init_flat_params, make_flat_spec
+    from repro_torch.serve import Request, ServeEngine
+    cfg = SMOKES[arch]
+    fs = make_flat_spec(cfg, 1)
+    segs = init_flat_params(cfg, torch.Generator().manual_seed(0), 1, fs)
+    base = RunSpec(smoke=True, arch=arch)
+    spec = dataclasses.replace(base, serve=dataclasses.replace(
+        base.serve, batch=3, block_size=4, max_len=16, prompt_len=8, gen=4))
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, prompt=tuple(int(x) for x in rng.integers(
+        1, cfg.vocab_size, int(rng.integers(1, 8)))), max_new=4)
+        for i in range(6)]
+
+    def engine(dev, paged=True):
+        sp = dataclasses.replace(spec, serve=dataclasses.replace(
+            spec.serve, paged=paged))
+        eng = ServeEngine(cfg, fs, {k: v.to(dev) for k, v in segs.items()},
+                          sp)
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        return eng
+
+    want = [dataclasses.asdict(c) for c in engine("cpu").run()]
+    LAUNCHES.clear()
+    ep, ec = engine(card), engine(card, paged=False)
+    while ep.pending() or ec.pending():
+        assert ep.step() == ec.step()
+        kvp, _ = M.split_cache(ep.cache.gather())
+        kvc, _ = M.split_cache(ec.cache.gather())
+        for i, s in enumerate(ep.slots):
+            if s is not None:
+                for (_, a), (_, b) in zip(tree_leaves(kvp),
+                                          tree_leaves(kvc)):
+                    assert torch.equal(a[:, :, i, :s.pos],
+                                       b[:, :, i, :s.pos])
+    assert [dataclasses.asdict(c) for c in ep.run()] == want
+    assert [dataclasses.asdict(c) for c in ec.run()] == want
+    assert not any(LAUNCHES.values())
