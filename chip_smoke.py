@@ -147,12 +147,39 @@ Phases (any failure exits non-zero and prints no result line):
                 plain encode; bucket 3's 30,720 coordinates go the scores
                 route); the interleave's decode and scores launches as
                 each bucket's size and k route it.
+6e. train_elastic — the train_minicpm cell's step (minicpm-2b widths, 2
+                layers, d = 405,220,864, buckets 2, microbatch 2, clip, wsd,
+                the faithful fill) on the Alg. 1 tree, global batch
+                ELASTIC_BATCH: two steps at P = 4; worker 2 stops beating
+                and the heartbeat monitor (an explicit clock) reports it;
+                ``replan`` to generation 1 (lr_scale printed); the
+                survivors' state rows carried leaf by leaf
+                (``runtime.carry_survivors``), the P = 4 state freed; a
+                step built fresh at P = 3 (the tree parks the odd rank)
+                runs two steps, then one in which
+                ``DeadlinePolicy`` (fed those steps' times, then one 30x
+                outlier) drops worker 1, and one with every worker. Each
+                step: a finite loss and bit-equal replicas. The drop step's
+                exchange held (``checked_drop``): the update on each
+                bucket's selection the live sum x P/live, the dropped
+                worker's EF its error-corrected gradient bit for bit.
+                Counted: encode, finish, scores (with the filler) and
+                select 40 times each, the decode never, no plain version;
+                the route checks of 6c on the last step's worker-0
+                gradient; step seconds at P = 4 and 3, peak memory.
 7. parity    — two steps of examples/specs/qwen3_smoke.json on the card
                 (kernels) and on the CPU (plain versions) from the same
                 params and batches: losses and selected coordinates agree.
                 Its buckets are below 2^22: the scores kernel's path (with
                 its histogram, then the select). The same for the smoke
                 configs of yi-9b, minicpm-2b and starcoder2-3b.
+7a. parity_elastic — examples/fault_tolerant_training.py's scenario at
+                the smoke config (P = 5 on the tree, worker 3 fails,
+                ``replan`` and the survivors' rows at P = 4, a
+                ``DeadlinePolicy`` drop, a step with all; k 4096, W 8192,
+                ``LMStream(global_batch=20)``) on the card and on the CPU
+                port: the selected coordinates equal every step, losses
+                within PARITY_LOSS_RTOL, replica divergence 0 on both.
 7b. parity_families — the same for the smoke configs of granite-moe,
                 qwen3-moe, rwkv6, zamba2, llama-3.2-vision and musicgen;
                 llama-3.2-vision once more with seeded ``cross_kv`` patch
@@ -195,6 +222,13 @@ Phases (any failure exits non-zero and prints no result line):
                 --calibrate`` on the three trace@2 files ``--out PLAN``,
                 then ``train --auto-tune PLAN`` and ``train`` with
                 ``plan.train_argv()``: loss histories bit-equal.
+10b. cli_simulate — ``python -m repro_torch.launch.simulate`` (host only):
+                P = 1,024, buckets 8, ``--fault-trace
+                examples/traces/fail_rejoin.json`` on ``--engine batched``
+                and ``loop`` (the ``--out`` files equal, the ``--json``
+                curves a step each), and a ``--watch --congest`` run that
+                re-plans, its ``--trace`` validated; the simulator's own
+                wall seconds printed as host time.
 11. serve     — qwen3-4b at its published widths and all 36 layers (f32,
                 4,022,468,096 parameters) through ``ServeEngine`` with the
                 paged cache: 8 slots, block 16, max_len 256, 12 seeded
@@ -229,8 +263,9 @@ Phases (any failure exits non-zero and prints no result line):
                 --load-test`` on the card; JSON into a temporary directory.
 
 Every path that launches kernels (train, train_traced, train_watched,
-train_ts, train_interleave, train_minicpm, train_moe, train_hybrid and its
-interleave, parity, parity_families, train_cnn) runs with every
+train_ts, train_interleave, train_minicpm, train_elastic, train_moe,
+train_hybrid and its interleave, parity, parity_elastic, parity_families,
+train_cnn) runs with every
 launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts. The
 serve phases run no kernel of the sketch path: their counts, summed
@@ -621,15 +656,16 @@ def check_select(torch, what, key, k, hist):
     return float((v - v_o).abs().max())
 
 
-def check_scores_hist(torch, what, c, s, thr, n):
-    """heavymix_scores with its histogram: scores and est bit-equal to
-    plain, histogram equal to the plain one of the same scores. Returns
-    (scores, est, hist, max |est - plain est|)."""
+def check_scores_hist(torch, what, c, s, thr, n, filler=None):
+    """heavymix_scores with its histogram (and the faithful fill's
+    ``filler``, where given): scores and est bit-equal to plain, histogram
+    equal to the plain one of the same scores. Returns (scores, est, hist,
+    max |est - plain est|)."""
     from repro_torch.kernels.heavymix_topk import (heavymix_scores_hist,
                                                    heavymix_scores_plain)
     from repro_torch.kernels.topk_select import radix_hist_plain
-    sc, est, hist = heavymix_scores_hist(c, s, thr, n)
-    sc_p, est_p = heavymix_scores_plain(c, s, thr, n)
+    sc, est, hist = heavymix_scores_hist(c, s, thr, n, filler)
+    sc_p, est_p = heavymix_scores_plain(c, s, thr, n, filler)
     est_err = float((est - est_p).abs().max())
     if not (torch.equal(est, est_p) and torch.equal(sc, sc_p)):
         fail(f"heavymix_scores at {what} (d={n}, R={c.rows}, W={c.width}) "
@@ -1762,15 +1798,16 @@ def check_interleaved_losses(tag, run, base) -> None:
         f"{max(abs(a - b) / abs(b) for a, b in zip(li, lb)):.3g})")
 
 
-def minicpm_step(torch, device):
+def minicpm_step(torch, device, p=TRAIN_P, allreduce_mode="psum",
+                 record=True):
     """The train_minicpm cell's step (no state allocated yet): minicpm-2b
-    at its published widths, MINICPM_LAYERS layers, P = TRAIN_P, buckets
-    = 2, psum, SketchSpec(rows=5, width=None, k=None) resolved at its d,
-    microbatch MINICPM_MICROBATCH, clip MINICPM_CLIP, the faithful fill;
-    AdamW under wsd(TRAIN_LR, warmup=1, stable=0, decay=2), its apply
-    wrapped to record the squared norm of each worker's applied gradient
-    at step 0. Returns (cfg, opt, ts, schedule, the recorded norms by
-    step)."""
+    at its published widths, MINICPM_LAYERS layers, P = ``p`` (TRAIN_P),
+    buckets = 2, ``allreduce_mode`` (psum), SketchSpec(rows=5, width=None,
+    k=None) resolved at its d, microbatch MINICPM_MICROBATCH, clip
+    MINICPM_CLIP, the faithful fill; AdamW under wsd(TRAIN_LR, warmup=1,
+    stable=0, decay=2), with ``record`` its apply wrapped to record the
+    squared norm of each worker's applied gradient at step 0. Returns
+    (cfg, opt, ts, schedule, the recorded norms by step)."""
     from repro_torch.api import ExchangeSpec, SketchSpec
     from repro_torch.configs.minicpm_2b import CONFIG
     from repro_torch.core.gs_sgd import MeshAxes, make_train_step
@@ -1787,11 +1824,11 @@ def minicpm_step(torch, device):
             applied[step] = applied.get(step, 0) + sq
         return base.apply(p, g, state, step)
 
-    opt = dataclasses.replace(base, apply=apply)
+    opt = dataclasses.replace(base, apply=apply) if record else base
     spec = ExchangeSpec(compressor="gs-sgd", buckets=2, overlap=True,
-                        allreduce_mode="psum",
+                        allreduce_mode=allreduce_mode,
                         sketch=SketchSpec(rows=5, width=None, k=None))
-    ma = MeshAxes(tp=1, data=TRAIN_P, tp_axis=None)
+    ma = MeshAxes(tp=1, data=p, tp_axis=None)
     d = make_train_step(cfg, ma, opt, spec=spec, device=device).d_local
     kw = dict(spec.compressor_kw(d), faithful_heavymix=True)
     ts = make_train_step(cfg, ma, opt, compressor_name="gs-sgd",
@@ -1928,6 +1965,418 @@ def train_minicpm_phase(torch, device) -> dict:
     return {"counts": counts, "filler_shapes": shapes, "losses":
             run["losses"], "times": run["times"], "peak": run["peak"],
             "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# Fault-tolerant training: train_elastic, parity_elastic, cli_simulate
+# ---------------------------------------------------------------------------
+
+# train_elastic: the train_minicpm cell on the Alg. 1 tree at P = 4, then
+# P = 3 after a heartbeat-detected failure of worker ELASTIC_FAILED. The
+# global batch divides by 4 and 3 into local batches the microbatch (2)
+# divides: 6 rows a worker at P = 4, 8 at P = 3. Heartbeats ride an
+# explicit clock (ELASTIC_HB_PERIOD simulated seconds a step, timeout
+# ELASTIC_HB_TIMEOUT): no phase sleeps.
+ELASTIC_P, ELASTIC_FAILED, ELASTIC_BATCH = 4, 2, 24
+ELASTIC_HB_PERIOD, ELASTIC_HB_TIMEOUT = 10.0, 5.0
+ELASTIC_OUTLIER = 30.0   # the straggler's step time over its peers'
+ELASTIC_DROP_FRAC = 0.34  # DeadlinePolicy's cap; the default 0.25 floors
+#                          to no drop at all at P = 3
+ELASTIC_SUM_RTOL = 1e-4  # a selected coordinate's applied update against
+#                          the live workers' exact sum x P/live, beyond the
+#                          f32 rounding of that sum (4 eps x sum of |terms|)
+# parity_elastic: examples/fault_tolerant_training.py's scenario
+ELASTIC_SMOKE_KW = dict(k=4096, rows=5, width=8192, allreduce_mode="tree")
+ELASTIC_SMOKE_LR, ELASTIC_SMOKE_BATCH, ELASTIC_SMOKE_SEQ = 2e-3, 20, 32
+
+
+def replicas_equal(torch, params) -> bool:
+    return all(torch.equal(v, v[:1].expand_as(v)) for v in params.values())
+
+
+class checked_drop:
+    """While open, every ``exchange_bucketed`` call with an ``include``
+    mask is held, at the shapes it runs at, as tests/test_runtime.py holds
+    the reference's: each bucket's update on its selected coordinates is
+    the live workers' sum of the error-corrected gradient u = ef + g times
+    P/live (within ELASTIC_SUM_RTOL, or the f32 rounding of the sum), the
+    same on every worker; the dropped workers' new EF is their u bit for
+    bit; the live workers' new EF is 0 on the selection. Records what it
+    checked in ``self.seen``."""
+
+    def __init__(self, torch):
+        self.torch, self.seen = torch, []
+
+    def __enter__(self):
+        from repro_torch.core import gs_sgd
+        self.mod, self.orig = gs_sgd, gs_sgd.exchange_bucketed
+        gs_sgd.exchange_bucketed = self.wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.exchange_bucketed = self.orig
+
+    def wrapped(self, bc, ef_state, g_flat, *, nworkers, overlap=True,
+                include=None):
+        out = self.orig(bc, ef_state, g_flat, nworkers=nworkers,
+                        overlap=overlap, include=include)
+        if include is not None:
+            self.check(bc, ef_state, g_flat, include, *out[:2])
+        return out
+
+    def check(self, bc, ef_state, g_flat, include, upd, ef_new):
+        torch = self.torch
+        inc = include > 0
+        live = torch.nonzero(inc).flatten()
+        dropped = torch.nonzero(~inc).flatten().tolist()
+        nworkers = inc.numel()
+        scale = nworkers / live.numel()
+        if not all(torch.equal(upd[w], upd[0]) for w in range(nworkers)):
+            fail("train_elastic: the workers apply different updates at the "
+                 "drop step")
+        eps = float(torch.finfo(torch.float32).eps)
+        for b, (o, n) in enumerate(zip(bc.spec.offsets, bc.spec.sizes)):
+            u = ef_state[b] + g_flat[:, o:o + n]
+            for w in dropped:
+                if not torch.equal(ef_new[b][w], u[w]):
+                    fail(f"train_elastic: dropped worker {w}'s EF in bucket "
+                         f"{b} is not its error-corrected gradient")
+            got = upd[0, o:o + n]
+            sel = torch.nonzero(got).flatten()
+            terms = u.index_select(1, sel).index_select(0, live).double()
+            want = terms.sum(0) * scale
+            slack = 4 * eps * terms.abs().sum(0) * scale
+            err = (got[sel].double() - want).abs()
+            bad = int((err > ELASTIC_SUM_RTOL * want.abs() + slack).sum())
+            if bad or not sel.numel():
+                fail(f"train_elastic bucket {b}: {bad} of {sel.numel()} "
+                     "selected coordinates are not the live sum x P/live")
+            for w in live.tolist():
+                if bool((ef_new[b][w].index_select(0, sel) != 0).any()):
+                    fail(f"train_elastic: live worker {w}'s EF in bucket {b} "
+                         "is not 0 on the selection")
+            rel = float((err / want.abs().clamp(min=1e-30)).max())
+            self.seen.append({"bucket": b, "d": n, "selected": sel.numel(),
+                              "dropped": dropped, "scale": scale,
+                              "max_rel_err": rel})
+            del u, terms, want, slack, err, got, sel
+
+
+def train_elastic_phase(torch, device) -> dict:
+    """The train_minicpm cell (minicpm-2b widths, MINICPM_LAYERS layers,
+    buckets 2, microbatch, clip, wsd, the faithful fill) on the Alg. 1
+    tree: two steps at P = ELASTIC_P; worker ELASTIC_FAILED stops beating
+    and the heartbeat monitor (explicit clock) reports it; ``replan`` to
+    generation 1; the survivors' state rows carried leaf by leaf and the
+    P = 4 state freed; a step built fresh at P = 3 runs two steps, one in
+    which ``DeadlinePolicy`` drops a worker (the exchange held by
+    ``checked_drop``), and one with every worker. Every step: a finite
+    loss and bit-equal replicas. Counted: the whole run (encode, finish,
+    scores with the filler, select once a bucket, worker and step; the
+    decode never; no plain version). Then worker 0's packed gradient of
+    the last step through the kernels, bit-equal to plain."""
+    from repro_torch.data import LMStream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.train import shard_batch
+    from repro_torch.runtime import (DeadlinePolicy, HeartbeatMonitor,
+                                     carry_survivors, initial_plan, replan)
+    cfg, opt, ts, _, _ = minicpm_step(torch, device, p=ELASTIC_P,
+                                      allreduce_mode="tree", record=False)
+    stream = LMStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=ELASTIC_BATCH, seed=0)
+    plan = initial_plan(ELASTIC_P)
+    log(f"[train_elastic] minicpm-2b widths, {cfg.n_layers} layers: d = "
+        f"{ts.d_local}, buckets {list(ts.compressor.spec.sizes)}, "
+        f"allreduce tree ({len(plan.schedule)} reduce rounds at P = "
+        f"{ELASTIC_P}), microbatch {MINICPM_MICROBATCH}, clip "
+        f"{MINICPM_CLIP}, wsd, faithful fill; global batch {ELASTIC_BATCH}"
+        f", seq {TRAIN_SEQ}")
+    clock = [0.0]
+    hb = HeartbeatMonitor(range(ELASTIC_P), clock=lambda: clock[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_state(opt, torch.Generator(device=device).manual_seed(0))
+    losses, times, steps = [], {ELASTIC_P: [], ELASTIC_P - 1: []}, []
+
+    def run(ts, state, s, include=None):
+        batch = shard_batch(stream.global_batch_at(s, device), ts.nworkers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = ts.fn(state, batch, include)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times[ts.nworkers].append(dt)
+        losses.append(loss)
+        same = replicas_equal(torch, state["params"])
+        log(f"[train_elastic] step {s} (P = {ts.nworkers}"
+            f"{'' if include is None else ', include ' + str(include.tolist())}"
+            f"): loss {loss!r}  step_s {dt:.4f}; replicas bit-equal: {same}")
+        if not math.isfinite(loss) or not same:
+            fail(f"train_elastic step {s}: loss {loss}, replicas equal {same}")
+        steps.append(s)
+        return state, m
+
+    with plain_calls() as plain:
+        LAUNCHES.clear()
+        for s in range(2):
+            state, _ = run(ts, state, s)
+            clock[0] += ELASTIC_HB_PERIOD
+            for w in plan.survivor_ids:
+                if not (w == ELASTIC_FAILED and s >= 1):
+                    hb.beat(w)
+        peak4 = torch.cuda.max_memory_allocated()
+        failed = hb.dead(ELASTIC_HB_TIMEOUT)
+        if failed != {ELASTIC_FAILED}:
+            fail(f"train_elastic: the heartbeat monitor reported {failed}, "
+                 f"not {{{ELASTIC_FAILED}}}")
+        for w in failed:
+            hb.remove(w)
+        old, plan = plan, replan(plan, failed)
+        log(f"[train_elastic] heartbeat: worker(s) {sorted(failed)} silent "
+            f"past {ELASTIC_HB_TIMEOUT} s (explicit clock at {clock[0]}); "
+            f"replan -> generation {plan.generation}, survivors "
+            f"{plan.survivor_ids}, P = {plan.n_workers}, lr_scale "
+            f"{plan.lr_scale!r}, {len(plan.schedule)} tree rounds "
+            f"{plan.schedule}")
+        t0 = time.perf_counter()
+        state = carry_survivors(state, [old.rank_of(w)
+                                        for w in plan.survivor_ids])
+        del ts
+        torch.cuda.synchronize()
+        carry_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        _, _, ts3, _, _ = minicpm_step(torch, device, p=plan.n_workers,
+                                       allreduce_mode="tree", record=False)
+        log(f"[train_elastic] survivors' state carried leaf by leaf in "
+            f"{carry_s:.3f} s; {held} bytes ({held / 2**30:.2f} GiB) "
+            "allocated after the P = 4 state was freed")
+        pol = DeadlinePolicy(factor=3.0, max_drop_frac=ELASTIC_DROP_FRAC)
+        for s in range(2, 4):
+            state, _ = run(ts3, state, s)
+            pol.observe([times[3][-1]] * 3)
+        durs = [times[3][-1]] * 3
+        durs[1] *= ELASTIC_OUTLIER
+        mask = pol.mask(durs)
+        log(f"[train_elastic] DeadlinePolicy(factor 3, max_drop_frac "
+            f"{ELASTIC_DROP_FRAC}) on step durations {durs}: include "
+            f"{mask.tolist()}")
+        if mask.tolist() != [True, False, True]:
+            fail(f"train_elastic: the policy's mask is {mask.tolist()}")
+        include = torch.tensor(mask, dtype=torch.float32, device=device)
+        with checked_drop(torch) as drop:
+            state, _ = run(ts3, state, 4, include)
+        if len(drop.seen) != ts3.n_buckets:
+            fail(f"train_elastic: the drop step's exchange was checked for "
+                 f"{len(drop.seen)} buckets, not {ts3.n_buckets}")
+        for c in drop.seen:
+            log(f"[train_elastic] drop step, bucket {c['bucket']} (d = "
+                f"{c['d']}): {c['selected']} selected coordinates are the "
+                f"live workers' sum x {c['scale']!r} (largest relative "
+                f"difference {c['max_rel_err']:.3g}); dropped worker(s) "
+                f"{c['dropped']} keep their error-corrected gradient in the "
+                "EF, bit for bit; the live workers' EF 0 on the selection")
+        with captured_buckets(ts3.compressor.parts) as got:
+            state, _ = run(ts3, state, 5)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    recoveries = ts3.n_buckets * (ELASTIC_P * 2 + 3 * 4)
+    for name in ("sketch_encode", "sketch_encode_finish", "heavymix_scores",
+                 "topk_select"):
+        if counts.get(name) != recoveries:
+            fail(f"{name} launched {counts.get(name)} times on the "
+                 f"train_elastic path, not {recoveries} (once a bucket, "
+                 "worker and step)")
+    check_launches("train_elastic", counts, (),
+                   ("sketch_decode", "ts_encode", "heavymix_scores_ts",
+                    "ts_transpose"))
+    if plain:
+        fail(f"plain versions called on the train_elastic path: {plain}")
+    log(f"[train_elastic] launches {counts}: encode, finish, scores (with "
+        f"the filler) and select {recoveries} each = 2 buckets x (4 workers "
+        "x 2 steps + 3 x 4); no plain version called")
+    log(f"[train_elastic] peak memory {peak4} bytes ({peak4 / 2**30:.2f} "
+        f"GiB) through the P = 4 steps, {peak} ({peak / 2**30:.2f} GiB) "
+        f"over the phase; step_s at P = 4 {times[4]}, at P = 3 {times[3]} "
+        f"({card_line()})")
+    del state
+    torch.cuda.empty_cache()
+    route_checks(torch, "train_elastic", ts3.compressor.parts, got)
+    return {"counts": counts, "times": times, "losses": losses,
+            "peak": peak, "peak_p4": peak4, "drop": drop.seen}
+
+
+def elastic_scenario(torch, device):
+    """examples/fault_tolerant_training.py's three phases at the smoke
+    config through the port on ``device`` (params from a CPU generator
+    seeded 0, the same on either device): P = 5 on
+    the tree (steps 0-3), ``replan`` after worker 3 fails, the survivors'
+    rows and a fresh P = 4 step (steps 4-6), ``DeadlinePolicy`` drops
+    worker 1 (30x slower) at step 7, step 8 includes all. Returns the
+    losses, each step's EF zero pattern (on the CPU), the final replica
+    divergence and, on the card, the launch counts of the run."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.core.gs_sgd import MeshAxes, make_state, make_train_step
+    from repro_torch.data import LMStream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.train import shard_batch
+    from repro_torch.models.flatten import init_flat_params
+    from repro_torch.optim import make as make_opt
+    from repro_torch.runtime import (DeadlinePolicy, carry_survivors,
+                                     initial_plan, replan)
+    cfg = SMOKES["qwen3-4b"]
+    opt = make_opt("adamw", lr=ELASTIC_SMOKE_LR)
+
+    def build(p):
+        return make_train_step(cfg, MeshAxes(tp=1, data=p, tp_axis=None), opt,
+                               compressor_name="gs-sgd",
+                               compressor_kw=ELASTIC_SMOKE_KW, remat=False,
+                               dtype=torch.float32, device=device)
+
+    stream = LMStream(vocab_size=cfg.vocab_size, seq_len=ELASTIC_SMOKE_SEQ,
+                      global_batch=ELASTIC_SMOKE_BATCH, seed=0)
+    ts = build(5)
+    params = init_flat_params(cfg, torch.Generator().manual_seed(0), 1,
+                              ts.fs)
+    state = make_state({k: v.to(device) for k, v in params.items()}, opt,
+                       ts.compressor, ts.d_local, 5)
+    losses, zeros = [], []
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+
+    def step(ts, state, s, include):
+        batch = shard_batch(stream.global_batch_at(s, device), ts.nworkers)
+        state, m = ts.fn(state, batch, include.to(device))
+        losses.append(float(m["loss"]))
+        ef = state["ef"] if isinstance(state["ef"], tuple) else (state["ef"],)
+        zeros.append([(e == 0).cpu() for e in ef])
+        return state
+
+    for s in range(4):
+        state = step(ts, state, s, torch.ones(5))
+    old = initial_plan(5)
+    plan = replan(old, failed={3})
+    state = carry_survivors(state, [old.rank_of(w) for w in
+                                    plan.survivor_ids])
+    ts = build(plan.n_workers)
+    for s in range(4, 7):
+        state = step(ts, state, s, torch.ones(4))
+    pol = DeadlinePolicy(factor=3.0)
+    pol.observe([1.0, 1.0, 1.0, 1.0])
+    mask = torch.tensor(pol.mask([1.0, 30.0, 1.0, 1.0]), dtype=torch.float32)
+    state = step(ts, state, 7, mask)
+    state = step(ts, state, 8, torch.ones(4))
+    counts = {}
+    if on_card:
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+    div = max(float((v - v[:1]).abs().max()) for v in state["params"].values())
+    return {"losses": losses, "zeros": zeros, "divergence": div,
+            "mask": mask.tolist(), "plan": plan, "counts": counts}
+
+
+def parity_elastic_phase(torch, card="cuda") -> dict:
+    """``elastic_scenario`` on the card and on the CPU port from the same
+    params: the selected coordinates (every worker's EF zero pattern)
+    equal on every step, the losses within PARITY_LOSS_RTOL, the replica
+    divergence 0 on both; the scores route's kernels launched on the card
+    (the smoke buckets are below 2^22)."""
+    cpu = elastic_scenario(torch, "cpu")
+    with plain_calls() as plain:
+        gpu = elastic_scenario(torch, card)
+    counts = gpu["counts"]
+    log(f"[parity_elastic] plan {gpu['plan'].survivor_ids} generation "
+        f"{gpu['plan'].generation} lr_scale {gpu['plan'].lr_scale!r}; "
+        f"drop mask {gpu['mask']}; losses cpu {cpu['losses']} card "
+        f"{gpu['losses']}; replica divergence cpu {cpu['divergence']} card "
+        f"{gpu['divergence']}; card launches {counts}")
+    if not _close(cpu["losses"], gpu["losses"], PARITY_LOSS_RTOL):
+        fail("parity_elastic: card and CPU losses differ")
+    for s, (a, b) in enumerate(zip(cpu["zeros"], gpu["zeros"])):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if not torch.equal(x, y):
+                fail(f"parity_elastic: selected coordinates differ at step "
+                     f"{s} bucket {i}")
+    if cpu["divergence"] != 0.0 or gpu["divergence"] != 0.0:
+        fail("parity_elastic: the replicas diverged")
+    if card != "cpu":
+        if plain:
+            fail(f"plain versions called on the parity_elastic card path: "
+                 f"{plain}")
+        check_launches("parity_elastic", counts,
+                       ("sketch_encode", "sketch_encode_finish",
+                        "heavymix_scores", "topk_select"),
+                       ("sketch_decode", "ts_encode", "heavymix_scores_ts",
+                        "ts_transpose"))
+    log(f"[parity_elastic] {len(cpu['losses'])} steps: losses within rtol "
+        f"{PARITY_LOSS_RTOL}, selected coordinates equal every step, replica "
+        "divergence 0 on both")
+    return counts
+
+
+def cli_simulate_phase() -> None:
+    """``python -m repro_torch.launch.simulate`` (host only: it runs
+    nothing on a device): README's fail_rejoin run at P = 1,024, buckets 8
+    on ``--engine batched`` and ``--engine loop`` (their ``--out`` files
+    equal, ``--json`` curves a step each); a ``--watch --congest`` run
+    that re-plans, with ``--trace`` validated by ``obs.trace.validate``.
+    Prints the simulator's own wall seconds, host time."""
+    from repro_torch.obs import trace as obtrace
+    out_dir = os.path.join(ROOT, "build", "cli_simulate")
+    os.makedirs(out_dir, exist_ok=True)
+    path = {n: os.path.join(out_dir, n) for n in (
+        "batched.json", "loop.json", "curves.json", "watch.json",
+        "trace.json")}
+    base = ["--p", "1024", "--method", "gs-sgd", "--buckets", "8",
+            "--fault-trace", os.path.join("examples", "traces",
+                                          "fail_rejoin.json")]
+    walls = {}
+    for engine in ("batched", "loop"):
+        extra = ["--json", path["curves.json"]] if engine == "batched" else []
+        lines = run_cli("repro_torch.launch.simulate",
+                        base + ["--engine", engine, "--out",
+                                path[f"{engine}.json"], *extra],
+                        tag="cli_simulate")
+        walls[engine] = next(ln for ln in lines if "host wall" in ln)
+    with open(path["batched.json"], "rb") as f, \
+            open(path["loop.json"], "rb") as g:
+        if f.read() != g.read():
+            fail("cli_simulate: the batched and loop engines' --out files "
+                 "differ")
+    with open(path["curves.json"]) as f:
+        curves = json.load(f)
+    with open(path["batched.json"]) as f:
+        res = json.load(f)
+    if (len(curves["curves"]) != res["totals"]["steps"]
+            or set(curves) < {"model", "curves", "checks"}
+            or [r["p"] for r in res["replans"]] != [1023]):
+        fail(f"cli_simulate: unexpected result {res['totals']} "
+             f"{res['replans']}")
+    lines = run_cli("repro_torch.launch.simulate",
+                    ["--p", "8", "--d", "1000000", "--steps", "20",
+                     "--compute-jitter", "0", "--watch", "--congest", "8:6",
+                     "--out", path["watch.json"], "--trace",
+                     path["trace.json"]], tag="cli_simulate")
+    walls["watch"] = next(ln for ln in lines if "host wall" in ln)
+    if not any(ln.startswith("watchdog: re-planned") for ln in lines):
+        fail("cli_simulate: the watched congested run did not re-plan")
+    with open(path["trace.json"]) as f:
+        doc = json.load(f)
+    n_spans = obtrace.validate(doc)
+    if doc["source"] != "sim" or not n_spans:
+        fail("cli_simulate: the --trace document is not a sim trace")
+    log(f"[cli_simulate] batched and loop --out files equal "
+        f"({res['totals']['steps']} steps, replans "
+        f"{[(r['step'], r['p']) for r in res['replans']]}); the watched "
+        f"run re-planned; its trace validates ({n_spans} spans); the "
+        "simulator's own wall time, host clock (a model's timeline, no "
+        "device time):")
+    for k, ln in walls.items():
+        log(f"[cli_simulate]   {k}: {ln}")
 
 
 def check_route(tag, counts, plain, recoveries, decode=True) -> None:
@@ -2067,6 +2516,7 @@ def route_checks(torch, tag, parts, got, timed=False) -> dict:
     time each kernel, its plain version and its library call at these
     shapes; returns kernel name -> [shape row, a bucket]."""
     from repro_torch.core import count_sketch as cs
+    from repro_torch.core.heavymix import draw_filler
     from repro_torch.kernels.heavymix_topk import (heavymix_scores_hist,
                                                    heavymix_scores_plain)
     from repro_torch.kernels.sketch_decode import (sketch_decode_hist,
@@ -2124,9 +2574,11 @@ def route_checks(torch, tag, parts, got, timed=False) -> dict:
         else:   # scores, est and histogram held against plain inside
             route = "heavymix_scores"
             thr = cs.l2sq_estimate(sk) / k
+            fill = (draw_filler(d, u.device) if part.faithful_heavymix
+                    else None)
             key, est, hist, _ = check_scores_hist(
-                torch, f"{tag} bucket {b}", cfg, sk, thr, d)
-            del est
+                torch, f"{tag} bucket {b}", cfg, sk, thr, d, fill)
+            del est, fill
             if timed:
                 rows.setdefault(route, []).append(_timed_shape(
                     torch, shape, lambda: heavymix_scores_hist(cfg, sk, thr,
@@ -3580,10 +4032,18 @@ def main() -> int:
     t0 = time.time()
     hybrid = train_hybrid_phase(torch, device)
     log(f"[train_hybrid] phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    elastic = train_elastic_phase(torch, device)
+    log(f"[train_elastic] phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.time()
     parity_counts = parity_phase(torch)
     parity_configs_phase(torch)
     log(f"[parity] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    parity_elastic = parity_elastic_phase(torch)
+    log(f"[parity_elastic] phase took {time.time() - t0:.1f} s")
     t0 = time.time()
     families = parity_families_phase(torch)
     log(f"[parity_families] phase took {time.time() - t0:.1f} s")
@@ -3613,6 +4073,8 @@ def main() -> int:
         kr["launches_hybrid_interleave"] = hybrid["interleave_counts"].get(
             kr["name"], 0)
         kr["launches_parity_families"] = families.get(kr["name"], 0)
+        kr["launches_elastic"] = elastic["counts"].get(kr["name"], 0)
+        kr["launches_parity_elastic"] = parity_elastic.get(kr["name"], 0)
         for model, run in cnn.items():
             kr[f"launches_cnn_{model}"] = run["counts"].get(kr["name"], 0)
             kr.setdefault("cnn_shapes", []).extend(
@@ -3636,6 +4098,9 @@ def main() -> int:
     t0 = time.time()
     cli_tune_phase()
     log(f"[cli_tune] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cli_simulate_phase()
+    log(f"[cli_simulate] phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     serve_counts = serve_phases(torch, device)
     t0 = time.time()

@@ -36,11 +36,11 @@ Span taxonomy — the ``cat`` field (the reference's):
     comm       per-bucket sketch all-reduce / per-tree-round sends
     recover    per-bucket decode + heavymix recovery
     optimizer  the segment-wise optimizer sweep
-    runtime    watchdog instants
-    stall      sim-only (not produced by the port yet)
+    runtime    watchdog, elastic-replan and straggler-drop instants
+    stall      sim-only (``from_sim``: the barrier wait and detection)
 
-``from_sim`` renders the simulator's event-loop result, whose engines are
-not ported yet: it raises.
+``from_sim`` renders the simulator's event-loop result
+(``sim/cluster.SimResult``) in the same schema, on the simulated clock.
 """
 
 from __future__ import annotations
@@ -395,8 +395,50 @@ def bucket_durations(doc: dict, cat: str, prefix: str) -> list[float]:
 
 
 def from_sim(result) -> Tracer:
-    """Render a simulator result into a Tracer — needs ``sim/cluster.py``'s
-    event-loop engines, which a later slice of the port brings."""
-    raise NotImplementedError(
-        "obs.trace.from_sim needs sim/cluster.py's event-loop engines, "
-        "which are not ported yet (ROADMAP Queue 1, the sim/tune item)")
+    """Render a ``sim.cluster.SimResult`` into a Tracer.
+
+    Each ``StepRecord`` becomes a cat='step' umbrella span with
+    sequential forward / backward / stall / encode / comm / recover
+    children (compute split by the config's ``bwd_frac``); replans and
+    straggler drops become cat='runtime' instants — the shape the train
+    driver emits, so sim and measured traces diff structurally. Times are
+    the simulated clock's. Duck-typed on the result object: no sim
+    import, no cycle.
+    """
+    cfg = result.config
+    tr = Tracer(epoch=0.0)
+    track = "cluster"
+    for r in result.records:
+        t0 = r.t_start
+        tr.add_span(f"step{r.step}", t0, t0 + r.total, cat="step",
+                    track=track,
+                    args={"step": r.step, "warmup": False, "p": r.p,
+                          "generation": r.generation, "t_step": r.total})
+        cur = t0
+        parts = (("forward", "forward", r.compute * (1.0 - cfg.bwd_frac)),
+                 ("backward", "backward", r.compute * cfg.bwd_frac),
+                 ("stall", "stall", r.stall),
+                 ("encode", "encode", r.encode),
+                 ("comm", "comm", r.comm),
+                 ("recover", "recover", r.recover))
+        for name, cat, dur in parts:
+            if dur > 0.0:
+                tr.add_span(name, cur, cur + dur, cat=cat, track=track,
+                            args={"step": r.step})
+            cur += dur
+        for w in r.dropped:
+            tr.instant("straggler.drop", cat="runtime", track=track,
+                       ts=t0 + r.compute + r.stall,
+                       args={"worker": int(w), "step": r.step})
+    for rp in result.replans:
+        tr.instant("elastic.replan", cat="runtime", track=track,
+                   ts=rp["time"],
+                   args={k: rp.get(k) for k in
+                         ("step", "generation", "p", "failed", "joined",
+                          "lr_scale")})
+    for w in getattr(result, "watch", None) or []:
+        tr.instant(w.get("kind", "watch"), cat="runtime", track=track,
+                   ts=w.get("time") or 0.0,
+                   args={k: v for k, v in w.items()
+                         if k not in ("kind", "time")})
+    return tr

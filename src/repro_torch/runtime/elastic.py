@@ -22,11 +22,15 @@ failure requires no algorithmic change — only a re-plan:
 
 ``ElasticPlan`` is pure data; drivers apply it between steps. The serving
 replica set (``serve/replica.py``) re-plans through it on a failover.
+``carry_survivors`` moves a train state onto the survivors' rows, as the
+reference indexes every state leaf (``tree_map(lambda a: a[rows], state)``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.core import allreduce as ar
 from repro_torch.obs import trace as obtrace
@@ -78,3 +82,29 @@ def replan(plan: ElasticPlan, failed: set[int] | frozenset[int],
               "failed": sorted(failed), "joined": list(joined),
               "lr_scale": new.lr_scale})
     return new
+
+
+def carry_survivors(state: dict, rows) -> dict:
+    """The train state on the survivors' rows: every per-worker tensor
+    (``make_state``'s params, optimizer moments and error feedback, the
+    worker axis first) indexed by ``rows``, the survivors' ranks in the
+    old plan in the new plan's order (``[old.rank_of(w) for w in
+    new.survivor_ids]``); the step counter is kept. ``state`` is consumed:
+    its leaves are replaced one at a time, so at full width the copy holds
+    one leaf's rows beside the old state, never a second state."""
+    idx = torch.tensor(list(rows), dtype=torch.long,
+                       device=state["params"]["top_s"].device)
+
+    def take(x):
+        if isinstance(x, (tuple, list)):
+            out = list(x)
+            for i, leaf in enumerate(out):
+                out[i] = take(leaf)
+            return type(x)(out)
+        return x.index_select(0, idx)
+
+    for group in ("params", "opt"):
+        for k in list(state[group]):
+            state[group][k] = take(state[group][k])
+    state["ef"] = take(state["ef"])
+    return state

@@ -1,6 +1,7 @@
 """The drift watchdog: detect -> refit -> re-plan at a step boundary.
 
-Port of ``repro/tune/watch.py``: ``Watchdog`` and ``predict_phases``.
+Port of ``repro/tune/watch.py``: ``Watchdog``, ``SimWatcher`` and
+``predict_phases``.
 
 Closes the truth loop (DESIGN.md §12): per-step records stream through
 ``obs.drift.DriftDetector``; on a sustained-drift alarm the watchdog
@@ -22,10 +23,10 @@ After either outcome the detector is reset: it re-learns the post-event
 regime from a fresh warmup (the implicit cooldown), so constant
 congestion alarms once, not every step.
 
-``launch/train.py --watch`` feeds measured ``t_step`` records and
-rebuilds the train step from the new spec. The reference's
-``SimWatcher`` (the same loop on the event-loop engines' modeled time)
-waits for ``launch/simulate.py``, which is not ported yet.
+Both launchers drive one watchdog: ``launch/train.py --watch`` feeds
+measured ``t_step`` records and rebuilds the train step from the new
+spec; ``launch/simulate.py --watch`` wraps it in ``SimWatcher`` so the
+event-loop engines replay the same loop on modeled time.
 """
 
 from __future__ import annotations
@@ -143,3 +144,16 @@ class Watchdog:
         self.replans += 1
         self.log.append({"kind": "watch.replan", **entry})
         return self.spec
+
+
+class SimWatcher(Watchdog):
+    """Adapter for the event-loop engines: consumes ``sim.cluster``
+    ``StepRecord``s and returns the new ``SimConfig`` on re-plan."""
+
+    def on_record(self, r, *, now: float):
+        new = self.on_step(
+            {"step": r.step, "p": r.p, "t_step": r.total,
+             "compute": r.compute, "stall": r.stall, "encode": r.encode,
+             "comm": r.comm, "recover": r.recover},
+            now=now)
+        return None if new is None else new.sim_config()

@@ -850,3 +850,106 @@ def test_serve_engine_card_matches_cpu(card, arch):
     assert [dataclasses.asdict(c) for c in ep.run()] == want
     assert [dataclasses.asdict(c) for c in ec.run()] == want
     assert not any(LAUNCHES.values())
+
+
+@pytest.mark.parametrize("mode", ["psum", "tree"])
+def test_straggler_drop_exchange_on_card(card, mode):
+    """The bucketed exchange with a straggler dropped (include [1, 0, 1,
+    1]) at a mid size (d = 3,000,000 in two buckets, P = 4, k 12,000, R 5,
+    W 2^14) on the card: every worker applies the same update; on each
+    bucket's selection it is the live workers' sum of u = ef + g times
+    P/live (rtol 1e-4 beyond the f32 rounding of that sum); the dropped
+    worker's new EF is its u bit for bit and the live workers' is 0 on the
+    selection; the update and the EF equal the CPU port's on the same
+    inputs (the encode is exact, the selection the plain version's)."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core.gs_sgd import exchange_bucketed
+    p, d = 4, 3_000_000
+    bc = comp.bucketize(comp.make("gs-sgd", k=12_000, rows=5, width=1 << 14,
+                                  allreduce_mode=mode),
+                        comp.even_bucket_sizes(d, 2))
+    gen = torch.Generator(device=card).manual_seed(4)
+    g = torch.randn((p, d), generator=gen, device=card).mul_(1e-3)
+    spikes = torch.randint(0, d, (p, 3000), generator=gen, device=card)
+    g.scatter_(1, spikes, torch.randn((p, 3000), generator=gen,
+                                      device=card))
+    ef = tuple(torch.randn((p, n), generator=gen, device=card).mul_(1e-4)
+               for n in bc.spec.sizes)
+    inc = torch.tensor([1.0, 0.0, 1.0, 1.0], device=card)
+    LAUNCHES.clear()
+    upd, ef_new, _ = exchange_bucketed(bc, ef, g, nworkers=p, include=inc)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sketch_encode"] == 2 * p
+    assert all(torch.equal(upd[w], upd[0]) for w in range(p))
+    live = torch.tensor([0, 2, 3], device=card)
+    eps = torch.finfo(torch.float32).eps
+    for b, (o, n) in enumerate(zip(bc.spec.offsets, bc.spec.sizes)):
+        u = ef[b] + g[:, o:o + n]
+        assert torch.equal(ef_new[b][1], u[1])
+        sel = torch.nonzero(upd[0, o:o + n]).flatten()
+        assert 0 < sel.numel() <= bc.parts[b].k
+        terms = u.index_select(0, live).index_select(1, sel).double()
+        want = terms.sum(0) * (4 / 3)
+        err = (upd[0, o + sel].double() - want).abs()
+        assert bool((err <= 1e-4 * want.abs() + 4 * eps * (4 / 3)
+                     * terms.abs().sum(0)).all())
+        for w in (0, 2, 3):
+            assert not bool(ef_new[b][w].index_select(0, sel).any())
+    cpu = exchange_bucketed(bc, tuple(e.cpu() for e in ef), g.cpu(),
+                            nworkers=p, include=inc.cpu())
+    torch.testing.assert_close(upd.cpu(), cpu[0], rtol=1e-6, atol=1e-6)
+    for e_card, e_cpu in zip(ef_new, cpu[1]):
+        assert torch.equal((e_card == 0).cpu(), e_cpu == 0)
+        torch.testing.assert_close(e_card.cpu(), e_cpu, rtol=1e-6, atol=1e-6)
+
+
+def test_tree_step_p3_with_a_drop_card_matches_cpu(card):
+    """The smoke config's step on the Alg. 1 tree at P = 3 (odd: the tree
+    parks the largest odd rank), three steps, worker 1 dropped in the
+    second, on the card and on the CPU port from the same params and
+    batches: losses within 1e-3, the selected coordinates (every worker's
+    EF zero pattern) equal every step, the replicas' params bit-equal on
+    both devices, the scores route's kernels launched on the card."""
+    import numpy as np
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.core.gs_sgd import MeshAxes, make_state, make_train_step
+    from repro_torch.data import LMStream
+    from repro_torch.launch.train import shard_batch
+    from repro_torch.models.flatten import init_flat_params
+    from repro_torch.optim import make as make_opt
+    cfg = SMOKES["qwen3-4b"]
+    masks = [torch.ones(3), torch.tensor([1.0, 0.0, 1.0]), torch.ones(3)]
+    runs = []
+    for dev in (torch.device("cpu"), card):
+        opt = make_opt("adamw", lr=2e-3)
+        ts = make_train_step(cfg, MeshAxes(tp=1, data=3, tp_axis=None), opt,
+                             compressor_name="gs-sgd",
+                             compressor_kw=dict(k=4096, rows=5, width=8192,
+                                                allreduce_mode="tree"),
+                             buckets=2, remat=False, dtype=torch.float32,
+                             device=dev)
+        params = init_flat_params(cfg, torch.Generator().manual_seed(0), 1,
+                                  ts.fs)
+        st = make_state({k: v.to(dev) for k, v in params.items()}, opt,
+                        ts.compressor, ts.d_local, 3)
+        stream = LMStream(vocab_size=cfg.vocab_size, seq_len=32,
+                          global_batch=12, seed=0)
+        LAUNCHES.clear()
+        losses, sel = [], []
+        for step, inc in enumerate(masks):
+            batch = shard_batch(stream.global_batch_at(step, dev), 3)
+            st, m = ts.fn(st, batch, inc.to(dev))
+            losses.append(float(m["loss"]))
+            sel.append([(e == 0).cpu() for e in st["ef"]])
+            assert all(torch.equal(v, v[:1].expand_as(v))
+                       for v in st["params"].values())
+        runs.append((losses, sel, dict(LAUNCHES)))
+    (lc, sc, _), (lg, sg, counts) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+    for a, b in zip(sc, sg):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    for name in ("sketch_encode", "sketch_encode_finish", "heavymix_scores",
+                 "topk_select"):
+        assert counts.get(name, 0) == 2 * 3 * 3, name

@@ -186,8 +186,3 @@ def test_provenance_keys_and_spec_hash():
     assert t["runspec_sha256"] == tobs.runspec_hash(spec)
     doc = JSpec().to_json()
     assert tobs.runspec_hash(doc) == jobs.runspec_hash(doc)
-
-
-def test_from_sim_raises_until_the_engines_are_ported():
-    with pytest.raises(NotImplementedError, match="sim/cluster.py"):
-        ttrace.from_sim(object())
