@@ -1,6 +1,6 @@
 """gs-SGD distributed train step with P simulated workers on one device.
 
-Port of ``repro/core/gs_sgd.py`` for 'dp' mode at tp=1. The reference
+Port of ``repro/core/gs_sgd.py``. The reference
 builds a per-device step and runs P workers under ``jax.vmap(...,
 axis_name='data')``; here the step itself carries the worker axis: every
 per-worker tensor of the state (params, optimizer moments, error
@@ -49,7 +49,36 @@ sums their losses and gradients in f32, then divides by the slice count
 (``jax.lax.scan`` in the reference, a Python loop here). ``clip_norm``
 scales the aggregated gradient to at most that global norm.
 ``make_serve_fns`` binds the serving targets (prefill, decode) to the
-same layout. Left to later slices: tp > 1 and fsdp.
+same layout.
+
+Sharded layouts (tp > 1, or ``dp_mode="fsdp"``; the reference under
+nested ``jax.vmap``, ``model`` outside the data-parallel axes). State
+tensors are (tp, P, *local) (P workers pod-major, the reference's
+order; (P, *local) at tp = 1), each segment's last dim divided as
+``seg_divisors`` says: in 'dp' a model rank stores its sharded segments
+whole and 1/tp of the replicated ones, in 'fsdp' each worker also 1/data
+of all of them. ``_gather_closures`` maps a group's storage to the
+*use* layout the model reads (``models/model.py``) and the group's
+summed gradient back (the gathers' transpose, psum_scatter). A group is
+one worker in 'dp' and the ``data`` workers of one pod in 'fsdp': the
+pod's shards are gathered once a step, every worker of the pod runs its
+rows on them, and their gradients accumulate in one buffer, which each
+worker's slice is then cut from. The whole model replica (every rank) is
+one autograd graph (``common.ShardCtx``), whose loss is seeded with 1/tp:
+psum's transpose makes the summed objective's gradient tp times the
+loss's, as in the reference. The exchange then runs once per model rank
+over the dp workers ('dp': every worker; 'fsdp' with a pod axis: the
+pods, once per data index, each exchanging its own shard's
+coordinates); a single-pod fsdp step is dense and EF-free (the data sum
+is the gradient's). The EF is a tuple with one compressor state per such
+group. The global norm sums over the ranks (and the pod's data shards
+in fsdp); the reported loss is the mean over the workers. A chunked
+backward (``bwd_chunks``) runs there as the monolithic backward and the
+bucketed exchange after it (the interleave's numbers; its overlap with
+the backward is not scheduled on the sharded layouts). The tp = 1 'dp'
+step is the same step with one rank, one worker a group (its leaves
+views of the worker's params) and one exchange over all workers, whose
+EF is the compressor state itself.
 """
 
 from __future__ import annotations
@@ -65,11 +94,11 @@ from repro_torch.core import allreduce as ar
 from repro_torch.core import compression as comp
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import model as mdl
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, ShardCtx, init_params
 from repro_torch.models.flatten import (SEG_NAMES, BucketPlan, FlatSpec,
                                         bucket_plan, init_flat_params,
                                         make_flat_spec, pack_segs,
-                                        unpack_segs)
+                                        shard_segs, unpack_segs)
 from repro_torch.obs import trace as obtrace
 from repro_torch.optim.optimizers import Optimizer
 
@@ -93,6 +122,57 @@ class MeshAxes:
     @property
     def dp_size(self) -> int:
         return self.pod * self.data
+
+    def ctx(self, dtype=torch.bfloat16, comm_dtype=None) -> ShardCtx:
+        return ShardCtx(tp=self.tp, tp_axis=self.tp_axis,
+                        dp_axes=self.dp_axes, dtype=dtype,
+                        comm_dtype=comm_dtype)
+
+
+def _gather_closures(ma: MeshAxes, dp_mode: str):
+    """(gather, scatter) between a group's storage and the use layout.
+
+    A group's storage: every segment (tp, n, *local), the model ranks,
+    then the group's n workers (one in 'dp', a pod's ``data`` workers in
+    'fsdp'). ``gather`` returns the use layout: each ``*_s`` segment the
+    n shards concatenated (the reference's ``gdata``), rank-stacked
+    (unranked at tp = 1); each ``*_r`` one unranked tensor, every
+    worker's and rank's slice concatenated data-major (``gdata(gmodel(
+    v))``). ``scatter(use, n)`` is the transpose of both: given the use
+    layout's gradient, summed over the group's workers (the pod's data
+    sum), it cuts each worker's and rank's slice, (tp, n, *local) -- the
+    reference's psum_scatter. Casting to the compute dtype is left to the
+    model (``FlatSpec`` casts each leaf).
+    """
+    if dp_mode not in ("dp", "fsdp"):
+        raise ValueError(f"unknown dp_mode {dp_mode!r}")
+    tp = ma.tp
+
+    def gather(store: dict) -> dict:
+        out = {}
+        for k, v in store.items():
+            n = v.shape[1]
+            rep = k.endswith("_r")
+            parts = ([v[r, j] for j in range(n) for r in range(tp)] if rep
+                     else [v[:, j] for j in range(n)])
+            u = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            out[k] = u if rep or tp > 1 else u[0]
+        return out
+
+    def scatter(use: dict, n: int) -> dict:
+        out = {}
+        for k, u in use.items():
+            if k.endswith("_r"):
+                m = u.shape[-1] // (n * tp)
+                out[k] = u.reshape(u.shape[:-1] + (n, tp, m)).movedim(
+                    (-2, -3), (0, 1))
+            else:
+                u = u if tp > 1 else u[None]
+                m = u.shape[-1] // n
+                out[k] = u.reshape(u.shape[:-1] + (n, m)).movedim(-2, 1)
+        return out
+
+    return gather, scatter
 
 
 def seg_divisors(ma: MeshAxes, dp_mode: str) -> dict[str, int]:
@@ -382,13 +462,67 @@ class TrainStep:
     bwd_chunks: int = 0           # backward chunks (0 = monolithic backward)
     plan: BucketPlan | None = None  # readiness plan (bucketed exchange)
     fuse_encode: bool = False     # fragment-wise encode in the interleave
+    # sharded layouts: each exchange's model rank and worker slice
+    comp_groups: tuple[tuple[int, slice], ...] = ()
+
+    @property
+    def sharded(self) -> bool:
+        """tp > 1 or fsdp: state (tp, P, *local), module docstring."""
+        return self.ma.tp > 1 or self.dp_mode == "fsdp"
 
     def init_state(self, opt: Optimizer, generator: torch.Generator) -> dict:
-        """Fresh state: params drawn from ``generator``, replicated to P."""
-        params = init_flat_params(self.fs.cfg, generator, 1, self.fs,
-                                  device=self.device)
-        return make_state(params, opt, self.compressor, self.d_local,
-                          self.nworkers)
+        """Fresh state: params drawn from ``generator`` (the global model,
+        cut into rank-stacked segments at tp > 1), as ``state_from``."""
+        if self.ma.tp > 1:
+            params = shard_segs(self.fs.cfg, init_params(
+                self.fs.cfg, generator, self.ma.tp, device=self.device),
+                self.ma.tp, self.fs)[1]
+        else:
+            params = init_flat_params(self.fs.cfg, generator, 1, self.fs,
+                                      device=self.device)
+        return self.state_from(params, opt)
+
+    def state_from(self, params: dict, opt: Optimizer,
+                   ef_dtype: torch.dtype = torch.float32) -> dict:
+        """The step's state from one model replica's parameters: the flat
+        segments at tp = 1, the rank-stacked segments of
+        ``flatten.shard_segs`` at tp > 1. 'dp' replicates them to every
+        worker, 'fsdp' gives each worker of each pod its shard; zero
+        optimizer and EF state (``ef_dtype`` its storage dtype)."""
+        if not self.sharded:
+            return make_state(params, opt, self.compressor, self.d_local,
+                              self.nworkers, ef_dtype)
+        tp, P = self.ma.tp, self.nworkers
+        gather, scatter = _gather_closures(self.ma, self.dp_mode)
+        one = {k: (v if tp > 1 else v[None])[:, None]
+               for k, v in params.items()}
+        if self.dp_mode == "fsdp":
+            shards = scatter(gather(one), self.ma.data)
+            store = {k: torch.cat([v] * (P // self.ma.data), dim=1)
+                     for k, v in shards.items()}
+        else:
+            store = {k: v.expand((tp, P) + v.shape[2:]).clone()
+                     for k, v in one.items()}
+        store = {k: v if tp > 1 else v[0] for k, v in store.items()}
+        dev = store["top_s"].device
+        ef = None if self.compressor is None else tuple(
+            self.compressor.init(self.d_local, len(range(*sl.indices(P))),
+                                 dev) for _, sl in self.comp_groups)
+        return _fresh_state(store, opt, ef, ef_dtype)
+
+
+def _fresh_state(store: dict, opt: Optimizer, ef, ef_dtype: torch.dtype
+                 ) -> dict:
+    """A step-0 state on the stored params: zero optimizer state, the
+    compressor's zero EF ``ef`` (f32) cast to ``ef_dtype``, or without a
+    compressor (``ef`` None) an empty (..., P, 0) EF."""
+    dev = store["top_s"].device
+    opt_state = {k: opt.init(v.shape, dev) for k, v in store.items()}
+    if ef is None:
+        ef = torch.zeros(store["top_s"].shape[:-1] + (0,), device=dev)
+    elif ef_dtype != torch.float32:
+        ef = _cast_tree(ef, ef_dtype)
+    return {"params": store, "opt": opt_state, "ef": ef, "step": 0}
 
 
 def _cast_tree(tree, dtype: torch.dtype):
@@ -417,17 +551,9 @@ def make_state(params: dict, opt: Optimizer, compressor, d_local: int,
     dev = params["top_s"].device
     rep = {k: v.unsqueeze(0).expand((nworkers,) + tuple(v.shape)).clone()
            for k, v in params.items()}
-    opt_state = {k: opt.init(v.shape, dev) for k, v in rep.items()}
     ef = (compressor.init(d_local, nworkers, dev) if compressor is not None
-          else torch.zeros((nworkers, 0), device=dev))
-    if compressor is not None and ef_dtype != torch.float32:
-        ef = _cast_tree(ef, ef_dtype)
-    return {"params": rep, "opt": opt_state, "ef": ef, "step": 0}
-
-
-def _unsupported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"{name} is not ported yet (left to a later "
-                               "slice of the PyTorch port)")
+          else None)
+    return _fresh_state(rep, opt, ef, ef_dtype)
 
 
 def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
@@ -450,11 +576,12 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
     geometry at this step's ``d_local``, buckets, overlap); the legacy
     kwargs must stay at their defaults when it is passed. ``device``:
     None means the card (and raises without one); pass "cpu" for the
-    plain path.
+    plain path. At tp > 1 or in 'fsdp' the step runs the sharded layout
+    (module docstring); ``fs`` then is the FlatSpec at ``ma.tp``.
     """
     device = resolve_device(device)
-    if dp_mode != "dp" or ma.tp != 1:
-        raise _unsupported(f"dp_mode={dp_mode!r} with tp={ma.tp}")
+    if dp_mode not in ("dp", "fsdp"):
+        raise ValueError(f"unknown dp_mode {dp_mode!r}")
     fs = fs or make_flat_spec(cfg, ma.tp)
     shapes = local_seg_shapes(fs, ma, dp_mode)
     d_local = sum(math.prod(s) for s in shapes.values())
@@ -481,8 +608,23 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         fuse_encode=fuse_encode,
         compressor=compressor_name if compressor_name else "dense",
         buckets=buckets, overlap=overlap)
-    comp_axes = ma.dp_axes
-    nworkers = ma.dp_size if comp_axes else 1
+    # In 'dp' the exchange sums the raw per-worker gradients over all dp
+    # axes; in 'fsdp' the pod's data sum is already in the gradient, so
+    # only the pod axis remains. Either way the update is the sum over all
+    # dp_size workers and is divided once.
+    sharded = ma.tp > 1 or dp_mode == "fsdp"
+    if dp_mode == "dp":
+        comp_axes, comp_n = ma.dp_axes, ma.dp_size
+    else:
+        comp_axes = (ma.pod_axis,) if ma.pod_axis else ()
+        comp_n = ma.pod
+    nworkers = ma.dp_size if (comp_axes or sharded) else 1
+    comp_groups: tuple = ()
+    if sharded and comp_axes:
+        comp_groups = (tuple((r, slice(0, nworkers)) for r in range(ma.tp))
+                       if dp_mode == "dp" else
+                       tuple((r, slice(j, nworkers, ma.data))
+                             for r in range(ma.tp) for j in range(ma.data)))
     compressor = None
     plan = None
     bucketed = bool(buckets is not None and comp_axes)
@@ -498,56 +640,73 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
     # The readiness interleave needs a staged bucketed compressor and the
     # pipelined schedule; otherwise a chunked backward still runs, but the
     # exchange sees the gradient only after the whole backward.
-    interleave = (bwd_chunks is not None and plan is not None and overlap
+    chunked = bwd_chunks is not None and not sharded
+    interleave = (chunked and plan is not None and overlap
                   and all(hasattr(c, "stage_encode")
                           for c in compressor.parts))
 
-    def worker_loss_and_grad(params: dict, wb: dict, p: int
-                             ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Worker p's loss and packed flat gradient on the rows ``wb``."""
-        segs = {k: params[k][p].detach().requires_grad_()
-                for k in SEG_NAMES}
-        with torch.enable_grad():
-            loss = mdl.loss_fn(cfg, fs, segs, wb, dtype=dtype, remat=remat)
-            loss.backward()
-        return loss.detach(), pack_segs({k: segs[k].grad for k in SEG_NAMES})
+    gather, scatter = _gather_closures(ma, dp_mode)
+    ctx = ma.ctx(dtype)
+    n_group = ma.data if dp_mode == "fsdp" else 1   # workers a gather group
+    inv_tp = 1.0 / ma.tp
 
     def loss_and_grad(params: dict, batch: dict
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-worker loss (P,) and packed flat gradients (P, d_local).
-        With ``microbatch`` below the local batch: the sum of the slices'
-        losses and gradients (f32, from zeros, in slice order), divided by
-        the slice count, as the reference's scan."""
-        losses = []
-        g_flat = torch.empty((nworkers, d_local), dtype=torch.float32,
+        """Per-worker loss (P,) and packed gradients (tp, P, d_local) in
+        the storage layout (tp = 1 included). Each gather group's storage
+        is gathered once into leaves (at tp = 1 in 'dp': views of the
+        worker's params); every worker of the group (and each of its
+        microbatch slices) runs its rows on them, its (tp,)-loss seeded
+        with 1/tp, the gradients accumulating on the leaves in f32 in
+        slice order, as the reference's scan; the sum is then scattered
+        to the group's workers and divided by the slice count."""
+        tp, P = ma.tp, nworkers
+        g_flat = torch.empty((tp, P, d_local), dtype=torch.float32,
                              device=device)
+        losses = torch.empty((P,), dtype=torch.float32, device=device)
         b_loc = batch["tokens"].shape[1]
         mb = microbatch or b_loc
         if mb < b_loc and b_loc % mb != 0:
             raise ValueError(f"local batch {b_loc} is not divisible by "
                              f"microbatch {mb}")
-        for p in range(nworkers):
-            wb = {k: v[p] for k, v in batch.items()}
-            if mb >= b_loc:
-                loss, g_flat[p] = worker_loss_and_grad(params, wb, p)
-            else:
-                loss = torch.zeros((), dtype=torch.float32, device=device)
-                g_flat[p] = 0.0
-                for i in range(b_loc // mb):
-                    sl = {k: v[i * mb:(i + 1) * mb] for k, v in wb.items()}
-                    l_i, g_i = worker_loss_and_grad(params, sl, p)
-                    loss = loss + l_i
-                    g_flat[p] += g_i
-                    del g_i
-                loss = loss / (b_loc // mb)
-                g_flat[p] /= b_loc // mb
-            losses.append(loss)
-        return torch.stack(losses), g_flat
+        n_mb = max(1, b_loc // mb)
+        for a in range(0, P, n_group):
+            store = {k: (params[k] if tp > 1 else params[k][None])
+                     [:, a:a + n_group] for k in SEG_NAMES}
+            use = {k: v.detach().requires_grad_()
+                   for k, v in gather(store).items()}
+            del store
+            for w in range(a, a + n_group):
+                loss_w = None
+                for i in range(n_mb):
+                    rows = slice(i * mb, (i + 1) * mb) if n_mb > 1 else \
+                        slice(None)
+                    wb = {k: v[w, rows] for k, v in batch.items()}
+                    with torch.enable_grad():
+                        loss = inv_tp * mdl.loss_fn(cfg, fs, use, wb,
+                                                    dtype=dtype, remat=remat,
+                                                    ctx=ctx)
+                        loss.sum().backward()
+                    loss = loss.detach()
+                    loss = loss[0] if loss.ndim else loss
+                    loss_w = loss if loss_w is None else loss_w + loss
+                losses[w] = (loss_w / n_mb if n_mb > 1 else loss_w) * ma.tp
+            grads = scatter({k: (v.grad if v.grad is not None
+                                 else torch.zeros_like(v))
+                             for k, v in use.items()}, n_group)
+            del use
+            for j in range(n_group):
+                g_flat[:, a + j] = pack_segs({k: grads[k][:, j]
+                                              for k in SEG_NAMES}, lead=1)
+            del grads
+        if n_mb > 1:
+            g_flat /= n_mb
+        return losses, g_flat
 
     def forward(params: dict, batch: dict):
-        """Every worker's chunked forward: per-worker loss (P,) and the
-        workers' backward as one (``worker_backward``). All P graphs stay
-        alive until the backward has run."""
+        """Every worker's chunked forward (tp = 1 in 'dp'): per-worker loss
+        (P,) and the workers' backward as one (``worker_backward``). All P
+        graphs stay alive until the backward has run."""
         losses, vjps = [], []
         for p in range(nworkers):
             segs = {k: params[k][p] for k in SEG_NAMES}
@@ -559,67 +718,100 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
             vjps.append((steps, top))
         return torch.stack(losses), worker_backward(vjps)
 
+    def exchange(ef, g, include):
+        """The post-accumulation exchange of (n, d) gradients over comp_n
+        workers: (upd_sum, ef_new). Without a compressor the dense psum
+        (or, with no dp axis to exchange over, the gradient itself)."""
+        kw = {} if include is None else {"include": include}
+        if isinstance(compressor, comp.BucketedCompressor):
+            upd, ef_new, _ = exchange_bucketed(compressor, ef, g,
+                                               nworkers=comp_n,
+                                               overlap=overlap, **kw)
+            return upd, ef_new
+        with obtrace.current().span("exchange", cat="comm") as sp:
+            if compressor is not None:
+                upd, ef_new, _ = compressor.step(ef, g, nworkers=comp_n,
+                                                 **kw)
+            else:
+                upd = ar.psum_allreduce(g) if comp_axes else g
+                ef_new = ef
+            sp.sync(upd)
+        return upd, ef_new
+
+    def update(params: dict, opt_state: dict, step: int,
+               g_mean: torch.Tensor):
+        """The optimizer on the mean gradient g_mean (tp, P, d_local): its
+        global norm (P,) (coordinates are disjoint over the ranks and, in
+        fsdp, over the pod's data shards: the norm sums over both), the
+        clip (in place), ``opt.apply``."""
+        gsq = torch.sum(g_mean * g_mean, dim=-1).sum(0)          # (P,)
+        if dp_mode == "fsdp":
+            gsq = gsq.reshape(-1, ma.data).sum(-1, keepdim=True).expand(
+                -1, ma.data).reshape(nworkers)
+        gnorm = torch.sqrt(gsq)
+        if clip_norm is not None:  # global-norm clip, aggregated grad
+            g_mean *= torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12),
+                                  max=1.0)[None, :, None]
+        g_segs = unpack_segs(g_mean if ma.tp > 1 else g_mean[0], params,
+                             lead=2 if ma.tp > 1 else 1)
+        new_params, new_opt = {}, {}
+        for k in SEG_NAMES:
+            new_params[k], new_opt[k] = opt.apply(params[k], g_segs[k],
+                                                  opt_state[k], step)
+        return new_params, new_opt, gnorm
+
     def train_step(state: dict, batch: dict,
                    include: torch.Tensor | None = None) -> tuple[dict, dict]:
         params, opt_state, ef_stored, step = (
             state["params"], state["opt"], state["ef"], state["step"])
-        # the EF is stored in its own dtype and added/encoded in f32
-        ef_dtype = _stored_dtype(ef_stored)
-        ef = (_cast_tree(ef_stored, torch.float32)
-              if compressor is not None else ef_stored)
         tr = obtrace.current()
-        g_flat = None
-        if bwd_chunks is not None:
+        if chunked:
             with tr.span("forward", cat="forward") as sp:
                 losses, (bwd_steps, top_grads) = forward(params, batch)
                 sp.sync(losses)
             if not interleave:
                 with tr.span("backward", cat="backward") as sp:
-                    g_flat = flat_of_chunks(bwd_steps, top_grads, d_local)
-                    sp.sync(g_flat)
+                    g = flat_of_chunks(bwd_steps, top_grads, d_local)[None]
+                    sp.sync(g)
         else:
             # monolithic autodiff: forward and backward are one call, so
             # the span carries both under cat='backward'
             with tr.span("loss_and_grad", cat="backward") as sp:
-                losses, g_flat = loss_and_grad(params, batch)
-                sp.sync(g_flat)
-        if interleave:
-            kw = {} if include is None else {"include": include}
-            upd, ef_new, _ = exchange_interleaved(
-                compressor, plan, ef, bwd_steps, top_grads,
-                nworkers=nworkers, fuse_encode=fuse_encode, **kw)
-            del bwd_steps, top_grads
-        elif isinstance(compressor, comp.BucketedCompressor):
-            kw = {} if include is None else {"include": include}
-            upd, ef_new, _ = exchange_bucketed(
-                compressor, ef, g_flat, nworkers=nworkers, overlap=overlap,
-                **kw)
-        else:
-            with tr.span("exchange", cat="comm") as sp:
-                if compressor is not None:
-                    kw = {} if include is None else {"include": include}
-                    upd, ef_new, _ = compressor.step(
-                        ef, g_flat, nworkers=nworkers, **kw)
-                else:
-                    upd = ar.psum_allreduce(g_flat) if comp_axes else g_flat
-                    ef_new = ef
-                sp.sync(upd)
-        del g_flat
-        if compressor is not None:
-            ef_new = _cast_tree(ef_new, ef_dtype)
-        with tr.span("optimizer", cat="optimizer") as sp:
-            g_mean = upd / ma.dp_size
+                losses, g = loss_and_grad(params, batch)
+                sp.sync(g)
+        # one exchange a model rank (and, in fsdp, a data shard); the EF
+        # is stored in its own dtype and added/encoded in f32
+        groups = comp_groups or ((0, slice(None)),)
+        efs = ef_stored if comp_groups else (ef_stored,)
+        ef_new = []
+        for (r, sl), ef_g in zip(groups, efs):
+            ef_dtype = _stored_dtype(ef_g)
+            if compressor is not None:
+                ef_g = _cast_tree(ef_g, torch.float32)
+            inc = None if include is None else include[sl]
+            if interleave:
+                kw = {} if inc is None else {"include": inc}
+                upd, ef_g, _ = exchange_interleaved(
+                    compressor, plan, ef_g, bwd_steps, top_grads,
+                    nworkers=nworkers, fuse_encode=fuse_encode, **kw)
+                del bwd_steps, top_grads
+            else:
+                upd, ef_g = exchange(ef_g, g[r, sl], inc)
+            if sharded:
+                g[r, sl] = upd
+            else:
+                g = upd[None]
             del upd
-            gnorm = torch.sqrt(torch.sum(g_mean * g_mean, dim=-1))
-            if clip_norm is not None:  # global-norm clip, aggregated grad
-                g_mean *= torch.clamp(
-                    clip_norm / torch.clamp(gnorm, min=1e-12),
-                    max=1.0)[:, None]
-            g_segs = unpack_segs(g_mean, params, lead=1)
-            new_params, new_opt = {}, {}
-            for k in SEG_NAMES:
-                new_params[k], new_opt[k] = opt.apply(
-                    params[k], g_segs[k], opt_state[k], step)
+            ef_new.append(_cast_tree(ef_g, ef_dtype)
+                          if compressor is not None else ef_g)
+        ef_new = tuple(ef_new) if comp_groups else ef_new[0]
+        with tr.span("optimizer", cat="optimizer") as sp:
+            # the sharded step divides its own g buffer in place; at tp = 1
+            # in 'dp' g may be the exchange's broadcast sum
+            g_mean = g.div_(ma.dp_size) if sharded else g / ma.dp_size
+            del g
+            new_params, new_opt, gnorm = update(params, opt_state, step,
+                                                g_mean)
             sp.sync(new_params["top_s"])
         new_state = {"params": new_params, "opt": new_opt, "ef": ef_new,
                      "step": step + 1}
@@ -633,7 +825,8 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                                 if isinstance(compressor,
                                               comp.BucketedCompressor) else 1),
                      overlap=overlap, bwd_chunks=(bwd_chunks or 0),
-                     plan=plan, fuse_encode=fuse_encode)
+                     plan=plan, fuse_encode=fuse_encode,
+                     comp_groups=comp_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -646,21 +839,37 @@ def make_serve_fns(cfg: ArchConfig, ma: MeshAxes, *, dp_mode: str = "dp",
                    fs: FlatSpec | None = None):
     """(prefill, decode) bound to the storage layout: params segments only,
     no optimizer or EF state at serving time. Each runs where the params
-    it is given lie. dp at tp = 1 only (the data axis replicates the
-    params, so there is nothing to gather); ``comm_dtype`` is accepted
-    and, as in the reference at tp = 1, has no effect (it is the wire
-    dtype of the tensor-parallel activation reductions)."""
-    del comm_dtype
-    if dp_mode != "dp" or ma.tp != 1:
-        raise _unsupported(f"dp_mode={dp_mode!r} with tp={ma.tp}")
+    it is given lie.
+
+    ``params``: one model replica's storage. In 'dp' at tp = 1 the flat
+    segments; at tp > 1 the rank-stacked (tp, *local) segments
+    (``flatten.shard_segs``). In 'fsdp' one pod's data workers' shards,
+    (data, *local), or (tp, data, *local) at tp > 1. Each call gathers
+    them into the use layout (``_gather_closures``) and runs the model
+    with every rank; its results and the cache are as ``models.model``
+    describes for ``ctx``. ``comm_dtype=torch.float8_e4m3fn`` puts the
+    activation reductions on the wire in fp8 (tp > 1 and a non-f32
+    ``dtype``; the identity otherwise, as in the reference)."""
     fs = fs or make_flat_spec(cfg, ma.tp)
+    ctx = ma.ctx(dtype, comm_dtype)
+    gather, _ = _gather_closures(ma, dp_mode)
+    tp = ma.tp
+
+    def use(params: dict) -> dict:
+        if tp == 1 and dp_mode == "dp":
+            return params
+        grouped = {k: v if tp > 1 else v[None] for k, v in params.items()}
+        if dp_mode == "dp":
+            grouped = {k: v[:, None] for k, v in grouped.items()}
+        return gather(grouped)
 
     def prefill(params: dict, batch: dict, cache: Any):
-        return mdl.prefill_fn(cfg, fs, params, batch, cache, dtype=dtype)
+        return mdl.prefill_fn(cfg, fs, use(params), batch, cache,
+                              dtype=dtype, ctx=ctx)
 
     def decode(params: dict, tokens: torch.Tensor, kv_len, cache: Any,
                cross_kv: torch.Tensor | None = None):
-        return mdl.decode_fn(cfg, fs, params, tokens, kv_len, cache,
-                             cross_kv=cross_kv, dtype=dtype)
+        return mdl.decode_fn(cfg, fs, use(params), tokens, kv_len, cache,
+                             cross_kv=cross_kv, dtype=dtype, ctx=ctx)
 
     return prefill, decode

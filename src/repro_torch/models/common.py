@@ -1,10 +1,21 @@
-"""Shared model machinery: configs, padded geometry, param specs.
+"""Shared model machinery: configs, padded geometry, param specs, and the
+tensor-parallel context ``ShardCtx``.
 
 Port of ``repro/models/common.py`` for every block kind (attention, the
 cross-attention layer, MoE, RWKV6, Mamba2 and the hybrid's weight-tied
-shared attention block) at any TP degree's *geometry* (the port itself
-runs tp=1). A ``Spec``'s ``pspec`` is a plain tuple of ``"model"``/``None``
-entries, the PartitionSpec's contents.
+shared attention block) at any TP degree. A ``Spec``'s ``pspec`` is a
+plain tuple of ``"model"``/``None`` entries, the PartitionSpec's contents.
+
+The ``model`` axis is simulated on one device, inside one autograd graph:
+at tp > 1 every activation and every model-sharded parameter leaf is
+stacked on a leading rank dimension of size tp ("ranked"), and the
+replicated leaves (norm gains, the router, replicated KV storage, token
+-shift mixes) are one unranked tensor that every rank reads, so autograd
+sums their gradients over the ranks, as the reference's gather transpose
+does. ``ShardCtx.psum_tp`` is a sum over the rank dimension broadcast
+back to every rank; its autograd transpose is the same operation, as
+``jax.lax.psum``'s is. At tp = 1 nothing carries a rank dimension and
+every collective is the identity (the single-device path).
 
 Leaf order: ``jax.tree_util.tree_flatten`` visits dict keys SORTED, and
 every ``FlatSpec`` offset follows that order. ``tree_leaves`` below walks
@@ -99,6 +110,79 @@ class ArchConfig:
             total = (total - ex_total
                      + int(ex_total * self.experts_per_tok / n_exp))
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """How the computation is sharded over the tensor-parallel axis.
+
+    ``ranked`` (tp > 1): activations and model-sharded leaves carry a
+    leading rank dimension of size tp (module docstring). ``comm_dtype``
+    (None = the compute dtype) is the wire dtype of the activation
+    reductions: ``torch.float8_e4m3fn`` puts them on the wire in fp8, as
+    the reference's serving option does.
+    """
+
+    tp: int = 1
+    tp_axis: str | None = None       # None => single-device (no collectives)
+    dp_axes: tuple[str, ...] = ()    # data-parallel axes ('data'[, 'pod'])
+    dtype: torch.dtype = torch.bfloat16
+    comm_dtype: torch.dtype | None = None
+
+    @property
+    def ranked(self) -> bool:
+        return self.tp > 1
+
+    def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks, every rank receiving the sum. With an fp8
+        ``comm_dtype`` and a non-f32 ``x``: each rank's shard scaled by
+        448 / its amax, cast to fp8 (the wire), then every rank's payload
+        dequantized and summed in f32, as the reference's all-gather of
+        the fp8 payload does."""
+        if not self.ranked:
+            return x
+        if self.comm_dtype is not None and x.dtype != torch.float32:
+            xf = x.to(torch.float32)
+            dims = tuple(range(1, x.ndim))
+            amax = torch.clamp(xf.abs().amax(dim=dims, keepdim=True)
+                               .detach(), min=1e-12)
+            scale = 448.0 / amax
+            y8 = (xf * scale).to(self.comm_dtype)
+            y = torch.sum(y8.to(torch.float32) / scale, dim=0, keepdim=True)
+            return y.to(x.dtype).expand_as(x)
+        return x.sum(0, keepdim=True).expand_as(x)
+
+    def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """The max over the ranks, every rank receiving it (no gradient:
+        the reference's pmax has no differentiation rule)."""
+        if not self.ranked:
+            return x
+        return x.amax(0, keepdim=True).expand_as(x)
+
+    def rank_offsets(self, step: int, ndim: int,
+                     device) -> torch.Tensor | int:
+        """``tp_rank() * step`` as a (tp, 1, ..., 1) tensor of ``ndim``
+        dims (0 at tp = 1): each rank's offset into a sharded axis."""
+        if not self.ranked:
+            return 0
+        return (torch.arange(self.tp, device=device) * step).reshape(
+            (self.tp,) + (1,) * (ndim - 1))
+
+    def fold_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """(tp, B, S, H, ...) -> (B, S, tp*H, ...): the ranks' local heads
+        side by side, rank-major, which is the global head order (the
+        identity at tp = 1)."""
+        if not self.ranked:
+            return t
+        return t.movedim(0, 2).reshape(t.shape[1:3] + (-1,) + t.shape[4:])
+
+    def unfold_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """Inverse of ``fold_heads``."""
+        if not self.ranked:
+            return t
+        B, S, H = t.shape[:3]
+        return t.reshape((B, S, self.tp, H // self.tp)
+                         + t.shape[3:]).movedim(2, 0)
 
 
 # ---------------------------------------------------------------------------

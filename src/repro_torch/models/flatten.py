@@ -12,6 +12,13 @@ Leaves are laid out in sorted-key order (``common.tree_leaves``), the order
 ``jax.tree_util.tree_flatten`` uses, so every offset equals the
 reference's. Per-worker copies carry a leading P dimension; the helpers
 that see them take ``lead`` (the number of leading dims).
+
+Sharded layouts (tp > 1, fsdp): ``shard_segs`` cuts a model's global
+(padded) parameters into each model rank's local segments, stacked on a
+leading rank dimension, as the reference's tests do; a replicated
+segment (``*_r``) keeps its 1/tp slice on each rank (the reference
+stores it sharded over the model axis and gathers it at use).
+``params_from_numpy`` carries such segments over from the JAX package.
 """
 
 from __future__ import annotations
@@ -64,21 +71,32 @@ class FlatSpec:
 
     # -- unflatten ---------------------------------------------------------
     @staticmethod
-    def _build(leaves, vs: torch.Tensor, vr: torch.Tensor, dtype) -> dict:
+    def _build(leaves, vs: torch.Tensor, vr: torch.Tensor, dtype,
+               rank_axis: int = 0) -> dict:
+        """Leaves as views of their segments. A rank-stacked ``vs`` (tp,
+        f) gives rank-stacked sharded leaves, the rank dimension at
+        ``rank_axis``; ``vr`` is always one unranked vector."""
         out = []
         for l in leaves:
-            src = vr if l.rep else vs
-            out.append((l.path, src[l.offset:l.offset + l.size]
-                        .reshape(l.shape).to(dtype)))
+            if l.rep or vs.ndim == 1:
+                src = vr if l.rep else vs
+                v = src[l.offset:l.offset + l.size].reshape(l.shape)
+            else:
+                v = vs[:, l.offset:l.offset + l.size].reshape(
+                    vs.shape[:1] + l.shape).movedim(0, rank_axis)
+            out.append((l.path, v.to(dtype)))
         return tree_from_paths(out)
 
     def top_params(self, vs, vr, dtype=torch.bfloat16) -> dict:
-        """(f_top_s,), (f_top_r,) -> top-level params tree (views for f32)."""
+        """(f_top_s,), (f_top_r,) -> top-level params tree (views for f32);
+        a rank-stacked (tp, f_top_s) gives (tp, ...) sharded leaves."""
         return self._build(self.top_leaves, vs, vr, dtype)
 
     def cycle_params(self, vs, vr, dtype=torch.bfloat16) -> dict:
-        """(f_cyc_s,), (f_cyc_r,) -> one cycle's params tree."""
-        return self._build(self.cyc_leaves, vs, vr, dtype)
+        """(f_cyc_s,), (f_cyc_r,) -> one cycle's params tree; a rank-stacked
+        (tp, f_cyc_s) gives sharded leaves (count, tp, ...), so occurrence
+        j of a kind is ``leaf[j]``, rank-stacked."""
+        return self._build(self.cyc_leaves, vs, vr, dtype, rank_axis=1)
 
     # -- flatten -----------------------------------------------------------
     def flatten(self, params: dict, dtype=torch.float32) -> dict:
@@ -162,15 +180,60 @@ def init_flat_params(cfg: ArchConfig, generator: torch.Generator,
     return fs.flatten(init_params(cfg, generator, tp, device=device))
 
 
-def params_from_numpy(segs: dict, fs: FlatSpec,
-                      device: str | torch.device) -> dict:
-    """Flat segments exported from the JAX package (``np.asarray`` of
-    ``repro.models.flatten.init_flat_params``) -> the port's segments.
+def shard_segs(cfg: ArchConfig, params: dict, tp: int,
+               fs: FlatSpec | None = None) -> tuple[FlatSpec, dict]:
+    """Each model rank's local flat segments, stacked on a leading rank
+    dimension, and the FlatSpec at ``tp``.
 
-    Each segment's shape is checked against this port's own ``fs``, so a
-    leaf-order or padding drift between the packages fails here loudly.
+    ``params``: the model's global (padded at ``tp``) parameter tree, as
+    ``common.init_params(cfg, generator, tp)`` draws it. A leaf sharded
+    over ``model`` gives rank r its r-th slice along that axis; replicated
+    leaves go whole into every rank's ``*_r`` segment, of which rank r
+    keeps the r-th 1/tp slice. The port's counterpart of the reference
+    tests' ``shard_segs`` (tests/test_tp.py).
     """
-    want = fs.seg_shapes()
+    fs = fs or make_flat_spec(cfg, tp)
+    specs = dict(tree_leaves(param_specs(cfg, tp)))
+
+    def rank_tree(r: int) -> dict:
+        out = []
+        for path, arr in tree_leaves(params):
+            for axis, ax in enumerate(tuple(specs[path].pspec)):
+                if ax == "model":
+                    sz = arr.shape[axis] // tp
+                    arr = arr.narrow(axis, r * sz, sz)
+                    break
+            out.append((path, arr))
+        return tree_from_paths(out)
+
+    per_rank = [fs.flatten(rank_tree(r)) for r in range(tp)]
+    stacked = {}
+    for k in SEG_NAMES:
+        if k.endswith("_r"):
+            m = per_rank[0][k].shape[-1] // tp
+            stacked[k] = torch.stack([per_rank[r][k][..., r * m:(r + 1) * m]
+                                      for r in range(tp)])
+        else:
+            stacked[k] = torch.stack([per_rank[r][k] for r in range(tp)])
+    return fs, stacked
+
+
+def params_from_numpy(segs: dict, fs: FlatSpec,
+                      device: str | torch.device, *,
+                      shapes: dict | None = None, lead: tuple = ()) -> dict:
+    """Flat segments exported from the JAX package (``np.asarray`` of
+    ``repro.models.flatten.init_flat_params``, or of a sharded layout)
+    -> the port's segments.
+
+    Each segment's shape is checked against ``lead + shapes[k]``:
+    ``shapes`` defaults to this port's own ``fs.seg_shapes()``, so a
+    leaf-order or padding drift between the packages fails here loudly.
+    A sharded layout passes its local shapes (``gs_sgd.local_seg_shapes``)
+    and its leading dims: ``(tp,)`` for the reference's rank-stacked
+    segments, ``(P,)`` for one worker's fsdp shard each.
+    """
+    want = {k: tuple(lead) + tuple(v)
+            for k, v in (shapes or fs.seg_shapes()).items()}
     if set(segs) != set(want):
         raise ValueError(f"segments {sorted(segs)} != {sorted(want)}")
     out = {}

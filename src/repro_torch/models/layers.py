@@ -1,12 +1,25 @@
-"""Block library at tp=1: norms, RoPE, GQA self- and cross-attention, the
+"""Block library: norms, RoPE, GQA self- and cross-attention, the
 PaLM-style parallel attention+MLP block, SwiGLU MLP, embedding, LM loss,
 and the serving pieces: one-token decode attention against a KV cache,
 the cache append, full logits and the greedy argmax.
 
-Port of ``repro/models/layers.py`` (single device). The reference's
-flash-style blockwise attention is plain jnp, not a Pallas kernel; here
-it is written as plain f32 softmax attention, which is the same function
-(the reference's online softmax over one KV chunk reduces to it exactly).
+Port of ``repro/models/layers.py``. The reference's flash-style blockwise
+attention is plain jnp, not a Pallas kernel; here it is written as plain
+f32 softmax attention, which is the same function (the reference's online
+softmax over one KV chunk reduces to it exactly).
+
+Tensor parallelism (``ctx``, a ``common.ShardCtx``; None is tp = 1): at
+tp > 1 activations and the model-sharded weights are rank-stacked (a
+leading dimension of size tp) and the blocks emit the reference's
+collectives over it: column-parallel projections need none (``lin``
+multiplies each rank's rows by its own shard), row-parallel ones psum
+(``linear_row``), the vocab-sharded embedding and cross-entropy use the
+masked local lookup with psum / pmax at each rank's vocab offset, and
+``sharded_argmax`` picks the global winner. Replicated KV storage (kv <
+tp) is sliced at each rank's KV head. Attention, like the reference's,
+is independent per head, so the ranks' local heads run as one call with
+the rank folded into the head axis (``ShardCtx.fold_heads``): the KV
+cache holds the heads in that global order.
 
 The attention blocks take the reference's ``mode``: ``"train"`` (the
 default) returns the block's output alone, as before; ``"prefill"`` and
@@ -31,7 +44,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, ShardCtx, head_geometry
 
 _NEG_INF = -1e30
 
@@ -65,9 +78,42 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def linear_row(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Row-parallel matmul; at tp=1 the reference's psum is the identity."""
-    return x @ w.to(x.dtype)
+def lin(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``. A rank-stacked ``w`` (tp, k, n) multiplies each rank's
+    rows of the rank-stacked ``x`` (tp, ..., k) by its own shard."""
+    if w.ndim == 2:
+        return x @ w
+    return torch.matmul(x.reshape(w.shape[0], -1, x.shape[-1]), w).reshape(
+        x.shape[:-1] + (w.shape[-1],))
+
+
+def linear_row(x: torch.Tensor, w: torch.Tensor,
+               ctx: ShardCtx | None = None) -> torch.Tensor:
+    """Row-parallel matmul: local contraction + psum over the model axis."""
+    y = lin(x, w.to(x.dtype))
+    return y if ctx is None else ctx.psum_tp(y)
+
+
+def ranked_vec(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A rank-stacked vector leaf (tp, n) shaped to broadcast against the
+    rank-stacked ``x`` (tp, ..., n); an unranked leaf as it is."""
+    if v.ndim == 1:
+        return v
+    return v.reshape(v.shape[:1] + (1,) * (x.ndim - v.ndim) + v.shape[1:])
+
+
+def _kv_slice(w: torch.Tensor, hd: int, cfg: ArchConfig,
+              ctx: ShardCtx | None) -> torch.Tensor:
+    """Each rank's KV-head columns of replicated KV storage (kv < tp): rank
+    r reads KV head floor(r * kv / tp), as the reference's dynamic slice
+    at ``tp_rank()``; the result is rank-stacked (tp, d, hd)."""
+    if ctx is None or not ctx.ranked:
+        return w
+    g = head_geometry(cfg, ctx.tp)
+    if not g.kv_replicated:
+        return w
+    heads = [r * g.nkv // ctx.tp for r in range(ctx.tp)]
+    return torch.stack([w[:, h * hd:(h + 1) * hd] for h in heads])
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -179,7 +225,7 @@ def attention_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
                     pos: torch.Tensor,
                     cross_kv: torch.Tensor | None = None, *,
                     mode: str = "train", cache: dict | None = None,
-                    kv_len=None):
+                    kv_len=None, ctx: ShardCtx | None = None):
     """Pre-norm attention block. x: (B,S,d).
 
     With ``cross_kv`` (the vlm's (B, n_cross, d) precomputed patch
@@ -194,120 +240,192 @@ def attention_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     mode "train" returns the output; "prefill" (the prompt from position
     0, its K/V written into ``cache``) and "decode" (S == 1 token appended
     at ``kv_len``, the valid length before it) return ``(output, cache)``.
+    At tp > 1 (``ctx``) ``x`` is rank-stacked (tp, B, S, d) and the cache
+    holds the ranks' KV heads folded into its head axis.
     """
     hd = cfg.hd
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    B, S, _ = h.shape
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, -1, hd)
+    B, S = h.shape[-3:-1]
+    q = lin(h, p["wq"].to(h.dtype)).reshape(h.shape[:-1] + (-1, hd))
     kv_src = h
     if cross_kv is not None:
         kv_src = rmsnorm(cross_kv.to(h.dtype), p["kv_norm"], cfg.norm_eps)
-    T = kv_src.shape[1]
-    k = (kv_src @ p["wk"].to(h.dtype)).reshape(B, T, -1, hd)
-    v = (kv_src @ p["wv"].to(h.dtype)).reshape(B, T, -1, hd)
+        if ctx is not None and ctx.ranked:
+            kv_src = kv_src.expand((ctx.tp,) + kv_src.shape)
+    T = kv_src.shape[-2]
+    wk = _kv_slice(p["wk"], hd, cfg, ctx).to(h.dtype)
+    wv = _kv_slice(p["wv"], hd, cfg, ctx).to(h.dtype)
+    k = lin(kv_src, wk).reshape(kv_src.shape[:-1] + (-1, hd))
+    v = lin(kv_src, wv).reshape(kv_src.shape[:-1] + (-1, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     new_cache = None
+    fold = ctx.fold_heads if ctx is not None else (lambda t: t)
     if cross_kv is None:
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
-        o, new_cache = _self_attention(q, k, v, pos, mode, cache, kv_len,
-                                       h.dtype)
+        o, new_cache = _self_attention(fold(q), fold(k), fold(v), pos, mode,
+                                       cache, kv_len, h.dtype)
     elif mode == "decode":
-        o = decode_attention(q, k.to(h.dtype), v.to(h.dtype), T)
+        o = decode_attention(fold(q), fold(k).to(h.dtype),
+                             fold(v).to(h.dtype), T)
         new_cache = cache
     else:
         kv_pos = torch.zeros((B, T), dtype=pos.dtype, device=pos.device)
-        o = blockwise_attention(q, k, v, causal=False, q_pos=pos,
-                                kv_pos=kv_pos)
+        o = blockwise_attention(fold(q), fold(k), fold(v), causal=False,
+                                q_pos=pos, kv_pos=kv_pos)
         new_cache = cache
-    y = linear_row(o.reshape(B, S, -1), p["wo"])
+    if ctx is not None:
+        o = ctx.unfold_heads(o)
+    y = linear_row(o.reshape(h.shape[:-1] + (-1,)), p["wo"], ctx)
     out = x + y.to(x.dtype)
     return out if mode == "train" else (out, new_cache)
 
 
 def parallel_attn_mlp_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
                             pos: torch.Tensor, *, mode: str = "train",
-                            cache: dict | None = None, kv_len=None):
+                            cache: dict | None = None, kv_len=None,
+                            ctx: ShardCtx | None = None):
     """PaLM-style parallel block: attention and MLP branch from one norm
-    each and their outputs are summed before the residual add (the
-    reference's one row-parallel psum). ``mode`` as ``attention_block``'s."""
+    each and their outputs are summed before the residual add, in the
+    reference's one row-parallel psum. ``mode`` and ``ctx`` as
+    ``attention_block``'s."""
     hd = cfg.hd
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    B, S, _ = h.shape
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, -1, hd)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, -1, hd)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, -1, hd)
+    lead = h.shape[:-1]
+    q = lin(h, p["wq"].to(h.dtype)).reshape(lead + (-1, hd))
+    k = lin(h, _kv_slice(p["wk"], hd, cfg, ctx).to(h.dtype)).reshape(
+        lead + (-1, hd))
+    v = lin(h, _kv_slice(p["wv"], hd, cfg, ctx).to(h.dtype)).reshape(
+        lead + (-1, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
-    o, new_cache = _self_attention(q, k, v, pos, mode, cache, kv_len,
-                                   h.dtype)
+    fold = ctx.fold_heads if ctx is not None else (lambda t: t)
+    o, new_cache = _self_attention(fold(q), fold(k), fold(v), pos, mode,
+                                   cache, kv_len, h.dtype)
+    if ctx is not None:
+        o = ctx.unfold_heads(o)
     mp = p["mlp"]
     hm = rmsnorm(x, mp["norm"], cfg.norm_eps)
-    act = F.silu(hm @ mp["wg"].to(h.dtype)) * (hm @ mp["wu"].to(h.dtype))
-    y = (o.reshape(B, S, -1) @ p["wo"].to(h.dtype)
-         + act @ mp["wo"].to(h.dtype))
+    act = (F.silu(lin(hm, mp["wg"].to(h.dtype)))
+           * lin(hm, mp["wu"].to(h.dtype)))
+    y = (lin(o.reshape(lead + (-1,)), p["wo"].to(h.dtype))
+         + lin(act, mp["wo"].to(h.dtype)))
+    if ctx is not None:
+        y = ctx.psum_tp(y)                   # the ONE collective
     out = x + y.to(x.dtype)
     return out if mode == "train" else (out, new_cache)
 
 
-def mlp_block(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm SwiGLU MLP."""
+def mlp_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
+              ctx: ShardCtx | None = None) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP, column- then row-parallel."""
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    gate = h @ p["wg"].to(h.dtype)
-    up = h @ p["wu"].to(h.dtype)
-    y = (F.silu(gate) * up) @ p["wo"].to(h.dtype)
+    gate = lin(h, p["wg"].to(h.dtype))
+    up = lin(h, p["wu"].to(h.dtype))
+    y = linear_row(F.silu(gate) * up, p["wo"].to(h.dtype), ctx)
     return x + y.to(x.dtype)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
+                 dtype: torch.dtype,
+                 ctx: ShardCtx | None = None) -> torch.Tensor:
     """Embedding lookup (ids outside the table read zeros, as the
-    reference's masked take)."""
-    v = table.shape[0]
-    ok = (ids >= 0) & (ids < v)
-    emb = table[torch.clamp(ids, 0, v - 1)]
-    return torch.where(ok[..., None], emb, 0.0).to(dtype)
+    reference's masked take). At tp > 1 the table is vocab-sharded
+    (tp, V_loc, d): each rank looks up the ids in its own vocab range,
+    masked, and the psum assembles the rows."""
+    if ctx is None or not ctx.ranked:
+        v = table.shape[0]
+        ok = (ids >= 0) & (ids < v)
+        emb = table[torch.clamp(ids, 0, v - 1)]
+        return torch.where(ok[..., None], emb, 0.0).to(dtype)
+    v_loc = table.shape[1]
+    local = ids - ctx.rank_offsets(v_loc, ids.ndim + 1, ids.device)
+    ok = (local >= 0) & (local < v_loc)
+    ranks = torch.arange(ctx.tp, device=ids.device).reshape(
+        (ctx.tp,) + (1,) * ids.ndim)
+    emb = table[ranks, torch.clamp(local, 0, v_loc - 1)]
+    emb = torch.where(ok[..., None], emb, 0.0)
+    return ctx.psum_tp(emb).to(dtype)
+
+
+def _vocab_cols(cfg: ArchConfig, v_loc: int, ndim: int, device,
+                ctx: ShardCtx | None):
+    """(start, col_valid): each rank's first global vocab id and which of
+    its V_loc columns are real ids (< vocab_size), shaped to broadcast
+    against logits of ``ndim`` dims."""
+    start = (0 if ctx is None
+             else ctx.rank_offsets(v_loc, ndim - 1, device))
+    cols = torch.arange(v_loc, device=device)
+    if isinstance(start, torch.Tensor):
+        cols = cols + start[..., None]
+    return start, cols < cfg.vocab_size
 
 
 def lm_loss(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
-            cfg: ArchConfig) -> torch.Tensor:
+            cfg: ArchConfig, ctx: ShardCtx | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy over the padded vocab.
 
     hidden: (B,S,d); head_w: (d, V_pad); labels: (B,S) with -1 = ignore.
-    Padding columns (ids >= vocab_size) are masked to -1e30.
+    Padding columns (ids >= vocab_size) are masked to -1e30. At tp > 1
+    (rank-stacked hidden and head, (tp, d, V_loc)) the logits stay
+    vocab-sharded: the max is pmax'd (stability only, no gradient), the
+    partition sum and the label's logit psum'd; every rank gets the same
+    loss, a (tp,) tensor.
     """
-    v_pad = head_w.shape[1]
-    col_valid = torch.arange(v_pad, device=hidden.device) < cfg.vocab_size
-    logits = (hidden @ head_w.to(hidden.dtype)).to(torch.float32)
+    v_loc = head_w.shape[-1]
+    start, col_valid = _vocab_cols(cfg, v_loc, hidden.ndim, hidden.device,
+                                   ctx)
+    logits = lin(hidden, head_w.to(hidden.dtype)).to(torch.float32)
     logits = torch.where(col_valid, logits, _NEG_INF)
     m = torch.amax(logits, dim=-1).detach()   # stability only
-    z = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
-    ok = (labels >= 0) & (labels < v_pad)
+    psum = ctx.psum_tp if ctx is not None else (lambda t: t)
+    if ctx is not None:
+        m = ctx.pmax_tp(m)
+    z = psum(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    loc = labels - start
+    ok = (loc >= 0) & (loc < v_loc)
     picked = torch.gather(logits, -1,
-                          torch.clamp(labels, 0, v_pad - 1)[..., None])[..., 0]
-    label_logit = torch.where(ok, picked, 0.0)
+                          torch.clamp(loc, 0, v_loc - 1)[..., None])[..., 0]
+    label_logit = psum(torch.where(ok, picked, 0.0))
     nll = torch.log(z) + m - label_logit
     w = (labels >= 0).to(torch.float32)
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    tot = (torch.sum(nll * w, dim=(-2, -1)) if hidden.ndim == 4
+           else torch.sum(nll * w))
+    return tot / torch.clamp(torch.sum(w), min=1.0)
 
 
 def lm_logits(hidden: torch.Tensor, head_w: torch.Tensor,
-              cfg: ArchConfig) -> torch.Tensor:
+              cfg: ArchConfig, ctx: ShardCtx | None = None) -> torch.Tensor:
     """Full f32 logits for decode: (B,S,d) -> (B,S,V_pad), the padding
-    columns (ids >= vocab_size) masked to -1e30."""
-    logits = (hidden @ head_w.to(hidden.dtype)).to(torch.float32)
-    col_valid = torch.arange(head_w.shape[1],
-                             device=hidden.device) < cfg.vocab_size
+    columns (ids >= vocab_size) masked to -1e30; vocab-sharded (tp, B, S,
+    V_loc) at tp > 1."""
+    logits = lin(hidden, head_w.to(hidden.dtype)).to(torch.float32)
+    _, col_valid = _vocab_cols(cfg, head_w.shape[-1], hidden.ndim,
+                               hidden.device, ctx)
     return torch.where(col_valid, logits, _NEG_INF)
 
 
-def sharded_argmax(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy token (..., V) -> (...) int32. At tp = 1 the reference's
-    cross-shard pmax is the identity; ties go to the lowest index, as
-    ``torch.argmax`` returns the first maximal value."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def sharded_argmax(logits: torch.Tensor,
+                   ctx: ShardCtx | None = None) -> torch.Tensor:
+    """Greedy token (..., V) -> (...) int32, ties to the lowest index
+    (``torch.argmax`` returns the first maximal value). At tp > 1 over
+    vocab-sharded (tp, ..., V_loc) logits: each rank's local argmax at
+    its vocab offset, the pmax of the maxima picks the winners and the
+    lowest global id among them wins (the reference's pmin); every rank
+    gets the same (tp, ...) ids."""
+    if ctx is None or not ctx.ranked:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    v_loc = logits.shape[-1]
+    loc_max = torch.amax(logits, dim=-1)
+    loc_idx = (torch.argmax(logits, dim=-1)
+               + ctx.rank_offsets(v_loc, loc_max.ndim, logits.device)
+               ).to(torch.int32)
+    gmax = ctx.pmax_tp(loc_max)
+    cand = torch.where(loc_max >= gmax, loc_idx,
+                       torch.full_like(loc_idx, 2 ** 30))
+    return -ctx.pmax_tp(-cand)

@@ -1,4 +1,4 @@
-"""Mamba2 (SSD) block (tp=1) — the state-space mixer of the zamba2 hybrid.
+"""Mamba2 (SSD) block — the state-space mixer of the zamba2 hybrid.
 
 Port of ``repro/models/mamba.py``: the train path (``state=None``) and
 the serving path (``state=`` the block's recurrent state, ``{"h": (B, H,
@@ -15,6 +15,14 @@ exponential is taken over the whole (L, L) and the upper triangle masked
 afterwards; there ``cum_t - cum_s >= 0``, so a large decay could overflow
 it, and the backward would then give ``0 * inf = NaN`` in both packages.
 All chunk math is f32.
+
+TP (``ctx``, tp > 1): the x/z/B/C/dt projections, the depthwise conv and
+the per-head parameters are sharded by head, the output projection is
+row-parallel (psum), and the gated RMSNorm normalizes each rank's local
+channels (the reference's grouped-norm treatment). The ranks' heads run
+the SSD as one call, folded into the head axis (global order), so a
+cache holds the global ``(B, H, ns, hd)`` state and ``(B, W-1, dh)`` conv
+tail.
 """
 
 from __future__ import annotations
@@ -22,8 +30,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, pad_to
-from repro_torch.models.layers import linear_row, rmsnorm
+from repro_torch.models.common import ArchConfig, ShardCtx, pad_to
+from repro_torch.models.layers import lin, linear_row, ranked_vec, rmsnorm
 
 _CONV_W = 4  # depthwise conv width (3 past tokens + current)
 
@@ -37,13 +45,16 @@ def mamba_geometry(cfg: ArchConfig, tp: int = 1) -> tuple[int, int, int]:
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  prev: torch.Tensor | None = None) -> torch.Tensor:
     """Depthwise causal conv. x: (B,S,C); w: (W,C); prev: the (B,W-1,C)
-    input tail of the tokens before, or None for zeros."""
+    input tail of the tokens before, or None for zeros. Rank-stacked: x
+    (tp,B,S,C), w (tp,W,C), prev (tp,B,W-1,C)."""
     if prev is None:
         xp = F.pad(x, (0, 0, _CONV_W - 1, 0))
     else:
-        xp = torch.cat([prev.to(x.dtype), x], dim=1)
-    S = x.shape[1]
-    return sum(xp[:, i:i + S, :] * w[i].to(x.dtype) for i in range(_CONV_W))
+        xp = torch.cat([prev.to(x.dtype), x], dim=-2)
+    S = x.shape[-2]
+    taps = w if w.ndim == 2 else w[:, :, None, None, :].movedim(1, 0)
+    return sum(xp[..., i:i + S, :] * taps[i].to(x.dtype)
+               for i in range(_CONV_W))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -104,26 +115,33 @@ def ssd_step(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 
 def mamba_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                state: dict | None = None):
-    """Pre-norm Mamba2 block. x: (B,S,d). Returns the output; with
-    ``state`` (serving), ``(output, new state)``."""
-    B, S, d = x.shape
-    nh, hd, ns = mamba_geometry(cfg)
+                state: dict | None = None, ctx: ShardCtx | None = None):
+    """Pre-norm Mamba2 block. x: (B,S,d), at tp > 1 rank-stacked (tp, B,
+    S, d). Returns the output; with ``state`` (serving), ``(output, new
+    state)``."""
+    B, S, d = x.shape[-3:]
+    tp = ctx.tp if ctx is not None else 1
+    nh, hd, ns = mamba_geometry(cfg, tp)
+    lead = x.shape[:-1]
+    fold = ctx.fold_heads if ctx is not None else (lambda t: t)
 
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    xz = h @ p["wx"].to(h.dtype)                     # (B,S,dh)
-    z = h @ p["wz"].to(h.dtype)
+    xz = lin(h, p["wx"].to(h.dtype))                 # (.., B,S,dh)
+    z = lin(h, p["wz"].to(h.dtype))
     prev_conv = state["conv"] if state is not None else None
+    if prev_conv is not None and tp > 1:   # global channels -> each rank's
+        prev_conv = prev_conv.reshape(B, _CONV_W - 1, tp, -1).movedim(2, 0)
     xc = F.silu(_causal_conv(xz, p["conv"], prev_conv))
 
-    b = (h @ p["wB"].to(h.dtype)).reshape(B, S, nh, ns)
-    c = (h @ p["wC"].to(h.dtype)).reshape(B, S, nh, ns)
-    dt = _softplus((h @ p["wdt"].to(h.dtype)).to(torch.float32)
-                   + p["dt_bias"].to(torch.float32))   # (B,S,H)
-    a_neg = -torch.exp(p["A_log"].to(torch.float32))   # (H,)
+    b = lin(h, p["wB"].to(h.dtype)).reshape(lead + (-1, ns))
+    c = lin(h, p["wC"].to(h.dtype)).reshape(lead + (-1, ns))
+    dt = _softplus(lin(h, p["wdt"].to(h.dtype)).to(torch.float32)
+                   + ranked_vec(p["dt_bias"], h).to(torch.float32))
+    a_neg = -torch.exp(p["A_log"].to(torch.float32)).reshape(nh)   # (H,)
 
-    xh = xc.reshape(B, S, nh, hd).to(torch.float32)
-    bf, cf = b.to(torch.float32), c.to(torch.float32)
+    xh = fold(xc.reshape(lead + (-1, hd)).to(torch.float32))
+    bf, cf = fold(b.to(torch.float32)), fold(c.to(torch.float32))
+    dt = fold(dt[..., None])[..., 0]                   # (B,S,H)
     h0 = (state["h"] if state is not None else
           torch.zeros((B, nh, ns, hd), dtype=torch.float32, device=x.device))
     if S == 1:   # the reference's one-token step
@@ -131,23 +149,29 @@ def mamba_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
         y = y1[:, None]
     else:
         y, h1 = ssd_chunked(xh, bf, cf, dt, a_neg, h0)
-    y = y + p["D"].to(torch.float32)[:, None] * xh    # skip term
-    y = y.reshape(B, S, nh * hd).to(h.dtype)
+    y = y + p["D"].to(torch.float32).reshape(nh)[:, None] * xh   # skip term
+    if ctx is not None:
+        y = ctx.unfold_heads(y)
+    y = y.reshape(lead + (-1,)).to(h.dtype)
 
-    # gated RMSNorm over the channels, then the output projection
-    y = rmsnorm(y * F.silu(z), p["gnorm"], cfg.norm_eps)
-    x = x + linear_row(y, p["wo"]).to(x.dtype)
+    # gated RMSNorm over each rank's channels, then the output projection
+    y = rmsnorm(y * F.silu(z), ranked_vec(p["gnorm"], y), cfg.norm_eps)
+    x = x + linear_row(y, p["wo"], ctx).to(x.dtype)
     if state is None:
         return x
-    conv_tail = torch.cat([prev_conv.to(xz.dtype), xz], dim=1)
-    return x, {"h": h1, "conv": conv_tail[:, -(_CONV_W - 1):, :]}
+    conv_tail = torch.cat([prev_conv.to(xz.dtype), xz], dim=-2)
+    conv_tail = conv_tail[..., -(_CONV_W - 1):, :]
+    if tp > 1:
+        conv_tail = conv_tail.movedim(0, 2).reshape(B, _CONV_W - 1, -1)
+    return x, {"h": h1, "conv": conv_tail}
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int,
                      dtype: torch.dtype = torch.bfloat16,
-                     device: str | torch.device = "cpu") -> dict:
-    """Zeroed recurrent state of one Mamba2 block for ``batch`` rows."""
-    nh, hd, ns = mamba_geometry(cfg)
+                     device: str | torch.device = "cpu", tp: int = 1) -> dict:
+    """Zeroed recurrent state of one Mamba2 block for ``batch`` rows (every
+    rank's heads and channels, in global order, at ``tp``)."""
+    nh, hd, ns = mamba_geometry(cfg, tp)
     return {"h": torch.zeros((batch, nh, ns, hd), dtype=torch.float32,
                              device=device),
             "conv": torch.zeros((batch, _CONV_W - 1, nh * hd), dtype=dtype,

@@ -1,6 +1,6 @@
-"""Forward for every family (tp=1): embed -> cycles -> norm -> CE for
-training, and the serving targets ``prefill_fn`` / ``decode_fn`` over a
-KV / recurrent-state cache.
+"""Forward for every family: embed -> cycles -> norm -> CE for training,
+and the serving targets ``prefill_fn`` / ``decode_fn`` over a KV /
+recurrent-state cache.
 
 Port of ``repro/models/model.py`` (``_apply_cycle``, ``_backbone``,
 ``loss_fn``, ``chunked_loss_vjp``, ``prefill_fn``, ``decode_fn`` and the
@@ -14,6 +14,17 @@ the loss adds ``MOE_AUX_COEF * aux / n_cycles`` for MoE archs. The
 hybrid's weight-tied shared block is read from the top params by every
 cycle; the vlm's ``cross`` layers read ``batch["cross_kv"]`` when the
 batch has one.
+
+Tensor parallelism (``ctx``, a ``common.ShardCtx``; None is tp = 1):
+the segments arrive in the *use* layout of the reference's gathers
+(``core.gs_sgd._gather_closures``): the model-sharded segments rank
+-stacked (``top_s`` (tp, f), ``cycles_s`` (tp, n, f)), the replicated
+ones gathered whole and unranked (``top_r`` (f,), ``cycles_r`` (n, f)).
+Activations are then rank-stacked (tp, B, S, d); the loss is a (tp,)
+tensor, every rank's equal; ``prefill_fn`` returns each rank's vocab
+shard of the logits (tp, B, V_loc) and ``decode_fn`` every rank's (equal)
+ids (tp, B). The cache holds every rank's heads in global order
+(``init_cache(..., ctx=)``). ``chunked_loss_vjp`` is tp = 1 only.
 
 ``remat``: accepted for interface parity and a numerical no-op here. The
 reference's sqrt-n remat only trades memory for recompute; at the
@@ -41,7 +52,7 @@ import torch
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rk
-from repro_torch.models.common import (ArchConfig, head_geometry,
+from repro_torch.models.common import (ArchConfig, ShardCtx, head_geometry,
                                        tree_from_paths, tree_map)
 from repro_torch.models.flatten import FlatSpec, chunk_plan
 from repro_torch.models.layers import (attention_block, embed_lookup,
@@ -69,7 +80,8 @@ def _write_state(view: dict, new: dict) -> None:
 def _apply_cycle(cfg: ArchConfig, cyc_p: dict, shared_p: dict | None,
                  x: torch.Tensor, pos: torch.Tensor,
                  cross_kv: torch.Tensor | None, mode: str = "train",
-                 cache: dict | None = None, kv_len=None
+                 cache: dict | None = None, kv_len=None,
+                 ctx: ShardCtx | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply one cycle of blocks. Returns (x, the cycle's MoE aux loss).
 
@@ -90,10 +102,11 @@ def _apply_cycle(cfg: ArchConfig, cyc_p: dict, shared_p: dict | None,
         if kind == "shared_attn":
             if serve:
                 x, _ = attention_block(shared_p, cfg, x, pos, mode=mode,
-                                       cache=sub(kind, j), kv_len=kv_len)
+                                       cache=sub(kind, j), kv_len=kv_len,
+                                       ctx=ctx)
             else:
-                x = attention_block(shared_p, cfg, x, pos)
-            x = mlp_block(shared_p["mlp"], cfg, x)
+                x = attention_block(shared_p, cfg, x, pos, ctx=ctx)
+            x = mlp_block(shared_p["mlp"], cfg, x, ctx)
             continue
         p = tree_map(lambda a: a[j], cyc_p[kind])
         if kind == "attn":
@@ -101,40 +114,41 @@ def _apply_cycle(cfg: ArchConfig, cyc_p: dict, shared_p: dict | None,
                    else attention_block)
             if serve:
                 x, _ = blk(p, cfg, x, pos, mode=mode, cache=sub(kind, j),
-                           kv_len=kv_len)
+                           kv_len=kv_len, ctx=ctx)
             else:
-                x = blk(p, cfg, x, pos)
+                x = blk(p, cfg, x, pos, ctx=ctx)
             if not cfg.parallel_block:
-                x = mlp_block(p["mlp"], cfg, x)
+                x = mlp_block(p["mlp"], cfg, x, ctx)
         elif kind == "cross":
             if serve and cross_kv is None:
                 raise ValueError("the vlm's cross layers serve only with "
                                  "cross_kv (its static patch embeddings)")
             x = attention_block(p, cfg, x, pos, cross_kv=cross_kv,
-                                mode=mode)
+                                mode=mode, ctx=ctx)
             x = x[0] if serve else x
-            x = mlp_block(p["mlp"], cfg, x)
+            x = mlp_block(p["mlp"], cfg, x, ctx)
         elif kind == "moe":
             if serve:
                 x, _ = attention_block(p, cfg, x, pos, mode=mode,
-                                       cache=sub(kind, j), kv_len=kv_len)
+                                       cache=sub(kind, j), kv_len=kv_len,
+                                       ctx=ctx)
             else:
-                x = attention_block(p, cfg, x, pos)
-            x, a = moe_lib.moe_block(p["moe"], cfg, x)
+                x = attention_block(p, cfg, x, pos, ctx=ctx)
+            x, a = moe_lib.moe_block(p["moe"], cfg, x, ctx)
             aux = aux + a
         elif kind == "rwkv":
             st = sub(kind, j)
             if st is None:
-                x = rk.rwkv_block(p, cfg, x)
+                x = rk.rwkv_block(p, cfg, x, ctx=ctx)
             else:
-                x, new = rk.rwkv_block(p, cfg, x, state=st)
+                x, new = rk.rwkv_block(p, cfg, x, state=st, ctx=ctx)
                 _write_state(st, new)
         elif kind == "mamba":
             st = sub(kind, j)
             if st is None:
-                x = mb.mamba_block(p, cfg, x)
+                x = mb.mamba_block(p, cfg, x, ctx=ctx)
             else:
-                x, new = mb.mamba_block(p, cfg, x, state=st)
+                x, new = mb.mamba_block(p, cfg, x, state=st, ctx=ctx)
                 _write_state(st, new)
         else:
             raise ValueError(f"unknown block kind {kind!r}")
@@ -144,35 +158,39 @@ def _apply_cycle(cfg: ArchConfig, cyc_p: dict, shared_p: dict | None,
 def _backbone(cfg: ArchConfig, fs: FlatSpec, segs: dict,
               tokens: torch.Tensor, pos: torch.Tensor, dtype: torch.dtype,
               cross_kv: torch.Tensor | None, mode: str = "train",
-              cache: dict | None = None, kv_len=None
+              cache: dict | None = None, kv_len=None,
+              ctx: ShardCtx | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Embed -> cycles -> final norm. Returns (hidden, aux, top params).
 
     With ``cache`` each cycle c works on the views ``cache[kind][leaf][c]``
     (the reference's serve body, whose carry is updated in place)."""
     top = fs.top_params(segs["top_s"], segs["top_r"], dtype)
-    x = embed_lookup(top["embed"], tokens, dtype)
+    x = embed_lookup(top["embed"], tokens, dtype, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cs, cr = segs["cycles_s"], segs["cycles_r"]
+    ranked = ctx is not None and ctx.ranked
     for c in range(fs.n_cycles):
         cyc_cache = (None if cache is None
                      else tree_map(lambda a: a[c], cache))
-        x, a = _apply_cycle(cfg, fs.cycle_params(cs[c], cr[c], dtype),
+        vs = cs[:, c] if ranked else cs[c]
+        x, a = _apply_cycle(cfg, fs.cycle_params(vs, cr[c], dtype),
                             top.get("shared_attn"), x, pos, cross_kv, mode,
-                            cyc_cache, kv_len)
+                            cyc_cache, kv_len, ctx)
         aux = aux + a
     return rmsnorm(x, top["final_norm"], cfg.norm_eps), aux, top
 
 
 def _head_w(cfg: ArchConfig, top: dict) -> torch.Tensor:
-    return top["embed"].T if cfg.tie_embeddings else top["head"]
+    return top["embed"].mT if cfg.tie_embeddings else top["head"]
 
 
 def _loss_head(cfg: ArchConfig, hid: torch.Tensor, aux: torch.Tensor,
-               top: dict, labels: torch.Tensor) -> torch.Tensor:
+               top: dict, labels: torch.Tensor,
+               ctx: ShardCtx | None = None) -> torch.Tensor:
     """Final-norm'd hidden -> CE loss (+ MoE aux): the shared tail of
     ``loss_fn`` and the chunked epilogue."""
-    loss = lm_loss(hid, _head_w(cfg, top), labels, cfg)
+    loss = lm_loss(hid, _head_w(cfg, top), labels, cfg, ctx)
     if cfg.n_experts:
         loss = loss + MOE_AUX_COEF * aux / max(1, cfg.n_cycles)
     return loss
@@ -185,14 +203,15 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict, *,
             dtype: torch.dtype = torch.float32,
-            remat: bool = True) -> torch.Tensor:
+            remat: bool = True, ctx: ShardCtx | None = None) -> torch.Tensor:
     """Mean next-token CE (+ MoE aux). batch: tokens/labels (B, S), and
-    optionally cross_kv (B, n_cross_tokens, d_model)."""
+    optionally cross_kv (B, n_cross_tokens, d_model). At tp > 1 (``ctx``)
+    a (tp,) tensor: every rank's copy of the same loss."""
     del remat  # see module docstring
     tokens = batch["tokens"]
     hid, aux, top = _backbone(cfg, fs, segs, tokens, _positions(tokens),
-                              dtype, batch.get("cross_kv"))
-    return _loss_head(cfg, hid, aux, top, batch["labels"])
+                              dtype, batch.get("cross_kv"), ctx=ctx)
+    return _loss_head(cfg, hid, aux, top, batch["labels"], ctx)
 
 
 def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
@@ -354,27 +373,29 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
 
 @torch.no_grad()
 def prefill_fn(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
-               cache: dict, *, dtype: torch.dtype = torch.float32
-               ) -> tuple[torch.Tensor, dict]:
+               cache: dict, *, dtype: torch.dtype = torch.float32,
+               ctx: ShardCtx | None = None) -> tuple[torch.Tensor, dict]:
     """Prompt forward; fills ``cache`` (in place) from position 0.
     batch: tokens (B, S) [cross_kv]. Returns (last-token logits (B,
-    V_pad) f32, the cache)."""
+    V_pad) f32, or each rank's vocab shard (tp, B, V_loc) at tp > 1, the
+    cache)."""
     tokens = batch["tokens"]
     hid, _, top = _backbone(cfg, fs, segs, tokens, _positions(tokens),
                             dtype, batch.get("cross_kv"), "prefill", cache,
-                            0)
-    logits = lm_logits(hid[:, -1:, :], _head_w(cfg, top), cfg)
-    return logits[:, 0, :], cache
+                            0, ctx)
+    logits = lm_logits(hid[..., -1:, :], _head_w(cfg, top), cfg, ctx)
+    return logits[..., 0, :], cache
 
 
 @torch.no_grad()
 def decode_fn(cfg: ArchConfig, fs: FlatSpec, segs: dict,
               tokens: torch.Tensor, kv_len, cache: dict, *,
               cross_kv: torch.Tensor | None = None,
-              dtype: torch.dtype = torch.float32
-              ) -> tuple[torch.Tensor, dict]:
+              dtype: torch.dtype = torch.float32,
+              ctx: ShardCtx | None = None) -> tuple[torch.Tensor, dict]:
     """One decode step: tokens (B, 1) at position ``kv_len`` -> (next-token
-    ids (B,) int32, the cache, updated in place).
+    ids (B,) int32, every rank's (equal) copy (tp, B) at tp > 1, the
+    cache, updated in place).
 
     ``kv_len`` is the valid cache length BEFORE this token: an int or
     0-dim tensor (the whole batch at one position) or a (B,) tensor (each
@@ -383,9 +404,9 @@ def decode_fn(cfg: ArchConfig, fs: FlatSpec, segs: dict,
     kl = torch.as_tensor(kv_len, device=tokens.device)
     pos = (kl[:, None] if kl.ndim else kl).expand(B, S)
     hid, _, top = _backbone(cfg, fs, segs, tokens, pos, dtype, cross_kv,
-                            "decode", cache, kl)
-    logits = lm_logits(hid, _head_w(cfg, top), cfg)
-    return sharded_argmax(logits[:, 0, :]), cache
+                            "decode", cache, kl, ctx)
+    logits = lm_logits(hid, _head_w(cfg, top), cfg, ctx)
+    return sharded_argmax(logits[..., 0, :], ctx), cache
 
 
 # ---------------------------------------------------------------------------
@@ -395,16 +416,21 @@ def decode_fn(cfg: ArchConfig, fs: FlatSpec, segs: dict,
 
 def init_cache(cfg: ArchConfig, b_loc: int, t_cache: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: str | torch.device = "cpu") -> dict:
+               device: str | torch.device = "cpu",
+               ctx: ShardCtx | None = None) -> dict:
     """Zeroed cache, stacked ``(n_cycles, count, ...)`` leaves.
 
     Attention/MoE kinds and the hybrid's shared block (count 1) get KV
     caches ``(n, cnt, b_loc, t_cache, Hkv, hd)`` in ``dtype``; rwkv and
     mamba their recurrent states (f32 but mamba's conv tail); the vlm's
     cross blocks none. ``device="meta"`` gives shapes and dtypes with no
-    allocation (``cache_shapes``)."""
+    allocation (``cache_shapes``). At tp > 1 (``ctx``) Hkv is every
+    rank's KV heads side by side (tp x the heads a rank stores, one each
+    for replicated KV), and the states hold every rank's heads."""
     n = cfg.n_cycles
-    nkv = head_geometry(cfg, 1).nkv_loc
+    tp = ctx.tp if ctx is not None else 1
+    g = head_geometry(cfg, tp)
+    nkv = tp * (1 if g.kv_replicated else g.nkv_loc)
 
     def stack(cnt, leaf):
         return torch.zeros((n, cnt) + tuple(leaf.shape), dtype=leaf.dtype,
@@ -420,10 +446,10 @@ def init_cache(cfg: ArchConfig, b_loc: int, t_cache: int,
         if kind in ("attn", "moe"):
             cache[kind] = kv(cnt)
         elif kind == "rwkv":
-            st = rk.init_rwkv_state(cfg, b_loc, device="meta")
+            st = rk.init_rwkv_state(cfg, b_loc, device="meta", tp=tp)
             cache[kind] = tree_map(lambda a: stack(cnt, a), st)
         elif kind == "mamba":
-            st = mb.init_mamba_state(cfg, b_loc, dtype, device="meta")
+            st = mb.init_mamba_state(cfg, b_loc, dtype, device="meta", tp=tp)
             cache[kind] = tree_map(lambda a: stack(cnt, a), st)
         # 'cross': no cache
     if "shared_attn" in cfg.cycle:

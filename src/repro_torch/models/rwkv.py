@@ -1,5 +1,5 @@
-"""RWKV6 ("Finch") block (tp=1): time-mix with data-dependent decay, then
-the relu^2 channel-mix.
+"""RWKV6 ("Finch") block: time-mix with data-dependent decay, then the
+relu^2 channel-mix.
 
 Port of ``repro/models/rwkv.py``: the train path (``state=None``) and
 the serving path (``state=`` ``{"s": (B, H, hd, hd) f32, "tm_prev": (B,
@@ -15,6 +15,13 @@ is one (L, L) masked product plus a state passthrough, with the
 cumulative log-decay clamped at -30 where a factor ``e^{-cum}`` stands
 alone. All chunk math is f32.
 
+TP (``ctx``, tp > 1): the r/k/v/g/decay projections are column-parallel
+by head and the output projections row-parallel (psum), the token-shift
+mixes and norms replicated. The ranks' local heads run the WKV as one
+call, folded into the head axis (global head order), so the state a
+cache holds is the global ``(B, H, hd, hd)`` and the token-shift carries
+are the (identical) rows of rank 0.
+
 Clips: ``jnp.clip`` and ``jnp.maximum`` split the gradient in half at an
 exact tie with the bound; ``torch.clamp`` passes all of it. The port
 writes both as ``torch.maximum``/``torch.minimum``, whose backward splits
@@ -28,8 +35,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, pad_to
-from repro_torch.models.layers import linear_row, rmsnorm
+from repro_torch.models.common import ArchConfig, ShardCtx, pad_to
+from repro_torch.models.layers import lin, linear_row, ranked_vec, rmsnorm
 
 _CLAMP = 30.0  # |log-decay| cap inside a chunk (e^-30 ~ 1e-13)
 
@@ -60,12 +67,12 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 def _token_shift(h: torch.Tensor,
                  prev: torch.Tensor | None = None) -> torch.Tensor:
     """x_{t-1} per position; position 0 sees ``prev`` (B, d) or zeros."""
-    if h.shape[1] == 1:   # decode fast path
+    if h.shape[-2] == 1:   # decode fast path
         return (torch.zeros_like(h) if prev is None
-                else prev[:, None, :].to(h.dtype))
-    shifted = F.pad(h, (0, 0, 1, 0))[:, :-1, :]
+                else prev[:, None, :].to(h.dtype).expand_as(h))
+    shifted = F.pad(h, (0, 0, 1, 0))[..., :-1, :]
     if prev is not None:
-        shifted[:, 0, :] = prev.to(h.dtype)
+        shifted[..., 0, :] = prev.to(h.dtype)
     return shifted
 
 
@@ -122,11 +129,15 @@ def wkv_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
-               state: dict | None = None):
-    """Full RWKV6 block = time-mix + channel-mix. x: (B, S, d). Returns
-    the output; with ``state`` (serving), ``(output, new state)``."""
-    B, S, d = x.shape
-    nh, hd = rwkv_geometry(cfg)
+               state: dict | None = None, ctx: ShardCtx | None = None):
+    """Full RWKV6 block = time-mix + channel-mix. x: (B, S, d), at tp > 1
+    rank-stacked (tp, B, S, d). Returns the output; with ``state``
+    (serving), ``(output, new state)``."""
+    B, S, d = x.shape[-3:]
+    tp = ctx.tp if ctx is not None else 1
+    nh, hd = rwkv_geometry(cfg, tp)
+    lead = x.shape[:-1]
+    fold = ctx.fold_heads if ctx is not None else (lambda t: t)
 
     # ---- time mix -------------------------------------------------------
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
@@ -134,44 +145,49 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     mu = p["mu"].to(h.dtype)                         # (4, d)
     xr, xk, xv, xg = (h + mu[i] * (hs - h) for i in range(4))
 
-    r = (xr @ p["wr"].to(h.dtype)).reshape(B, S, nh, hd)
-    kk = (xk @ p["wk"].to(h.dtype)).reshape(B, S, nh, hd)
-    vv = (xv @ p["wv"].to(h.dtype)).reshape(B, S, nh, hd)
-    g = F.silu(xg @ p["wg"].to(h.dtype))             # (B, S, dh)
+    r = lin(xr, p["wr"].to(h.dtype)).reshape(lead + (-1, hd))
+    kk = lin(xk, p["wk"].to(h.dtype)).reshape(lead + (-1, hd))
+    vv = lin(xv, p["wv"].to(h.dtype)).reshape(lead + (-1, hd))
+    g = F.silu(lin(xg, p["wg"].to(h.dtype)))         # (.., B, S, dh)
 
     # data-dependent decay: w = exp(-exp(.)) -> log w = -exp(.) in [-inf, 0)
-    wx = ((xk @ p["ww"].to(h.dtype)).to(torch.float32)
-          + p["w_bias"].to(torch.float32))
-    logw = -torch.exp(_clip(wx, -12.0, 3.0)).reshape(B, S, nh, hd)
+    wx = (lin(xk, p["ww"].to(h.dtype)).to(torch.float32)
+          + ranked_vec(p["w_bias"], xk).to(torch.float32))
+    logw = -torch.exp(_clip(wx, -12.0, 3.0)).reshape(lead + (-1, hd))
     u = p["bonus"].to(torch.float32).reshape(nh, hd)
 
     s0 = (state["s"] if state is not None else
           torch.zeros((B, nh, hd, hd), dtype=torch.float32, device=x.device))
-    rf, kf, vf = (t.to(torch.float32) for t in (r, kk, vv))
+    rf, kf, vf, lw = (fold(t.to(torch.float32)) for t in (r, kk, vv, logw))
     if S == 1:   # the reference's single-token recurrence
-        y1, s1 = wkv_step(rf[:, 0], kf[:, 0], vf[:, 0], logw[:, 0], u, s0)
+        y1, s1 = wkv_step(rf[:, 0], kf[:, 0], vf[:, 0], lw[:, 0], u, s0)
         y = y1[:, None]
     else:
-        y, s1 = wkv_chunked(rf, kf, vf, logw, u, s0)
-    y = y.reshape(B, S, nh * hd).to(h.dtype) * g
-    x = x + linear_row(y, p["wo"]).to(x.dtype)
+        y, s1 = wkv_chunked(rf, kf, vf, lw, u, s0)
+    if ctx is not None:
+        y = ctx.unfold_heads(y)
+    y = y.reshape(lead + (-1,)).to(h.dtype) * g
+    x = x + linear_row(y, p["wo"], ctx).to(x.dtype)
 
     # ---- channel mix ----------------------------------------------------
     h2 = rmsnorm(x, p["cnorm"], cfg.norm_eps)
     hs2 = _token_shift(h2, state["cm_prev"] if state is not None else None)
     xin = h2 + p["cmu"].to(h2.dtype)[0] * (hs2 - h2)
-    kx = torch.square(torch.relu(xin @ p["ck"].to(h2.dtype)))
-    x = x + linear_row(kx, p["cv"]).to(x.dtype)
+    kx = torch.square(torch.relu(lin(xin, p["ck"].to(h2.dtype))))
+    x = x + linear_row(kx, p["cv"], ctx).to(x.dtype)
     if state is None:
         return x
+    if x.ndim == 4:   # the ranks' token-shift rows are equal: rank 0's
+        h, h2 = h[0], h2[0]
     return x, {"s": s1, "tm_prev": h[:, -1, :].to(torch.float32),
                "cm_prev": h2[:, -1, :].to(torch.float32)}
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int,
-                    device: str | torch.device = "cpu") -> dict:
-    """Zeroed recurrent state of one RWKV6 block for ``batch`` rows."""
-    nh, hd = rwkv_geometry(cfg)
+                    device: str | torch.device = "cpu", tp: int = 1) -> dict:
+    """Zeroed recurrent state of one RWKV6 block for ``batch`` rows (every
+    rank's heads, in global order, at ``tp``)."""
+    nh, hd = rwkv_geometry(cfg, tp)
     f32 = torch.float32
     return {"s": torch.zeros((batch, nh, hd, hd), dtype=f32, device=device),
             "tm_prev": torch.zeros((batch, cfg.d_model), dtype=f32,

@@ -953,3 +953,117 @@ def test_tree_step_p3_with_a_drop_card_matches_cpu(card):
     for name in ("sketch_encode", "sketch_encode_finish", "heavymix_scores",
                  "topk_select"):
         assert counts.get(name, 0) == 2 * 3 * 3, name
+
+
+# The sharded layouts' cells (tp = 2 x data = 2 at qwen3-4b's widths, 2
+# layers; fsdp pod = 2 x data = 2 at yi-9b's, 2 layers): the buckets of a
+# (rank, worker)'s d_local and of a worker's shard, under the main path's
+# exchange (gs-SGD, 2 buckets, R = 5, k and W from d).
+SHARD_CELLS = {"tp": ("qwen3_4b", dict(tp=2, data=2), "dp"),
+               "fsdp": ("yi_9b", dict(tp=1, data=2, pod=2, tp_axis=None,
+                                      pod_axis="pod"), "fsdp")}
+
+
+def _shard_cell(name):
+    import dataclasses
+    import importlib
+
+    from repro_torch.api import ExchangeSpec, SketchSpec
+    from repro_torch.core.gs_sgd import MeshAxes, make_train_step
+    from repro_torch.optim import make as make_opt
+    mod, mesh, mode = SHARD_CELLS[name]
+    cfg = dataclasses.replace(
+        importlib.import_module(f"repro_torch.configs.{mod}").CONFIG,
+        n_layers=2)
+    spec = ExchangeSpec(compressor="gs-sgd", buckets=2, overlap=True,
+                        allreduce_mode="psum",
+                        sketch=SketchSpec(rows=5, width=None, k=None))
+    return make_train_step(cfg, MeshAxes(**mesh), make_opt("adamw"),
+                           dp_mode=mode, spec=spec, dtype=torch.float32,
+                           device="cuda")
+
+
+@pytest.mark.parametrize("cell", list(SHARD_CELLS))
+def test_kernels_at_shard_bucket_shapes(card, cell):
+    """The exact encode (accumulate + finish), the decode with its
+    histogram and the select at each bucket's shape of the sharded cells
+    (every bucket past 2^22: the decode route), bit-equal to plain."""
+    ts = _shard_cell(cell)
+    for b, part in enumerate(ts.compressor.parts):
+        d = ts.compressor.spec.sizes[b]
+        cfg, k = part.sketch, part.k
+        gen = torch.Generator(device=card).manual_seed(b)
+        g = torch.randn(d, generator=gen, device=card)
+        g *= torch.exp(-20 * torch.rand(d, generator=gen, device=card))
+        sk = sketch_encode(cfg, g)
+        assert _bits_equal(sk, sketch_encode_plain(cfg, g))
+        key, hist = sketch_decode_hist(cfg, sk, d)
+        assert torch.equal(key, sketch_decode_plain(cfg, sk, d))
+        assert torch.equal(hist, radix_hist_plain(key))
+        v, i = topk_select(key, k, hist)
+        v_p, i_p = topk_select_plain(key, k, hist)
+        assert torch.equal(i, i_p) and _bits_equal(v, v_p)
+        del g, sk, key, hist, v, i, v_p, i_p
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("layout", ["tp2_data2", "fsdp_pod2_data2"])
+def test_sharded_smoke_steps_card_match_cpu(card, layout):
+    """Two gs-SGD steps of qwen3-4b's smoke config at tp = 2 x data = 2
+    and of yi-9b's in fsdp at pod = 2 x data = 2, card against CPU from
+    the same params and batches: losses within 1e-5 (f32, TF32 off), the
+    selected coordinates of every exchange group and bucket equal, the
+    scores route's kernels launched once a worker, rank, bucket and
+    step."""
+    import numpy as np
+
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.configs import SMOKES
+    from repro_torch.core.gs_sgd import MeshAxes, make_train_step
+    from repro_torch.data import LMStream
+    from repro_torch.launch.train import shard_batch
+    from repro_torch.models.common import init_params
+    from repro_torch.models.flatten import make_flat_spec, shard_segs
+    from repro_torch.optim import make as make_opt
+    arch, ma, mode = {
+        "tp2_data2": ("qwen3-4b", MeshAxes(tp=2, data=2), "dp"),
+        "fsdp_pod2_data2": ("yi-9b", MeshAxes(tp=1, data=2, pod=2,
+                                               tp_axis=None, pod_axis="pod"),
+                            "fsdp")}[layout]
+    cfg = SMOKES[arch]
+    glob = init_params(cfg, torch.Generator().manual_seed(0), ma.tp)
+    params = (shard_segs(cfg, glob, ma.tp)[1] if ma.tp > 1
+              else make_flat_spec(cfg, 1).flatten(glob))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    try:
+        for dev in (torch.device("cpu"), card):
+            opt = make_opt("adamw", lr=1e-3)
+            ts = make_train_step(cfg, ma, opt, dp_mode=mode,
+                                 compressor_name="gs-sgd",
+                                 compressor_kw=dict(k=2048, rows=5,
+                                                    width=4096),
+                                 buckets=2, dtype=torch.float32, device=dev)
+            st = ts.state_from({k: v.to(dev) for k, v in params.items()},
+                               opt)
+            stream = LMStream(vocab_size=cfg.vocab_size, seq_len=16,
+                              global_batch=2 * ts.nworkers, seed=0)
+            LAUNCHES.clear()
+            losses, sel = [], []
+            for step in range(2):
+                st, m = ts.fn(st, shard_batch(
+                    stream.global_batch_at(step, dev), ts.nworkers))
+                losses.append(float(m["loss"]))
+                sel.append([(e == 0).cpu() for e in flatten(st["ef"])[0]])
+            runs.append((losses, sel, dict(LAUNCHES)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, sc, _), (lg, sg, counts) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for a, b in zip(sc, sg):
+        assert len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+    for name in ("sketch_encode", "sketch_encode_finish", "heavymix_scores",
+                 "topk_select"):
+        assert counts.get(name, 0) == ma.tp * ma.dp_size * 2 * 2, name

@@ -82,16 +82,24 @@ def test_smoke_config_two_steps_match_reference(arch):
 
 
 def test_fsdp_arch_at_full_size_raises():
-    """The fsdp storage mode itself is not ported: ``make_train_step`` with
-    ``dp_mode="fsdp"`` raises before allocating anything. A full-size
-    fsdp arch's spec does not ask for it: like the reference's
+    """The fsdp storage mode is ported (tests/test_torch_fsdp.py):
+    ``make_train_step`` with ``dp_mode="fsdp"`` builds the full-size step
+    without allocating anything (one pod: dense and EF-free, each worker
+    holding 1/P of the flat params); only an unknown mode raises. A
+    full-size fsdp arch's spec does not ask for it: like the reference's
     ``RunSpec``, it builds the dp step (see the test below); its smoke
     config runs in dp too."""
     from repro_torch.core.gs_sgd import make_train_step
     spec = dataclasses.replace(TSpec.load(SPEC), arch="yi-9b", smoke=False)
-    with pytest.raises(NotImplementedError, match="fsdp"):
+    ts = make_train_step(spec.arch_config(), spec.mesh_axes(),
+                         spec.make_optimizer(), dp_mode="fsdp",
+                         spec=spec.exchange, device="cpu")
+    P = spec.mesh_axes().dp_size
+    assert ts.dp_mode == "fsdp" and ts.sharded and ts.compressor is None
+    assert ts.d_local * P == ts.fs.total and ts.comp_groups == ()
+    with pytest.raises(ValueError, match="dp_mode"):
         make_train_step(spec.arch_config(), spec.mesh_axes(),
-                        spec.make_optimizer(), dp_mode="fsdp",
+                        spec.make_optimizer(), dp_mode="zero3",
                         spec=spec.exchange, device="cpu")
     assert spec.make_train_step(device="cpu").dp_mode == "dp"
     smoke = dataclasses.replace(spec, smoke=True)
