@@ -5,6 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --mesh`` runs the process mesh's phases alone
+(6h-6j and parity_mesh with their references) on every visible card: a
+world that fits the cards gives each rank a card of its own (NCCL).
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. build     — compile every kernel from ``src/repro_torch/csrc`` with
@@ -189,6 +193,35 @@ Phases (any failure exits non-zero and prints no result line):
                 with the selection zeroed) holds every worker's cycles_s
                 shard against the sum over its pod of the workers' full
                 gradients, sliced (FSDP_SCATTER_RTOL).
+6h. train_mesh — the process mesh (``launch/mesh.py``): the train cell
+                (qwen3-4b widths, 2 layers, buckets 2, psum, AdamW, the
+                same seed and batches) with one worker a process, 2
+                processes spawned on the one card (gloo: every collective
+                copies its CUDA tensors through pinned host memory, in
+                ``stage/*`` spans). Each process: three counted steps (the
+                encode, its finish, the decode and the select 6 times, no
+                plain version), its peak, the staging over the counted
+                steps and one traced step's ``allreduce/b{i}`` and
+                ``recover/b{i}`` spans with the staging inside them. Held
+                bit for bit against ``train``: losses, the final state's
+                fingerprints (bit digests of every params segment and EF
+                bucket) and every step's selections.
+6i. train_mesh_tree — minicpm-2b's cell (the train_elastic cell's step)
+                on the Alg. 1 tree at P = 4 processes, against the
+                simulated tree step from the same state and batches (run
+                first in the parent, freed before the spawn); the scores
+                route (with the filler) 6 times a process. Selections
+                equal every step, the first loss bit-equal, the others and
+                every sampled value of the final state within MESH_RTOL.
+6j. train_mesh_tp — the train_tp cell on 4 processes (tp = 2 x data = 2).
+                Its witness runs first in the parent: train_tp's
+                simulated step with the rank-stacked GEMMs, attention and
+                norm gains run one rank at a time in a process's layout
+                (``per_rank_kernels``), held against train_tp within the
+                WITNESS_* bounds (the card rounds the batched ranks
+                otherwise; PERF.md). Each process's losses, selections
+                and final state are held bit for bit against the
+                witness's.
 7. parity    — two steps of examples/specs/qwen3_smoke.json on the card
                 (kernels) and on the CPU (plain versions) from the same
                 params and batches: losses and selected coordinates agree.
@@ -234,6 +267,15 @@ Phases (any failure exits non-zero and prints no result line):
                 qwen3-4b at tp = 2 x data = 2 and yi-9b in fsdp at pod = 2
                 x data = 2 with gs-SGD (scores route, 24 launches each):
                 losses within TP_PARITY_RTOL, selections equal.
+7g. parity_mesh — the CPU tests' smoke mesh runs (tests/test_torch_mesh.py)
+                with each process on the card against the CPU port's
+                simulated run: the reference test's dense (2, 2, 2) case
+                (8 processes), gs-SGD psum and tree at P = 4 and yi-9b's
+                fsdp at pod = 2 x data = 2 (4 processes; the scores route
+                6 times a process), losses within TP_PARITY_RTOL and
+                selections equal; serving at tp = 2 (qwen3-4b smoke, 4
+                processes on a (1, 2, 2) mesh): each rank's logits shard
+                within SERVE_PARITY_ATOL, its ids equal.
 7e. paper_figs — ``bench.convergence.main`` and ``bench.k_sensitivity.main``
                 (Figs. 2-3, 6-7) for 10 steps on the card: finite losses.
 8. baselines — every compressor of the registry, two smoke-spec steps on the
@@ -300,10 +342,12 @@ Phases (any failure exits non-zero and prints no result line):
 
 Every path that launches kernels (train, train_traced, train_watched,
 train_ts, train_interleave, train_minicpm, train_elastic, train_moe,
-train_hybrid and its interleave, train_tp, train_fsdp, parity,
-parity_elastic, parity_families, parity_tp, train_cnn) runs with every
+train_hybrid and its interleave, train_tp, train_fsdp, train_mesh,
+train_mesh_tree, train_mesh_tp, parity, parity_elastic, parity_families,
+parity_tp, parity_mesh, train_cnn) runs with every
 launch counter set to 0 just before and read just after; each kernel of
-the path must have launched, and the JSON line reports those counts. The
+the path must have launched, and the JSON line reports those counts (a
+mesh phase's summed over its processes, each zeroed in its process). The
 serve phases run no kernel of the sketch path: their counts, summed
 (``launches_serve``; ``launches_serve_tp`` for serve_tp), must be 0. The
 kernels at the sharded cells' bucket shapes are under ``shard_shapes``.
@@ -516,12 +560,12 @@ def main_exchange():
 
 
 def full_width_step(torch, device, buckets=2, bwd_chunks=None,
-                    fuse_encode=False, exchange=None, cfg=None):
+                    fuse_encode=False, exchange=None, cfg=None, ma=None):
     """The main path's train step (no state allocated yet); with other
     ``buckets`` / ``bwd_chunks`` / ``fuse_encode``, or a whole ``exchange``
     spec (a re-plan's), the same cell with that exchange schedule; with
     ``cfg``, that arch's cell under the same exchange, P, optimizer and
-    lr."""
+    lr; with ``ma`` (a process mesh's), on that mesh."""
     from repro_torch.configs.qwen3_4b import CONFIG
     from repro_torch.core.gs_sgd import MeshAxes, make_train_step
     from repro_torch.optim import make as make_opt
@@ -530,7 +574,7 @@ def full_width_step(torch, device, buckets=2, bwd_chunks=None,
     spec = exchange or dataclasses.replace(
         main_exchange(), buckets=buckets, bwd_chunks=bwd_chunks,
         fuse_encode=fuse_encode)
-    ma = MeshAxes(tp=1, data=TRAIN_P, tp_axis=None)
+    ma = ma or MeshAxes(tp=1, data=TRAIN_P, tp_axis=None)
     ts = make_train_step(cfg, ma, opt, spec=spec, dtype=torch.float32,
                          device=device)
     return cfg, opt, ts
@@ -1877,15 +1921,16 @@ def check_interleaved_losses(tag, run, base) -> None:
 
 
 def minicpm_step(torch, device, p=TRAIN_P, allreduce_mode="psum",
-                 record=True):
+                 record=True, ma=None):
     """The train_minicpm cell's step (no state allocated yet): minicpm-2b
     at its published widths, MINICPM_LAYERS layers, P = ``p`` (TRAIN_P),
     buckets = 2, ``allreduce_mode`` (psum), SketchSpec(rows=5, width=None,
     k=None) resolved at its d, microbatch MINICPM_MICROBATCH, clip
     MINICPM_CLIP, the faithful fill; AdamW under wsd(TRAIN_LR, warmup=1,
     stable=0, decay=2), with ``record`` its apply wrapped to record the
-    squared norm of each worker's applied gradient at step 0. Returns
-    (cfg, opt, ts, schedule, the recorded norms by step)."""
+    squared norm of each worker's applied gradient at step 0; ``ma``: a
+    process mesh's axes (P = its data axis) in place of the simulated P.
+    Returns (cfg, opt, ts, schedule, the recorded norms by step)."""
     from repro_torch.api import ExchangeSpec, SketchSpec
     from repro_torch.configs.minicpm_2b import CONFIG
     from repro_torch.core.gs_sgd import MeshAxes, make_train_step
@@ -1906,7 +1951,7 @@ def minicpm_step(torch, device, p=TRAIN_P, allreduce_mode="psum",
     spec = ExchangeSpec(compressor="gs-sgd", buckets=2, overlap=True,
                         allreduce_mode=allreduce_mode,
                         sketch=SketchSpec(rows=5, width=None, k=None))
-    ma = MeshAxes(tp=1, data=p, tp_axis=None)
+    ma = ma or MeshAxes(tp=1, data=p, tp_axis=None)
     d = make_train_step(cfg, ma, opt, spec=spec, device=device).d_local
     kw = dict(spec.compressor_kw(d), faithful_heavymix=True)
     ts = make_train_step(cfg, ma, opt, compressor_name="gs-sgd",
@@ -4127,10 +4172,12 @@ def train_tp_phase(torch, device) -> dict:
     cfg = dataclasses.replace(CONFIG, n_layers=2)
     opt, ts = sharded_step(torch, device, cfg, MeshAxes(tp=TP, data=TP_DATA))
     check_cell("train_tp", ts, TP_D, TP_BUCKETS)
-    with plain_calls() as plain:
+    with plain_calls() as plain, kept_recoveries() as kept:
         run = train_phase(torch, cfg, opt, ts, tag="train_tp")
     check_route("train_tp", run["counts"], plain,
                 TP * TP_DATA * ts.n_buckets * TRAIN_STEPS)
+    run["mesh_ref"] = mesh_ref(torch, ts, run, kept)
+    del kept
     state, got = capture_step(torch, ts, run.pop("state"), run["stream"])
     del state
     torch.cuda.empty_cache()
@@ -4227,30 +4274,34 @@ def train_fsdp_phase(torch, device) -> dict:
     return {**run, "shapes": shapes}
 
 
-def sharded_runs(torch, cfg, ma, dp_mode, kw, card="cuda", steps=3):
-    """``card_cpu_runs`` of ``cfg`` on mesh ``ma`` from the same params
-    (drawn on the CPU: rank-stacked by ``shard_segs`` at tp > 1) and
-    batches (2 rows a worker, seq 16); AdamW at TRAIN_LR, f32."""
+def sharded_cell(torch, cfg, ma, dp_mode, kw, dev, opt_kw=None):
+    """The smoke cell of ``cfg`` on mesh ``ma`` (simulated, or a process
+    mesh's) on ``dev``: (train step, state, ``batch_at(step)``). Params
+    drawn on the CPU (rank-stacked by ``shard_segs`` at tp > 1), batches
+    of 2 rows a worker, seq 16; AdamW at TRAIN_LR (or ``opt_kw``), f32."""
     from repro_torch.core.gs_sgd import make_train_step
     from repro_torch.data import LMStream
-    from repro_torch.launch.train import shard_batch
     from repro_torch.models.common import init_params
     from repro_torch.models.flatten import make_flat_spec, shard_segs
     from repro_torch.optim import make as make_opt
     glob = init_params(cfg, torch.Generator().manual_seed(0), ma.tp)
     params = (shard_segs(cfg, glob, ma.tp)[1] if ma.tp > 1
               else make_flat_spec(cfg, 1).flatten(glob))
+    opt = make_opt(**(opt_kw or {"name": "adamw", "lr": TRAIN_LR}))
+    ts = make_train_step(cfg, ma, opt, dp_mode=dp_mode,
+                         dtype=torch.float32, device=dev, **kw)
+    state = ts.state_from({k: v.to(dev) for k, v in params.items()}, opt)
+    stream = LMStream(vocab_size=cfg.vocab_size, seq_len=16,
+                      global_batch=2 * ma.dp_size, seed=0)
+    return ts, state, lambda s: ts.shard(stream.global_batch_at(s, dev))
 
-    def build(dev):
-        opt = make_opt("adamw", lr=TRAIN_LR)
-        ts = make_train_step(cfg, ma, opt, dp_mode=dp_mode,
-                             dtype=torch.float32, device=dev, **kw)
-        state = ts.state_from({k: v.to(dev) for k, v in params.items()}, opt)
-        stream = LMStream(vocab_size=cfg.vocab_size, seq_len=16,
-                          global_batch=2 * ts.nworkers, seed=0)
-        return ts, state, lambda s: shard_batch(
-            stream.global_batch_at(s, dev), ts.nworkers)
-    return card_cpu_runs(torch, build, steps, card)
+
+def sharded_runs(torch, cfg, ma, dp_mode, kw, card="cuda", steps=3):
+    """``card_cpu_runs`` of ``sharded_cell`` from the same params and
+    batches on the CPU and on ``card``."""
+    return card_cpu_runs(
+        torch, lambda dev: sharded_cell(torch, cfg, ma, dp_mode, kw, dev),
+        steps, card)
 
 
 def parity_tp_phase(torch, card="cuda") -> dict:
@@ -4492,6 +4543,675 @@ def serve_tp_phase(torch, device) -> dict:
             "fp8_wire": wire}
 
 
+
+# ---------------------------------------------------------------------------
+# The process mesh: one model rank and one worker a process
+# ---------------------------------------------------------------------------
+
+MESH_AXES = ("pod", "data", "model")
+MESH_RTOL = 1e-6   # train_mesh_tree against its simulated run, where
+#                    the second round's psum of 4 workers and the clip's
+#                    norm add in another order (PERF.md): the losses every
+#                    step and every sampled value of the final state within
+#                    this relative bound (plus this absolute one)
+# train_mesh_tp's witness (the train_tp cell with the rank-stacked kernels
+# run one rank at a time, bit-equal to the mesh) against train_tp, whose
+# kernels batch the ranks and so round otherwise; bounds stated from the
+# H100's readings (PERF.md §6: at most 1,908 of 2,363,282 selected
+# coordinates, 665 of 393,216 samples, 6.137e-4), each 5-12 times
+# above them, while a wrong gradient or slice would move most selections
+# and every sample
+WITNESS_SEL_FRAC = 0.01     # coordinates selected in one run only, a step
+WITNESS_STATE_FRAC = 0.01   # sampled state values beyond MESH_RTOL
+WITNESS_STATE_ATOL = 3e-3   # TRAIN_STEPS AdamW steps of at most TRAIN_LR
+MESH_SAMPLE = 65_536   # coordinates a tensor's fingerprint keeps
+MESH_TIMEOUT_S = 600   # a collective that waits longer fails the phase
+
+
+def fingerprint(torch, x) -> dict:
+    """A tensor's bits in a few numbers: a weighted sum of its bit
+    patterns (any flipped bit changes it), the same of its zero pattern
+    (an EF's selected coordinates) and their count, and MESH_SAMPLE values
+    at seeded positions (host copies)."""
+    x = x.detach().contiguous().reshape(-1)
+    bits = x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+    h = hz = nz = 0
+    for a in range(0, x.numel(), 1 << 24):
+        b = min(x.numel(), a + (1 << 24))
+        w = (torch.arange(a, b, device=x.device, dtype=torch.int64)
+             * 2654435761) % 2147483647 + 1
+        h += int((bits[a:b].to(torch.int64) * w).sum())
+        z = (x[a:b] == 0).to(torch.int64)
+        hz += int((z * w).sum())
+        nz += int(z.sum())
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    idx = torch.randint(0, x.numel(), (MESH_SAMPLE,), generator=gen,
+                        device=x.device)
+    return {"n": x.numel(), "bits": h % 2 ** 64, "zeros": hz % 2 ** 64,
+            "n_zero": nz, "sample": x[idx].float().cpu()}
+
+
+def state_rows(ts, state, r: int, w: int) -> dict:
+    """Model rank ``r``'s, worker ``w``'s params and EF buckets (on a
+    process mesh the process's own: r = w = 0)."""
+    ma = ts.ma
+    rows = {k: v[r, w] if ma.tp > 1 else v[w]
+            for k, v in state["params"].items()}
+    ef, i = state["ef"], w
+    if ts.comp_groups:
+        g, i = ((0, 0) if ma.mesh is not None else (r, w)
+                if ts.dp_mode == "dp" else
+                (r * ma.data + w % ma.data, w // ma.data))
+        ef = ef[g]
+    for b, e in enumerate(ef if isinstance(ef, tuple) else (ef,)):
+        rows[f"ef{b}"] = e[i]
+    return rows
+
+
+def state_prints(torch, ts, state) -> dict:
+    """{(model rank, worker): {tensor: fingerprint}} of every rank and
+    worker a simulated state holds (the process's own on a mesh)."""
+    if ts.ma.mesh is not None:
+        pm = ts.ma.mesh
+        keys = [((pm.coord("model"), pm.worker()), (0, 0))]
+    else:
+        keys = [((r, w), (r, w)) for r in range(ts.ma.tp)
+                for w in range(ts.nworkers)]
+    return {key: {k: fingerprint(torch, v) for k, v in
+                  state_rows(ts, state, *at).items()} for key, at in keys}
+
+
+def compare_prints(tag, got: dict, want: dict) -> dict:
+    """One process's fingerprints against the simulated rank's and
+    worker's. Returns how many tensors are bit-equal, of how many, and
+    over the others' samples the largest absolute difference and how many
+    of how many sampled values differ by more than MESH_RTOL relative
+    (and absolute)."""
+    out = {"same": 0, "n": len(got), "max_abs": 0.0, "beyond": 0,
+           "sampled": 0}
+    for name, g in got.items():
+        w = want[name]
+        if g["n"] != w["n"]:
+            fail(f"{tag} {name}: {g['n']} coordinates, the simulation "
+                 f"{w['n']}")
+        if g["bits"] == w["bits"]:
+            out["same"] += 1
+            continue
+        d = (g["sample"] - w["sample"]).abs()
+        out["max_abs"] = max(out["max_abs"], float(d.max()))
+        out["beyond"] += int((d > MESH_RTOL * (1 + w["sample"].abs()))
+                             .sum())
+        out["sampled"] += d.numel()
+    return out
+
+
+def mesh_setup(torch, shape):
+    """A spawned rank's mesh: TF32 off, as the parent; returns (the
+    ProcessMesh, its MeshAxes, the rank's device)."""
+    from repro_torch.launch.mesh import make_mesh, mesh_axes_of
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pm = make_mesh(shape, MESH_AXES)
+    return pm, mesh_axes_of(pm), torch.device("cuda",
+                                              torch.cuda.current_device())
+
+
+def staged_spans(torch, ts, state, stream) -> dict:
+    """One more step under a tracer: each ``allreduce/b{i}`` and
+    ``recover/b{i}`` span's seconds and the ``stage/*`` copies' seconds
+    inside it (the host staging of gloo's collectives)."""
+    from repro_torch.obs.trace import Tracer
+    tr = Tracer()
+    with tr.activate():
+        _, m = ts.fn(state, ts.shard(stream.global_batch_at(
+            TRAIN_STEPS + 1, ts.device)))
+        float(m["loss"])
+    ev = [e for e in tr.events if e["ph"] == "X"]
+    out = {}
+    for e in ev:
+        if e["name"].startswith(("allreduce/b", "recover/b")):
+            inner = sum(s["dur"] for s in ev if s["name"].startswith(
+                "stage/") and e["ts"] <= s["ts"]
+                and s["ts"] + s["dur"] <= e["ts"] + e["dur"])
+            out[e["name"]] = (e["dur"], inner)
+    return out
+
+
+def _mesh_cell(torch, cell, ma, device):
+    """(cfg, opt, ts) of a mesh phase's cell on the axes ``ma``."""
+    if cell == "train_mesh":
+        return full_width_step(torch, device, ma=ma)
+    if cell == "train_mesh_tree":
+        return minicpm_step(torch, device, allreduce_mode="tree",
+                            record=False, ma=ma)[:3]
+    from repro_torch.configs.qwen3_4b import CONFIG
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    return (cfg,) + sharded_step(torch, device, cfg, ma)
+
+
+def mesh_train_body(rank, cell, shape):
+    """A spawned rank of a mesh train phase: the cell's three counted
+    steps (``train_phase``: counts zeroed before, read after, this
+    process's peak) with every plain version counted, the state's
+    fingerprints, the host staging (``core.pgroup.STAGING``) over the
+    counted steps, and one traced step's staged spans."""
+    import torch
+    from repro_torch.core import pgroup
+    pm, ma, device = mesh_setup(torch, shape)
+    cfg, opt, ts = _mesh_cell(torch, cell, ma, device)
+    pgroup.reset_staging()
+    with plain_calls() as plain, kept_recoveries() as kept:
+        run = train_phase(torch, cfg, opt, ts, tag=f"{cell} rank {rank}")
+    staging = pgroup.reset_staging()
+    kept = kept_host(kept)
+    prints = state_prints(torch, ts, run["state"])
+    spans = staged_spans(torch, ts, run["state"], run["stream"])
+    return {"rank": rank, "coords": dict(pm.coords), "backend": pm.backend,
+            "worker": pm.worker(), "losses": run["losses"], "times": run["times"],
+            "peak": run["peak"], "counts": run["counts"],
+            "plain": dict(plain), "prints": prints, "staging": staging,
+            "spans": spans, "d_local": ts.d_local, "kept": kept,
+            "buckets": list(ts.compressor.spec.sizes)}
+
+
+def mesh_ref(torch, ts, run: dict, kept: dict) -> dict:
+    """What a mesh phase holds its ranks to, from a simulated run of the
+    cell (``train_phase``'s, under ``kept_recoveries``): its losses, every
+    rank's and worker's fingerprints, the last step's kept recoveries of
+    every model rank, the compressor's parts."""
+    return {"losses": run["losses"],
+            "prints": state_prints(torch, ts, run["state"]),
+            "kept": kept_host(kept),
+            "parts": ts.compressor.parts}
+
+
+def kept_host(kept: dict) -> dict:
+    """What ``kept_recoveries`` kept (every recovery's summed sketch and
+    selected indices, in call order), on the host."""
+    return {k: [t.cpu() for t in v] for k, v in kept.items()}
+
+
+def selection_diffs(torch, got: dict, want: dict, nb: int, rank: int,
+                    tp: int) -> list:
+    """Each counted step's count of coordinates that one run selects and
+    the other does not, over its ``nb`` buckets: ``got`` a run's kept
+    recoveries of model rank ``rank`` (a process's: its buckets a step;
+    or a simulation's, ``rank`` < 0: every model rank's buckets a step),
+    ``want`` a simulation's of ``tp`` ranks."""
+    per = nb if rank >= 0 else tp * nb
+    steps = len(got["idx"]) // per
+    if len(want["idx"]) != steps * tp * nb:
+        fail(f"{len(got['idx'])} recoveries kept, the simulation "
+             f"{len(want['idx'])}")
+    out = []
+    for s in range(steps):
+        n = 0
+        for r in ([rank] if rank >= 0 else range(tp)):
+            for b in range(nb):
+                a = got["idx"][s * per + (0 if rank >= 0 else r * nb) + b]
+                w = want["idx"][(s * tp + r) * nb + b]
+                n += int((~torch.isin(a, w)).sum()
+                         + (~torch.isin(w, a)).sum())
+        out.append(n)
+    return out
+
+
+def spawn_ranks(torch, body, world, *args) -> tuple[list, float]:
+    """``body(rank, *args)`` in ``world`` processes sharing the card
+    (``launch.mesh.spawn``: gloo, each collective staged through pinned
+    host memory); the parent's cached blocks freed first. Returns the
+    ranks' results and the wall seconds."""
+    from repro_torch.launch.mesh import spawn, transport
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    log(f"[mesh] spawning {world} ranks on {torch.cuda.device_count()} "
+        f"card(s): transport {transport(world, world)}")
+    out = spawn(body, world, *args, device_type="cuda",
+                timeout_s=MESH_TIMEOUT_S)
+    return out, time.time() - t0
+
+
+def hold_mesh_run(torch, tag, results, ref: dict, recoveries,
+                  decode=True, exact=True) -> dict:
+    """Each rank of a mesh train phase against the one-process run ``ref``
+    (``mesh_ref``): its route's kernels ``recoveries`` times in each
+    process and no plain version called; every step's selections equal;
+    ``exact``: the losses and every tensor of the final state bit-equal;
+    else the first loss bit-equal, every loss within MESH_RTOL relative
+    and no sampled value of the final state beyond MESH_RTOL (relative
+    and absolute). Returns the launches summed over the processes."""
+    total: dict = {}
+    tp = max(r for r, _ in ref["prints"]) + 1
+    for res in results:
+        key = (res["coords"]["model"], res["worker"])
+        who = f"{tag} rank {res['rank']} {res['coords']}"
+        check_route(who, res["counts"], res["plain"], recoveries,
+                    decode=decode)
+        got, want = res["losses"], ref["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if (got != want if exact else got[0] != want[0] or rel > MESH_RTOL):
+            fail(f"{who}: losses {got} against {want} (rel {rel:.3e})")
+        sel = selection_diffs(torch, res["kept"], ref["kept"],
+                              len(res["buckets"]), key[0], tp)
+        if any(sel):
+            fail(f"{who}: coordinates selected in one run only, by step: "
+                 f"{sel}")
+        st = compare_prints(who, res["prints"][key], ref["prints"][key])
+        if (st["same"] != st["n"] if exact else st["beyond"]):
+            fail(f"{who}: final state {st['same']} of {st['n']} tensors "
+                 f"bit-equal, the others' samples max abs diff "
+                 f"{st['max_abs']:.3e}, {st['beyond']} of {st['sampled']} "
+                 f"beyond {MESH_RTOL}")
+        spans = " ".join(f"{k} {v[0] * 1e3:.2f} ms (staged "
+                         f"{v[1] * 1e3:.2f})"
+                         for k, v in sorted(res["spans"].items()))
+        sg = res["staging"]
+        log(f"[{tag}] rank {res['rank']} {res['coords']} ({res['backend']})"
+            f": losses {got} bit-equal: {got == want} (max rel {rel:.3e}); "
+            f"selections equal every step; final state: {st['same']} of "
+            f"{st['n']} tensors bit-equal, the others' samples max abs diff "
+            f"{st['max_abs']:.3e}, {st['beyond']} of {st['sampled']} beyond "
+            f"{MESH_RTOL}; step_s {[round(t, 4) for t in res['times']]}; "
+            f"peak {res['peak']} bytes ({res['peak'] / 2**30:.2f} GiB); host "
+            f"staging over the counted steps d2h {sg['d2h_s']:.4f} s, h2d "
+            f"{sg['h2d_s']:.4f} s, {sg['bytes']} bytes in {sg['copies']} "
+            f"copies; traced step: {spans}")
+        for k, v in res["counts"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def train_mesh_phase(torch, ref: dict) -> dict:
+    """The ``train`` cell on 2 processes (data = 2): losses, params, EF and
+    every step's selections bit-equal to ``train``'s (``ref``: its
+    losses, fingerprints, kept recoveries; every sum is two-way)."""
+    shape = (1, TRAIN_P, 1)
+    results, wall = spawn_ranks(torch, mesh_train_body, TRAIN_P,
+                                "train_mesh", shape)
+    counts = hold_mesh_run(torch, "train_mesh", results, ref,
+                           2 * TRAIN_STEPS)
+    log(f"[train_mesh] {TRAIN_P} processes, d {results[0]['d_local']} in "
+        f"buckets {results[0]['buckets']}; spawn to results {wall:.1f} s")
+    return {"counts": counts, "results": results}
+
+
+def train_mesh_tree_phase(torch, device) -> dict:
+    """minicpm-2b's cell on the Alg. 1 tree at P = 4 processes against the
+    simulated tree step from the same state and batches (run first here,
+    its fingerprints kept, freed before the spawn): selections equal, the
+    state within MESH_RTOL."""
+    p = ELASTIC_P
+    cfg, opt, ts, _, _ = minicpm_step(torch, device, p=p,
+                                      allreduce_mode="tree", record=False)
+    with kept_recoveries() as kept:
+        run = train_phase(torch, cfg, opt, ts, tag="train_mesh_tree sim")
+    ref = mesh_ref(torch, ts, run, kept)
+    del run, ts, kept
+    results, wall = spawn_ranks(torch, mesh_train_body, p,
+                                "train_mesh_tree", (1, p, 1))
+    counts = hold_mesh_run(torch, "train_mesh_tree", results, ref,
+                           2 * TRAIN_STEPS, decode=False, exact=False)
+    log(f"[train_mesh_tree] {p} processes on the tree; spawn to results "
+        f"{wall:.1f} s")
+    return {"counts": counts, "results": results}
+
+
+def _rank_grads(fn, ins, g) -> list:
+    """The gradients of ``fn(*ins)`` at ``g`` by autograd, each input a
+    fresh leaf of its layout: what a mesh process's backward of the same
+    call on the same inputs computes."""
+    import torch
+    ins = [t.detach().requires_grad_() for t in ins]
+    with torch.enable_grad():
+        y = fn(*ins)
+    return list(torch.autograd.grad(y, ins, g))
+
+
+def _per_rank_fn():
+    """An autograd Function that runs ``fn`` on each model rank's slice
+    of its inputs (``split(r, *xs)``) and joins the ranks' outputs
+    (``join``); its backward recomputes each rank's call under autograd
+    (``_rank_grads``) and joins each input's rank gradients
+    (``join_grads``). One node, as the call it replaces, so the
+    gradients outside it accumulate in the same order."""
+    import torch
+
+    class PerRank(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, spec, *xs):
+            fn, split, join, split_g, join_grads, tp = spec
+            ctx.spec, ctx.tp = spec, tp
+            ctx.save_for_backward(*xs)
+            return join([fn(*split(r, *xs)) for r in range(tp)])
+
+        @staticmethod
+        def backward(ctx, g):
+            fn, split, join, split_g, join_grads, tp = ctx.spec
+            xs = ctx.saved_tensors
+            per = [_rank_grads(fn, split(r, *xs), split_g(r, g))
+                   for r in range(tp)]
+            return (None,) + tuple(join_grads(i, [p[i] for p in per])
+                                   for i in range(len(xs)))
+
+    return PerRank
+
+
+class per_rank_kernels:
+    """While open, the calls of the model whose kernels see a simulated
+    step's rank dimension run one model rank at a time, each on its
+    rank's slice in a mesh process's layout, and so does their backward
+    (``_per_rank_fn``): ``lin`` of a rank-stacked weight (one batched
+    GEMM over the ranks), the attention over the ranks' folded heads,
+    and in ``rmsnorm`` the gain's product with the rank-stacked
+    activations (its gradient one reduction over every rank's rows; per
+    rank, the ranks' sums added, as the mesh's reduce-scatter adds
+    them). The arithmetic is the simulated step's, rounded as each
+    process rounds it."""
+
+    def __init__(self, tp: int):
+        self.tp = tp
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers, model as mdl
+        tp, PerRank = self.tp, _per_rank_fn()
+        lin, attn = layers.lin, layers.blockwise_attention
+
+        def cat(parts):
+            return torch.cat(parts)
+
+        def rows(r, *xs):
+            return tuple(x[r:r + 1] for x in xs)
+
+        def per_lin(x, w):
+            if w.ndim == 2:
+                return lin(x, w)
+            return PerRank.apply(
+                (lin, rows, cat, lambda r, g: g[r:r + 1],
+                 lambda i, gs: torch.cat(gs), tp), x, w)
+
+        def heads(t):    # (B, S, tp * H, hd) -> the ranks' (B, S, H, hd)
+            return t.reshape(t.shape[:2] + (tp, -1, t.shape[-1]))
+
+        def per_attn(q, k, v, **kw):
+            def split(r, *xs):
+                return tuple(heads(x)[:, :, r].contiguous() for x in xs)
+
+            def join(outs):   # the head-major layout attention returns
+                return torch.cat([o.permute(0, 2, 1, 3) for o in outs],
+                                 dim=1).permute(0, 2, 1, 3)
+            return PerRank.apply(
+                (lambda a, b, c: attn(a, b, c, **kw), split, join,
+                 lambda r, g: heads(g)[:, :, r], lambda i, gs: join(gs),
+                 tp), q, k, v)
+
+        def gain_mul(a, x):   # (1 + delta) * xf, x rank-stacked
+            if x.ndim < 4 or x.shape[0] != tp:
+                return a * x
+            return PerRank.apply(
+                (torch.mul, lambda r, a, x: (a, x[r:r + 1]), cat,
+                 lambda r, g: g[r:r + 1],
+                 lambda i, gs: gs[0] + gs[1] if i == 0 else torch.cat(gs),
+                 tp), a, x)
+
+        def per_norm(x, delta, eps):
+            xf = x.to(torch.float32)
+            rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+            return (gain_mul(1.0 + delta.to(torch.float32), xf)
+                    * rms).to(x.dtype)
+
+        if tp != 2:
+            raise ValueError("per_rank_kernels adds the ranks' gain "
+                             "gradients pairwise: tp = 2 only")
+        self.saved = [(layers, "lin", lin), (layers, "rmsnorm",
+                                             layers.rmsnorm),
+                      (mdl, "rmsnorm", mdl.rmsnorm),
+                      (layers, "blockwise_attention", attn)]
+        layers.lin, layers.rmsnorm, mdl.rmsnorm = per_lin, per_norm, per_norm
+        layers.blockwise_attention = per_attn
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, f in self.saved:
+            setattr(mod, name, f)
+
+
+def hold_witness(torch, wit: dict, ref: dict) -> dict:
+    """train_mesh_tp's witness (``per_rank_kernels``) against ``train_tp``
+    (``ref``): the same arithmetic rounded per rank, so the losses within
+    MESH_RTOL every step, each step's coordinates selected in one run only
+    at most WITNESS_SEL_FRAC of the coordinates selected, and the final
+    state of every model rank and worker at most WITNESS_STATE_FRAC of its
+    sampled values beyond MESH_RTOL and none beyond WITNESS_STATE_ATOL."""
+    got, want = wit["losses"], ref["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    tp = max(r for r, _ in ref["prints"]) + 1
+    n_sel = tp * sum(p.k for p in ref["parts"])
+    sel = selection_diffs(torch, wit["kept"], ref["kept"], len(ref["parts"]),
+                          -1, tp)
+    states = {key: compare_prints("train_mesh_tp witness", wit["prints"][key],
+                                  ref["prints"][key])
+              for key in ref["prints"]}
+    log(f"[train_mesh_tp] witness (per-rank kernels, one process) against "
+        f"train_tp: losses {got} / {want} (max rel {rel:.3e}); coordinates "
+        f"selected in one run only by step {sel} of {n_sel}; final state by "
+        f"(model rank, worker): " + "; ".join(
+            f"{k}: {v['same']} of {v['n']} bit-equal, max abs "
+            f"{v['max_abs']:.3e}, {v['beyond']} of {v['sampled']} beyond "
+            f"{MESH_RTOL}" for k, v in sorted(states.items())))
+    if rel > MESH_RTOL:
+        fail(f"train_mesh_tp witness: losses {got} against train_tp's "
+             f"{want} (rel {rel:.3e})")
+    if max(sel) > WITNESS_SEL_FRAC * n_sel:
+        fail(f"train_mesh_tp witness: {max(sel)} coordinates selected in "
+             f"one run only, beyond {WITNESS_SEL_FRAC} of {n_sel}")
+    for key, st in states.items():
+        if (st["beyond"] > WITNESS_STATE_FRAC * max(st["sampled"], 1)
+                or st["max_abs"] > WITNESS_STATE_ATOL):
+            fail(f"train_mesh_tp witness {key}: final state max abs diff "
+                 f"{st['max_abs']:.3e} (bound {WITNESS_STATE_ATOL}), "
+                 f"{st['beyond']} of {st['sampled']} samples beyond "
+                 f"{MESH_RTOL} (bound {WITNESS_STATE_FRAC})")
+    return {"rel": rel, "sel": sel, "n_sel": n_sel, "states": states}
+
+
+def train_mesh_tp_phase(torch, device, ref: dict) -> dict:
+    """The ``train_tp`` cell on 4 processes (tp = 2 x data = 2), held bit
+    for bit (losses, every step's selections, the final state) against
+    its witness: ``train_tp``'s simulated step in one process with the
+    rank-stacked kernels run one rank at a time (``per_rank_kernels``;
+    run first, freed before the spawn), which is held against
+    ``train_tp`` (``ref``) by ``hold_witness``."""
+    from repro_torch.configs.qwen3_4b import CONFIG
+    from repro_torch.core.gs_sgd import MeshAxes
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    opt, ts = sharded_step(torch, device, cfg, MeshAxes(tp=TP, data=TP_DATA))
+    with per_rank_kernels(TP), kept_recoveries() as kept:
+        run = train_phase(torch, cfg, opt, ts, tag="train_mesh_tp witness")
+    wit = mesh_ref(torch, ts, run, kept)
+    del run, ts, kept
+    witness = hold_witness(torch, wit, ref)
+    results, wall = spawn_ranks(torch, mesh_train_body, TP * TP_DATA,
+                                "train_mesh_tp", (1, TP_DATA, TP))
+    counts = hold_mesh_run(torch, "train_mesh_tp", results, wit,
+                           2 * TRAIN_STEPS)
+    log(f"[train_mesh_tp] {TP * TP_DATA} processes; spawn to results "
+        f"{wall:.1f} s")
+    return {"counts": counts, "results": results, "witness": witness}
+
+
+# parity_mesh: the CPU tests' smoke mesh runs (tests/test_torch_mesh.py),
+# each process on the card against the CPU port's simulated run.
+PARITY_MESH_CASES = {
+    8: (("dense (2, 2, 2) sgdm", "qwen3-4b", (2, 2, 2), "dp",
+         {"compressor_name": None},
+         {"name": "sgdm", "lr": 5e-2, "momentum": 0.9}),),
+    4: (("gs-SGD psum P = 4", "qwen3-4b", (1, 4, 1), "dp",
+         dict(compressor_name="gs-sgd", compressor_kw=TP_PARITY_KW,
+              buckets=2), None),
+        ("gs-SGD tree P = 4", "qwen3-4b", (1, 4, 1), "dp",
+         dict(compressor_name="gs-sgd", compressor_kw=dict(
+             TP_PARITY_KW, allreduce_mode="tree"), buckets=2), None),
+        ("fsdp pod = 2 x data = 2 gs-SGD", "yi-9b", (2, 2, 1), "fsdp",
+         dict(compressor_name="gs-sgd", compressor_kw=TP_PARITY_KW,
+              buckets=2), None)),
+}
+PARITY_SERVE_SHAPE = (1, 2, 2)   # serve at tp = 2 (both data workers serve)
+
+
+def _sim_axes(shape):
+    from repro_torch.core.gs_sgd import MeshAxes
+    pod, data, tp = shape
+    return MeshAxes(tp=tp, data=data, pod=pod, tp_axis="model",
+                    data_axis="data", pod_axis="pod")
+
+
+def _serve_smoke(torch, ma, dev, rank_of=None):
+    """qwen3-4b smoke at tp = 2 through ``make_serve_fns``: prefill of 2
+    prompts of 8 tokens, 2 decode steps; (logits, [ids]) of the held
+    ranks (``rank_of``: the process's model rank on a mesh)."""
+    from repro_torch.configs import SMOKES
+    from repro_torch.core.gs_sgd import make_serve_fns
+    from repro_torch.models import model as mdl
+    from repro_torch.models.common import init_params
+    from repro_torch.models.flatten import shard_segs
+    cfg = SMOKES["qwen3-4b"]
+    segs = shard_segs(cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                                       2), 2)[1]
+    if rank_of is not None:
+        segs = {k: v[rank_of:rank_of + 1] for k, v in segs.items()}
+    segs = {k: v.to(dev) for k, v in segs.items()}
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    feed = [torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+            for _ in range(2)]
+    pre, dec = make_serve_fns(cfg, ma, dtype=torch.float32)
+    cache = mdl.init_cache(cfg, 2, 16, torch.float32, device=dev,
+                           ctx=ma.ctx(torch.float32))
+    logits, cache = pre(segs, {"tokens": toks.to(dev)}, cache)
+    ids, kv = [], 8
+    for t in feed:
+        tok, cache = dec(segs, t.to(dev), kv, cache)
+        ids.append(tok.cpu())
+        kv += 1
+    return logits.cpu(), ids
+
+
+def parity_mesh_body(rank, world):
+    """A spawned rank of parity_mesh: every case of its world (3 steps
+    each, this process's losses and EF zero patterns, launches and plain
+    calls), and in the 4-process world the serve case."""
+    import torch
+    from repro_torch.configs import SMOKES
+    from repro_torch.kernels.dispatch import LAUNCHES
+    out = []
+    for label, arch, shape, mode, kw, opt_kw in PARITY_MESH_CASES[world]:
+        pm, ma, dev = mesh_setup(torch, shape)
+        ts, state, batch_at = sharded_cell(torch, SMOKES[arch], ma, mode,
+                                           kw, dev, opt_kw)
+        losses, sel = [], []
+        with plain_calls() as plain:
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            for s in range(3):
+                state, m = ts.fn(state, batch_at(s))
+                losses.append(float(m["loss"]))
+                sel.append({k: (v == 0).cpu() for k, v in state_rows(
+                    ts, state, 0, 0).items() if k.startswith("ef")})
+            torch.cuda.synchronize()
+        out.append({"label": label, "coords": dict(pm.coords),
+                    "worker": pm.worker(), "losses": losses, "sel": sel,
+                    "counts": dict(LAUNCHES), "plain": dict(plain)})
+    if world == 4:
+        from repro_torch.core import pgroup
+        pm, ma, dev = mesh_setup(torch, PARITY_SERVE_SHAPE)
+        logits, ids = _serve_smoke(torch, ma, dev, pm.coord("model"))
+        # the fp8 wire's payload crosses as its bytes
+        ax = pm.axis("model")
+        fp8 = pgroup.all_gather(torch.full((4,), rank + 0.5, device=dev)
+                                .to(torch.float8_e4m3fn), ax)
+        out.append({"label": "serve tp = 2", "coords": dict(pm.coords),
+                    "logits": logits, "ids": ids, "fp8": fp8.float().cpu(),
+                    "fp8_want": [r + 0.5 for r in ax.ranks]})
+    return out
+
+
+def parity_mesh_phase(torch) -> dict:
+    """The CPU tests' smoke mesh runs, each process on the card against
+    the CPU port's simulated run from the same params and batches: losses
+    within TP_PARITY_RTOL and the rank's and worker's selections equal;
+    serve at tp = 2: each rank's logits shard within SERVE_PARITY_ATOL,
+    its ids equal. Returns the launches summed over processes and
+    cases."""
+    from repro_torch.configs import SMOKES
+    total: dict = {}
+    for world, cases in PARITY_MESH_CASES.items():
+        results, wall = spawn_ranks(torch, parity_mesh_body, world, world)
+        for i, (label, arch, shape, mode, kw, opt_kw) in enumerate(cases):
+            ma = _sim_axes(shape)
+            ts, state, batch_at = sharded_cell(torch, SMOKES[arch], ma, mode,
+                                               kw, "cpu", opt_kw)
+            losses, sels = [], []
+            keys = [(r, w) for r in range(ma.tp) for w in range(ma.dp_size)]
+            for s in range(3):
+                state, m = ts.fn(state, batch_at(s))
+                losses.append(float(m["loss"]))
+                sels.append({key: {k: v == 0 for k, v in state_rows(
+                    ts, state, *key).items() if k.startswith("ef")}
+                    for key in keys})
+            dense = kw.get("compressor_name") is None
+            worst = 0.0
+            for res in (rr[i] for rr in results):
+                key = (res["coords"]["model"], res["worker"])
+                who = f"parity_mesh {label} rank {res['coords']}"
+                if not _close(losses, res["losses"], TP_PARITY_RTOL):
+                    fail(f"{who}: card losses {res['losses']}, CPU "
+                         f"{losses}")
+                worst = max(worst, max(abs(a - b) / abs(a) for a, b in
+                                       zip(losses, res["losses"])))
+                for s, (got, want) in enumerate(zip(res["sel"], sels)):
+                    for k, v in got.items():
+                        if not torch.equal(v, want[key][k]):
+                            fail(f"{who}: selected coordinates differ at "
+                                 f"step {s} {k}")
+                if res["plain"]:
+                    fail(f"{who}: plain versions called {res['plain']}")
+                if dense:
+                    if any(res["counts"].values()):
+                        fail(f"{who}: the dense run launched "
+                             f"{res['counts']}")
+                else:
+                    check_route(who, res["counts"], {}, 2 * 3, decode=False)
+                for k, v in res["counts"].items():
+                    total[k] = total.get(k, 0) + v
+            log(f"[parity_mesh] {label}: {world} processes, losses cpu "
+                f"{losses}, card within rtol {TP_PARITY_RTOL} (max "
+                f"{worst:.3e}); selections equal every step; spawn to "
+                f"results {wall:.1f} s")
+        if world == 4:
+            logits, ids = _serve_smoke(torch, _sim_axes(PARITY_SERVE_SHAPE),
+                                       "cpu")
+            for res in (rr[-1] for rr in results):
+                r = res["coords"]["model"]
+                err = float((res["logits"][0] - logits[r]).abs().max())
+                if err > SERVE_PARITY_ATOL:
+                    fail(f"parity_mesh serve rank {res['coords']}: logits "
+                         f"differ by {err}")
+                for a, b in zip(res["ids"], ids):
+                    if not torch.equal(a[0], b[r]):
+                        fail(f"parity_mesh serve rank {res['coords']}: ids "
+                             f"{a[0].tolist()} against {b[r].tolist()}")
+                want = torch.tensor(res["fp8_want"])[:, None].expand(-1, 4)
+                if not torch.equal(res["fp8"], want):
+                    fail(f"parity_mesh rank {res['coords']}: fp8 all-gather "
+                         f"{res['fp8'].tolist()}, not {want.tolist()}")
+                log(f"[parity_mesh] serve tp = 2 rank {res['coords']}: "
+                    f"logits within {err:.3e} (atol {SERVE_PARITY_ATOL}), "
+                    "ids equal; the fp8 all-gather over 'model' exact")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4515,10 +5235,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[kernels] phase took {time.time() - t0:.1f} s")
     t0 = time.time()
-    run = train_phase(torch, cfg, opt, ts)
+    with kept_recoveries() as kept:
+        run = train_phase(torch, cfg, opt, ts)
     state, stream, counts = run["state"], run["stream"], run["counts"]
     train_peak = run["peak"]
-    del run
+    train_ref = mesh_ref(torch, ts, run, kept)
+    del run, kept
     check_launches("train", counts, ("sketch_encode", "sketch_encode_finish",
                                      "sketch_decode", "topk_select"),
                    ("heavymix_scores", "heavymix_scores_ts", "ts_transpose",
@@ -4594,6 +5316,15 @@ def main() -> int:
     log(f"[train_fsdp] phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
+    mesh_run = train_mesh_phase(torch, train_ref)
+    log(f"[train_mesh] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    mesh_tree = train_mesh_tree_phase(torch, device)
+    log(f"[train_mesh_tree] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    mesh_tp = train_mesh_tp_phase(torch, device, tp_run["mesh_ref"])
+    log(f"[train_mesh_tp] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
     parity_counts = parity_phase(torch)
     parity_configs_phase(torch)
     log(f"[parity] phase took {time.time() - t0:.1f} s")
@@ -4606,6 +5337,9 @@ def main() -> int:
     t0 = time.time()
     parity_tp = parity_tp_phase(torch)
     log(f"[parity_tp] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    parity_mesh = parity_mesh_phase(torch)
+    log(f"[parity_mesh] phase took {time.time() - t0:.1f} s")
     t0 = time.time()
     cnn = train_cnn_phase(torch, device)
     log(f"[train_cnn] phase took {time.time() - t0:.1f} s")
@@ -4637,6 +5371,12 @@ def main() -> int:
         kr["launches_train_tp"] = tp_run["counts"].get(kr["name"], 0)
         kr["launches_train_fsdp"] = fsdp_run["counts"].get(kr["name"], 0)
         kr["launches_parity_tp"] = parity_tp.get(kr["name"], 0)
+        # the process mesh's phases: summed over their processes
+        kr["launches_train_mesh"] = mesh_run["counts"].get(kr["name"], 0)
+        kr["launches_train_mesh_tree"] = mesh_tree["counts"].get(
+            kr["name"], 0)
+        kr["launches_train_mesh_tp"] = mesh_tp["counts"].get(kr["name"], 0)
+        kr["launches_parity_mesh"] = parity_mesh.get(kr["name"], 0)
         kr["shard_shapes"] = (tp_run["shapes"].get(kr["name"], [])
                               + fsdp_run["shapes"].get(kr["name"], []))
         for model, run in cnn.items():
@@ -4689,5 +5429,70 @@ def main() -> int:
     return 0
 
 
+def main_mesh() -> int:
+    """``chip_smoke.py --mesh``: the process mesh's phases alone, each with
+    its one-process reference (train for train_mesh, the simulated tree
+    step, train_tp's three steps and the witness for train_mesh_tp) and
+    parity_mesh, held as in the whole run. A world that fits the visible
+    cards gives each rank its own card and NCCL (``launch.mesh``); on one
+    card every world shares it over gloo. Every phase runs: the failures
+    are printed at the end, and any exits non-zero."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch  # noqa: F401  (fails outside the repository)
+    from repro_torch.configs.qwen3_4b import CONFIG
+    from repro_torch.core.gs_sgd import MeshAxes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    t_start = time.time()
+    log(f"[card] {card_line()}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}")
+    build_phase(torch)
+    failures = []
+
+    def attempt(name, phase):
+        t0 = time.time()
+        try:
+            phase()
+        except SystemExit as e:
+            failures.append(str(e))
+            log(f"[{name}] {e}")
+        log(f"[{name}] phase took {time.time() - t0:.1f} s")
+
+    def ref_of(cfg, opt, ts, tag):
+        with kept_recoveries() as kept:
+            run = train_phase(torch, cfg, opt, ts, tag=tag)
+        ref = mesh_ref(torch, ts, run, kept)
+        del run, kept
+        return ref
+
+    train_ref = ref_of(*full_width_step(torch, device), "train")
+    torch.cuda.empty_cache()
+    attempt("train_mesh", lambda: train_mesh_phase(torch, train_ref))
+    attempt("train_mesh_tree", lambda: train_mesh_tree_phase(torch, device))
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    tp_ref = ref_of(cfg, *sharded_step(torch, device, cfg, MeshAxes(
+        tp=TP, data=TP_DATA)), "train_tp")
+    torch.cuda.empty_cache()
+    attempt("train_mesh_tp",
+            lambda: train_mesh_tp_phase(torch, device, tp_ref))
+    attempt("parity_mesh", lambda: parity_mesh_phase(torch))
+    log(f"[done] in {time.time() - t_start:.1f} s")
+    if failures:
+        print("\n".join(failures), file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_mesh() if sys.argv[1:] == ["--mesh"] else main())

@@ -12,17 +12,46 @@ workers are dim 0 of the tensor:
   ``src``). Each round runs under a ``tree/reduce{r}`` /
   ``tree/bcast{r}`` span of the ambient tracer (``obs.trace``), as the
   reference's rounds do.
+
+On a process mesh (``over(axis)``, a ``core.pgroup.Axis``) the leading
+axis holds only this process's worker and the same functions cross
+processes: ``psum_allreduce`` is one all-reduce over the group, and each
+round of ``masked_permute`` (so the tree and gTop-k's merge) is one
+``batch_isend_irecv`` of its (src, dst) pairs, the group's indices as
+the worker ids. The adds are the simulation's: a rank that receives
+nothing still adds ``where(mask, received, 0)``, so its -0.0 turns to
++0.0 as in the simulation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
 import numpy as np
 import torch
 
+from repro_torch.core import pgroup
 from repro_torch.obs import trace as obtrace
+
+_OVER: list[pgroup.Axis] = []
+
+
+@contextlib.contextmanager
+def over(axis: pgroup.Axis | None):
+    """Run this module's worker-axis collectives over the process group
+    ``axis`` while open (None: the simulated worker axis)."""
+    _OVER.append(axis)
+    try:
+        yield
+    finally:
+        _OVER.pop()
+
+
+def current_axis() -> pgroup.Axis | None:
+    """The process group the collectives run over, None when simulated."""
+    return _OVER[-1] if _OVER else None
 
 
 def reduce_schedule(p: int) -> list[list[tuple[int, int]]]:
@@ -73,8 +102,17 @@ def masked_permute(x: torch.Tensor, pairs: list[tuple[int, int]],
 
     ``received[dst] = x[src]``; rows that receive nothing real get a
     leftover row and are masked out by the caller. ``is_receiver`` is a
-    (P, 1, ...) bool mask broadcastable against ``x``.
+    (P, 1, ...) bool mask broadcastable against ``x``. On a process mesh
+    ``x`` is this worker's (1, ...) row and the pairs are sent.
     """
+    ax = current_axis()
+    if ax is not None:
+        if ax.size != p:
+            raise ValueError(f"permute over {p} workers on a group of "
+                             f"{ax.size} processes")
+        received, got = pgroup.permute(x, pairs, ax)
+        return received, torch.full((1,) * x.dim(), got, dtype=torch.bool,
+                                    device=x.device)
     src_of = [0] * p
     for s, d in _complete_perm(pairs, p):
         src_of[d] = s
@@ -111,7 +149,11 @@ def tree_allreduce_rounds(p: int) -> int:
 
 
 def psum_allreduce(x: torch.Tensor, p: int | None = None) -> torch.Tensor:
-    """Sum over the worker axis, broadcast back (a view, not P copies)."""
+    """Sum over the worker axis, broadcast back (a view, not P copies); on
+    a process mesh one all-reduce over the group."""
+    ax = current_axis()
+    if ax is not None:
+        return pgroup.all_reduce(x, ax)
     return x.sum(dim=0, keepdim=True).expand_as(x)
 
 

@@ -79,6 +79,19 @@ the backward is not scheduled on the sharded layouts). The tp = 1 'dp'
 step is the same step with one rank, one worker a group (its leaves
 views of the worker's params) and one exchange over all workers, whose
 EF is the compressor state itself.
+
+On a process mesh (``MeshAxes.mesh``, a ``core.pgroup.ProcessMesh``
+built by ``launch/mesh.py``) the same step runs with one model rank and
+one worker a process: every leading rank and worker dimension is 1 long
+and ``ma.tp``, ``ma.data``, ``ma.pod`` stay the global sizes. The
+collectives cross processes (``_mesh_gather_closures``: the gathers are
+all-gathers, their transpose a reduce-scatter, over ``model`` for the
+replicated segments in 'dp', over ``data`` (and ``model``) in 'fsdp');
+the exchange runs its compressor's collectives over the exchange axes
+(``('pod', 'data')`` in 'dp', ``'pod'`` in 'fsdp'; ``allreduce.over``);
+the global norm and the reported loss are all-reduces. The compressor
+still sees the global worker count. An elastic re-plan (another P) needs
+a new mesh: a step whose sizes differ from its mesh's raises.
 """
 
 from __future__ import annotations
@@ -92,6 +105,7 @@ import torch
 from repro_torch.api.spec import check_exchange_config
 from repro_torch.core import allreduce as ar
 from repro_torch.core import compression as comp
+from repro_torch.core import pgroup
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import model as mdl
 from repro_torch.models.common import ArchConfig, ShardCtx, init_params
@@ -105,7 +119,9 @@ from repro_torch.optim.optimizers import Optimizer
 
 @dataclasses.dataclass(frozen=True)
 class MeshAxes:
-    """Static description of the (simulated) mesh the step runs in."""
+    """Static description of the mesh the step runs in: simulated on one
+    process, or with ``mesh`` (a ``core.pgroup.ProcessMesh``,
+    ``launch.mesh.mesh_axes_of``) one rank and one worker a process."""
 
     tp: int
     data: int
@@ -113,6 +129,7 @@ class MeshAxes:
     tp_axis: str | None = "model"
     data_axis: str | None = "data"  # None -> single-worker path
     pod_axis: str | None = None
+    mesh: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def dp_axes(self) -> tuple[str, ...]:
@@ -124,9 +141,24 @@ class MeshAxes:
         return self.pod * self.data
 
     def ctx(self, dtype=torch.bfloat16, comm_dtype=None) -> ShardCtx:
+        model = (self.mesh.axis("model")
+                 if self.mesh is not None and self.tp > 1 else None)
         return ShardCtx(tp=self.tp, tp_axis=self.tp_axis,
                         dp_axes=self.dp_axes, dtype=dtype,
-                        comm_dtype=comm_dtype)
+                        comm_dtype=comm_dtype, model=model)
+
+    def check_mesh(self) -> None:
+        """On a process mesh: the sizes must be the mesh's (an elastic
+        re-plan's other worker count needs a mesh of its own)."""
+        if self.mesh is None:
+            return
+        want = {"model": self.tp, "data": self.data, "pod": self.pod}
+        got = {a: self.mesh.size(a) for a in want}
+        if want != got:
+            raise ValueError(
+                f"MeshAxes sizes {want} differ from the process mesh's "
+                f"{got}: an elastic re-plan (another worker count) on a "
+                "process mesh is not supported; build a new mesh")
 
 
 def _gather_closures(ma: MeshAxes, dp_mode: str):
@@ -170,6 +202,44 @@ def _gather_closures(ma: MeshAxes, dp_mode: str):
                 u = u if tp > 1 else u[None]
                 m = u.shape[-1] // n
                 out[k] = u.reshape(u.shape[:-1] + (n, m)).movedim(-2, 1)
+        return out
+
+    return gather, scatter
+
+
+def _mesh_gather_closures(ma: MeshAxes, dp_mode: str):
+    """``_gather_closures`` on a process mesh: the storage is this
+    process's (1, 1, *local); ``gather`` all-gathers each ``*_r`` segment
+    over ``model`` ('dp') or ``('data', 'model')`` ('fsdp', ``model``
+    innermost) and each ``*_s`` segment over ``data`` ('fsdp'), in the
+    simulation's concatenation orders; ``scatter`` reduce-scatters the
+    use layout's gradient over the same groups, which sums the ranks'
+    shares of a replicated leaf's gradient and, in 'fsdp', the pod's
+    workers' gradients (the simulation's one buffer)."""
+    pm = ma.mesh
+    fsdp = dp_mode == "fsdp"
+    rep = pm.axis(("data", "model") if fsdp else ("model",))
+    shard = pm.axis("data") if fsdp else pm.axis(())
+    ranked = ma.tp > 1
+
+    def gather(store: dict) -> dict:
+        out = {}
+        for k, v in store.items():
+            if k.endswith("_r"):
+                out[k] = pgroup.all_gather_cat(v[0, 0], rep)
+            else:
+                u = pgroup.all_gather_cat(v[0, 0], shard)
+                out[k] = u[None] if ranked else u
+        return out
+
+    def scatter(use: dict, n: int) -> dict:
+        out = {}
+        for k, u in use.items():
+            if k.endswith("_r"):
+                s = pgroup.reduce_scatter(u, rep)
+            else:
+                s = pgroup.reduce_scatter(u[0] if ranked else u, shard)
+            out[k] = s[None, None]
         return out
 
     return gather, scatter
@@ -252,7 +322,8 @@ def exchange_bucketed(bc: comp.BucketedCompressor, ef_state, g_flat, *,
 def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
                          ef_state, bwd_steps, top_grads, *,
                          nworkers: int, include=None,
-                         fuse_encode: bool = False):
+                         fuse_encode: bool = False,
+                         n_local: int | None = None):
     """Readiness-driven bucketed exchange interleaved with backward chunks.
 
     Port of ``repro/core/gs_sgd.py:exchange_interleaved``, on the worker
@@ -278,8 +349,11 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
     and converted once (``stage_encode_merge``). A bucket whose compressor cannot fuse (the TS
     encoder, a dense baseline) assembles its slices and encodes them at its
     event. Returns (upd_sum (P, d), ef_new, BucketedCommStats).
+    ``n_local``: the leading worker dim of the emitted slices when it is
+    not ``nworkers`` (1 on a process mesh).
     """
     parts, spec = bc.parts, bc.spec
+    n_local = n_local or nworkers
     n = spec.n
     by_event: dict[int, list[int]] = {}
     for i in plan.order:
@@ -314,12 +388,12 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
         """Emit event ``ev``'s gradient slices, (P, ...) each, at the
         plan's packed offsets."""
         for (off, m), g in zip(emits[ev], grads):
-            if g.numel() != nworkers * m:
+            if g.numel() != n_local * m:
                 raise ValueError(f"event {ev} emitted {tuple(g.shape)} at "
                                  f"offset {off}; the plan has {m} a worker")
             if not m:
                 continue
-            arr = g.reshape(nworkers, m)
+            arr = g.reshape(n_local, m)
             if keep_pieces:
                 pieces.append((off, arr))
             fuse_piece(off, arr)
@@ -470,6 +544,22 @@ class TrainStep:
         """tp > 1 or fsdp: state (tp, P, *local), module docstring."""
         return self.ma.tp > 1 or self.dp_mode == "fsdp"
 
+    def shard(self, gb: dict) -> dict:
+        """The global batch (B, ...) as the step takes it: (P, B/P, ...),
+        every worker's rows; on a process mesh (1, B/P, ...), this
+        process's worker's rows (the reference's batch sharding over the
+        dp axes; every model rank of a worker reads the same rows)."""
+        pm = self.ma.mesh
+        n = self.nworkers if pm is None else self.ma.dp_size
+        out = {}
+        for k, v in gb.items():
+            if v.shape[0] % n:
+                raise ValueError(f"global batch {v.shape[0]} is not "
+                                 f"divisible by {n} workers")
+            v = v.reshape((n, v.shape[0] // n) + v.shape[1:])
+            out[k] = v if pm is None else v[pm.worker():pm.worker() + 1]
+        return out
+
     def init_state(self, opt: Optimizer, generator: torch.Generator) -> dict:
         """Fresh state: params drawn from ``generator`` (the global model,
         cut into rank-stacked segments at tp > 1), as ``state_from``."""
@@ -489,14 +579,23 @@ class TrainStep:
         ``flatten.shard_segs`` at tp > 1. 'dp' replicates them to every
         worker, 'fsdp' gives each worker of each pod its shard; zero
         optimizer and EF state (``ef_dtype`` its storage dtype)."""
+        pm = self.ma.mesh
         if not self.sharded:
             return make_state(params, opt, self.compressor, self.d_local,
                               self.nworkers, ef_dtype)
         tp, P = self.ma.tp, self.nworkers
-        gather, scatter = _gather_closures(self.ma, self.dp_mode)
+        gather, scatter = _gather_closures(
+            dataclasses.replace(self.ma, mesh=None), self.dp_mode)
         one = {k: (v if tp > 1 else v[None])[:, None]
                for k, v in params.items()}
-        if self.dp_mode == "fsdp":
+        if pm is not None:   # this process's rank and data shard only
+            r, j = pm.coord("model"), pm.coord("data")
+            if self.dp_mode == "fsdp":
+                one = scatter(gather(one), self.ma.data)
+            else:
+                j = 0
+            store = {k: v[r:r + 1, j:j + 1].clone() for k, v in one.items()}
+        elif self.dp_mode == "fsdp":
             shards = scatter(gather(one), self.ma.data)
             store = {k: torch.cat([v] * (P // self.ma.data), dim=1)
                      for k, v in shards.items()}
@@ -582,6 +681,8 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
     device = resolve_device(device)
     if dp_mode not in ("dp", "fsdp"):
         raise ValueError(f"unknown dp_mode {dp_mode!r}")
+    ma.check_mesh()
+    pm = ma.mesh
     fs = fs or make_flat_spec(cfg, ma.tp)
     shapes = local_seg_shapes(fs, ma, dp_mode)
     d_local = sum(math.prod(s) for s in shapes.values())
@@ -619,9 +720,14 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         comp_axes = (ma.pod_axis,) if ma.pod_axis else ()
         comp_n = ma.pod
     nworkers = ma.dp_size if (comp_axes or sharded) else 1
+    if pm is not None:   # one rank and one worker a process
+        nworkers = 1
+    # the process group the exchange's collectives run over (a mesh's)
+    ex_axis = pm.axis(comp_axes) if pm is not None else None
     comp_groups: tuple = ()
     if sharded and comp_axes:
-        comp_groups = (tuple((r, slice(0, nworkers)) for r in range(ma.tp))
+        comp_groups = (((0, slice(0, 1)),) if pm is not None else
+                       tuple((r, slice(0, nworkers)) for r in range(ma.tp))
                        if dp_mode == "dp" else
                        tuple((r, slice(j, nworkers, ma.data))
                              for r in range(ma.tp) for j in range(ma.data)))
@@ -645,9 +751,12 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                   and all(hasattr(c, "stage_encode")
                           for c in compressor.parts))
 
-    gather, scatter = _gather_closures(ma, dp_mode)
+    gather, scatter = (_gather_closures(ma, dp_mode) if pm is None
+                       else _mesh_gather_closures(ma, dp_mode))
     ctx = ma.ctx(dtype)
-    n_group = ma.data if dp_mode == "fsdp" else 1   # workers a gather group
+    # workers a gather group in this process (a mesh gathers across them)
+    n_group = ma.data if dp_mode == "fsdp" and pm is None else 1
+    tp_lead = ma.tp if pm is None else 1            # the rank dim's length
     inv_tp = 1.0 / ma.tp
 
     def loss_and_grad(params: dict, batch: dict
@@ -661,7 +770,7 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         slice order, as the reference's scan; the sum is then scattered
         to the group's workers and divided by the slice count."""
         tp, P = ma.tp, nworkers
-        g_flat = torch.empty((tp, P, d_local), dtype=torch.float32,
+        g_flat = torch.empty((tp_lead, P, d_local), dtype=torch.float32,
                              device=device)
         losses = torch.empty((P,), dtype=torch.float32, device=device)
         b_loc = batch["tokens"].shape[1]
@@ -724,11 +833,13 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         (or, with no dp axis to exchange over, the gradient itself)."""
         kw = {} if include is None else {"include": include}
         if isinstance(compressor, comp.BucketedCompressor):
-            upd, ef_new, _ = exchange_bucketed(compressor, ef, g,
-                                               nworkers=comp_n,
-                                               overlap=overlap, **kw)
+            with ar.over(ex_axis):
+                upd, ef_new, _ = exchange_bucketed(compressor, ef, g,
+                                                   nworkers=comp_n,
+                                                   overlap=overlap, **kw)
             return upd, ef_new
-        with obtrace.current().span("exchange", cat="comm") as sp:
+        with obtrace.current().span("exchange", cat="comm") as sp, \
+                ar.over(ex_axis):
             if compressor is not None:
                 upd, ef_new, _ = compressor.step(ef, g, nworkers=comp_n,
                                                  **kw)
@@ -745,7 +856,11 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         fsdp, over the pod's data shards: the norm sums over both), the
         clip (in place), ``opt.apply``."""
         gsq = torch.sum(g_mean * g_mean, dim=-1).sum(0)          # (P,)
-        if dp_mode == "fsdp":
+        if pm is not None:   # the other ranks' (and data shards') squares
+            gsq = pgroup.all_reduce(gsq, pm.axis("model"))
+            if dp_mode == "fsdp":
+                gsq = pgroup.all_reduce(gsq, pm.axis("data"))
+        elif dp_mode == "fsdp":
             gsq = gsq.reshape(-1, ma.data).sum(-1, keepdim=True).expand(
                 -1, ma.data).reshape(nworkers)
         gnorm = torch.sqrt(gsq)
@@ -791,9 +906,11 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
             inc = None if include is None else include[sl]
             if interleave:
                 kw = {} if inc is None else {"include": inc}
-                upd, ef_g, _ = exchange_interleaved(
-                    compressor, plan, ef_g, bwd_steps, top_grads,
-                    nworkers=nworkers, fuse_encode=fuse_encode, **kw)
+                with ar.over(ex_axis):
+                    upd, ef_g, _ = exchange_interleaved(
+                        compressor, plan, ef_g, bwd_steps, top_grads,
+                        nworkers=comp_n, fuse_encode=fuse_encode,
+                        n_local=nworkers, **kw)
                 del bwd_steps, top_grads
             else:
                 upd, ef_g = exchange(ef_g, g[r, sl], inc)
@@ -815,7 +932,12 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
             sp.sync(new_params["top_s"])
         new_state = {"params": new_params, "opt": new_opt, "ef": ef_new,
                      "step": step + 1}
-        return new_state, {"loss": losses.mean(), "grad_norm": gnorm,
+        # the mean over every worker: on a mesh the dp group's losses,
+        # gathered in worker order
+        every = (losses if pm is None
+                 else pgroup.all_gather(losses, pm.axis(ma.dp_axes))
+                 .reshape(-1))
+        return new_state, {"loss": every.mean(), "grad_norm": gnorm,
                            "worker_loss": losses}
 
     return TrainStep(fn=train_step, fs=fs, ma=ma, dp_mode=dp_mode,
@@ -849,10 +971,15 @@ def make_serve_fns(cfg: ArchConfig, ma: MeshAxes, *, dp_mode: str = "dp",
     with every rank; its results and the cache are as ``models.model``
     describes for ``ctx``. ``comm_dtype=torch.float8_e4m3fn`` puts the
     activation reductions on the wire in fp8 (tp > 1 and a non-f32
-    ``dtype``; the identity otherwise, as in the reference)."""
+    ``dtype``; the identity otherwise, as in the reference). On a process
+    mesh ``params`` is this process's storage (its rank's, and in 'fsdp'
+    its data shard's: leading dims of 1), gathered over the mesh, and the
+    results are this rank's (the logits its vocab shard)."""
+    ma.check_mesh()
     fs = fs or make_flat_spec(cfg, ma.tp)
     ctx = ma.ctx(dtype, comm_dtype)
-    gather, _ = _gather_closures(ma, dp_mode)
+    gather, _ = (_gather_closures(ma, dp_mode) if ma.mesh is None
+                 else _mesh_gather_closures(ma, dp_mode))
     tp = ma.tp
 
     def use(params: dict) -> dict:

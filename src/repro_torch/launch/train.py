@@ -366,7 +366,7 @@ def drive(spec: RunSpec | None, ts, state: dict, batch_at, steps, *,
     replanned_at = None   # the step after a re-plan is tagged warmup
     t0 = time.time()
     for step in steps:
-        batch = shard_batch(batch_at(step), ts.nworkers)
+        batch = ts.shard(batch_at(step))
         if step == probe_at:
             probe = probe_step(tracer, ts, state, batch, step)
         warm = step == start or replanned_at == step - 1

@@ -17,6 +17,18 @@ back to every rank; its autograd transpose is the same operation, as
 ``jax.lax.psum``'s is. At tp = 1 nothing carries a rank dimension and
 every collective is the identity (the single-device path).
 
+On a process mesh (``ShardCtx.model``, the ``model`` group of a
+``core.pgroup.ProcessMesh``) each process holds one rank: the rank
+dimension is 1 long (``ShardCtx.lead``), the sharded leaves are this
+rank's, and the collectives cross processes. ``psum_tp`` is an
+all-reduce whose backward all-reduces the cotangent (the simulation's
+transpose), ``pmax_tp`` an all-reduce MAX with no gradient, and
+``rank_offsets`` this process's model coordinate times the step. A
+replicated leaf's gradient then holds this rank's share only; the train
+step sums the ranks' shares when it scatters the gradient
+(``core/gs_sgd.py``). ``tp`` stays the global degree that fixes the
+geometry.
+
 Leaf order: ``jax.tree_util.tree_flatten`` visits dict keys SORTED, and
 every ``FlatSpec`` offset follows that order. ``tree_leaves`` below walks
 nested dicts in the same sorted order, so both packages lay the flat
@@ -30,6 +42,8 @@ import math
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.core import pgroup
 
 
 def pad_to(x: int, m: int) -> int:
@@ -120,7 +134,8 @@ class ShardCtx:
     leading rank dimension of size tp (module docstring). ``comm_dtype``
     (None = the compute dtype) is the wire dtype of the activation
     reductions: ``torch.float8_e4m3fn`` puts them on the wire in fp8, as
-    the reference's serving option does.
+    the reference's serving option does. ``model``: the ``model``
+    group on a process mesh (None: the ranks are simulated).
     """
 
     tp: int = 1
@@ -128,10 +143,28 @@ class ShardCtx:
     dp_axes: tuple[str, ...] = ()    # data-parallel axes ('data'[, 'pod'])
     dtype: torch.dtype = torch.bfloat16
     comm_dtype: torch.dtype | None = None
+    model: pgroup.Axis | None = None
 
     @property
     def ranked(self) -> bool:
         return self.tp > 1
+
+    @property
+    def lead(self) -> int:
+        """Length of the rank dimension: tp when the ranks are simulated,
+        1 on a process mesh (and at tp = 1, where there is none)."""
+        return self.tp if self.ranked and self.model is None else 1
+
+    def ranks(self) -> range:
+        """The model ranks this process holds, in rank-dimension order."""
+        if self.model is None:
+            return range(self.tp)
+        return range(self.model.index, self.model.index + 1)
+
+    def held(self, n: int) -> int:
+        """The part of ``n`` globally sharded items (heads, channels) the
+        held ranks cover: all of them when simulated, 1/tp on a mesh."""
+        return n * self.lead // self.tp if self.ranked else n
 
     def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks, every rank receiving the sum. With an fp8
@@ -148,8 +181,13 @@ class ShardCtx:
                                .detach(), min=1e-12)
             scale = 448.0 / amax
             y8 = (xf * scale).to(self.comm_dtype)
+            if self.model is not None:   # every rank's payload and scale
+                y8 = pgroup.all_gather(y8, self.model)[:, 0]
+                scale = pgroup.all_gather(scale, self.model)[:, 0]
             y = torch.sum(y8.to(torch.float32) / scale, dim=0, keepdim=True)
             return y.to(x.dtype).expand_as(x)
+        if self.model is not None:
+            return _PsumTP.apply(x, self.model)
         return x.sum(0, keepdim=True).expand_as(x)
 
     def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
@@ -157,6 +195,8 @@ class ShardCtx:
         the reference's pmax has no differentiation rule)."""
         if not self.ranked:
             return x
+        if self.model is not None:
+            return pgroup.all_reduce(x.detach(), self.model, "max")
         return x.amax(0, keepdim=True).expand_as(x)
 
     def rank_offsets(self, step: int, ndim: int,
@@ -165,6 +205,9 @@ class ShardCtx:
         dims (0 at tp = 1): each rank's offset into a sharded axis."""
         if not self.ranked:
             return 0
+        if self.model is not None:
+            return torch.full((1,) * ndim, self.model.index * step,
+                              dtype=torch.int64, device=device)
         return (torch.arange(self.tp, device=device) * step).reshape(
             (self.tp,) + (1,) * (ndim - 1))
 
@@ -181,8 +224,22 @@ class ShardCtx:
         if not self.ranked:
             return t
         B, S, H = t.shape[:3]
-        return t.reshape((B, S, self.tp, H // self.tp)
+        return t.reshape((B, S, self.lead, H // self.lead)
                          + t.shape[3:]).movedim(2, 0)
+
+
+class _PsumTP(torch.autograd.Function):
+    """``psum`` over the ``model`` group of a process mesh; its transpose
+    all-reduces the cotangent, as the simulated sum's does."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return pgroup.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pgroup.all_reduce(g, ctx.axis), None
 
 
 # ---------------------------------------------------------------------------
@@ -422,3 +479,22 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, tp: int = 1,
                             device=device).mul_(s.scale)
         vals.append((path, v))
     return tree_from_paths(vals)
+
+
+def abstract_params(cfg: ArchConfig, mesh=None, tp: int = 1) -> dict:
+    """Stand-ins for one process's parameters: a ``meta`` tensor of each
+    leaf's LOCAL shape at ``tp`` (no allocation), the reference's
+    ``ShapeDtypeStruct`` tree. ``mesh`` (a ``core.pgroup.ProcessMesh`` or
+    None) must then have ``tp`` ranks on its ``model`` axis."""
+    if mesh is not None and mesh.size("model") != tp:
+        raise ValueError(f"tp {tp} is not the mesh's model axis "
+                         f"{mesh.size('model')}")
+    return tree_map(lambda s: torch.empty(s.local_shape(tp), dtype=s.dtype,
+                                          device="meta"),
+                    param_specs(cfg, tp))
+
+
+def pspec_tree(cfg: ArchConfig, tp: int = 1) -> dict:
+    """Each leaf's partition (its ``Spec.pspec``, the reference's
+    PartitionSpec contents)."""
+    return tree_map(lambda s: tuple(s.pspec), param_specs(cfg, tp))

@@ -112,7 +112,7 @@ def _kv_slice(w: torch.Tensor, hd: int, cfg: ArchConfig,
     g = head_geometry(cfg, ctx.tp)
     if not g.kv_replicated:
         return w
-    heads = [r * g.nkv // ctx.tp for r in range(ctx.tp)]
+    heads = [r * g.nkv // ctx.tp for r in ctx.ranks()]
     return torch.stack([w[:, h * hd:(h + 1) * hd] for h in heads])
 
 
@@ -251,7 +251,7 @@ def attention_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     if cross_kv is not None:
         kv_src = rmsnorm(cross_kv.to(h.dtype), p["kv_norm"], cfg.norm_eps)
         if ctx is not None and ctx.ranked:
-            kv_src = kv_src.expand((ctx.tp,) + kv_src.shape)
+            kv_src = kv_src.expand((ctx.lead,) + kv_src.shape)
     T = kv_src.shape[-2]
     wk = _kv_slice(p["wk"], hd, cfg, ctx).to(h.dtype)
     wv = _kv_slice(p["wv"], hd, cfg, ctx).to(h.dtype)
@@ -346,8 +346,8 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
     v_loc = table.shape[1]
     local = ids - ctx.rank_offsets(v_loc, ids.ndim + 1, ids.device)
     ok = (local >= 0) & (local < v_loc)
-    ranks = torch.arange(ctx.tp, device=ids.device).reshape(
-        (ctx.tp,) + (1,) * ids.ndim)
+    ranks = torch.arange(ctx.lead, device=ids.device).reshape(
+        (ctx.lead,) + (1,) * ids.ndim)
     emb = table[ranks, torch.clamp(local, 0, v_loc - 1)]
     emb = torch.where(ok[..., None], emb, 0.0)
     return ctx.psum_tp(emb).to(dtype)

@@ -121,7 +121,9 @@ def mamba_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     state)``."""
     B, S, d = x.shape[-3:]
     tp = ctx.tp if ctx is not None else 1
+    nr = ctx.lead if ctx is not None else 1   # ranks held (rank dimension)
     nh, hd, ns = mamba_geometry(cfg, tp)
+    nh = ctx.held(nh) if ctx is not None else nh   # the held ranks' heads
     lead = x.shape[:-1]
     fold = ctx.fold_heads if ctx is not None else (lambda t: t)
 
@@ -129,8 +131,8 @@ def mamba_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     xz = lin(h, p["wx"].to(h.dtype))                 # (.., B,S,dh)
     z = lin(h, p["wz"].to(h.dtype))
     prev_conv = state["conv"] if state is not None else None
-    if prev_conv is not None and tp > 1:   # global channels -> each rank's
-        prev_conv = prev_conv.reshape(B, _CONV_W - 1, tp, -1).movedim(2, 0)
+    if prev_conv is not None and tp > 1:   # held channels -> each rank's
+        prev_conv = prev_conv.reshape(B, _CONV_W - 1, nr, -1).movedim(2, 0)
     xc = F.silu(_causal_conv(xz, p["conv"], prev_conv))
 
     b = lin(h, p["wB"].to(h.dtype)).reshape(lead + (-1, ns))
@@ -168,10 +170,13 @@ def mamba_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 def init_mamba_state(cfg: ArchConfig, batch: int,
                      dtype: torch.dtype = torch.bfloat16,
-                     device: str | torch.device = "cpu", tp: int = 1) -> dict:
+                     device: str | torch.device = "cpu", tp: int = 1,
+                     ranks: int | None = None) -> dict:
     """Zeroed recurrent state of one Mamba2 block for ``batch`` rows (every
-    rank's heads and channels, in global order, at ``tp``)."""
+    rank's heads and channels, in global order, at ``tp``; with ``ranks``
+    those of that many ranks, as a process of a mesh holds one)."""
     nh, hd, ns = mamba_geometry(cfg, tp)
+    nh = nh * (ranks or tp) // tp
     return {"h": torch.zeros((batch, nh, ns, hd), dtype=torch.float32,
                              device=device),
             "conv": torch.zeros((batch, _CONV_W - 1, nh * hd), dtype=dtype,

@@ -426,11 +426,13 @@ def init_cache(cfg: ArchConfig, b_loc: int, t_cache: int,
     cross blocks none. ``device="meta"`` gives shapes and dtypes with no
     allocation (``cache_shapes``). At tp > 1 (``ctx``) Hkv is every
     rank's KV heads side by side (tp x the heads a rank stores, one each
-    for replicated KV), and the states hold every rank's heads."""
+    for replicated KV), and the states hold every rank's heads; on a
+    process mesh (``ctx.model``) this process's rank's only."""
     n = cfg.n_cycles
     tp = ctx.tp if ctx is not None else 1
+    nr = ctx.lead if ctx is not None else 1   # ranks held: tp, or 1 a process
     g = head_geometry(cfg, tp)
-    nkv = tp * (1 if g.kv_replicated else g.nkv_loc)
+    nkv = nr * (1 if g.kv_replicated else g.nkv_loc)
 
     def stack(cnt, leaf):
         return torch.zeros((n, cnt) + tuple(leaf.shape), dtype=leaf.dtype,
@@ -446,10 +448,12 @@ def init_cache(cfg: ArchConfig, b_loc: int, t_cache: int,
         if kind in ("attn", "moe"):
             cache[kind] = kv(cnt)
         elif kind == "rwkv":
-            st = rk.init_rwkv_state(cfg, b_loc, device="meta", tp=tp)
+            st = rk.init_rwkv_state(cfg, b_loc, device="meta", tp=tp,
+                                    ranks=nr)
             cache[kind] = tree_map(lambda a: stack(cnt, a), st)
         elif kind == "mamba":
-            st = mb.init_mamba_state(cfg, b_loc, dtype, device="meta", tp=tp)
+            st = mb.init_mamba_state(cfg, b_loc, dtype, device="meta", tp=tp,
+                                     ranks=nr)
             cache[kind] = tree_map(lambda a: stack(cnt, a), st)
         # 'cross': no cache
     if "shared_attn" in cfg.cycle:

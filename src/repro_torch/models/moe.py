@@ -81,6 +81,7 @@ def moe_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     """Pre-norm MoE FFN. x: (B, S, d) -> (residual output, aux loss); at
     tp > 1 rank-stacked, (tp, B, S, d) -> (.., (tp,) aux)."""
     tp = ctx.tp if ctx is not None else 1
+    nr = ctx.lead if ctx is not None else 1   # ranks held (rank dimension)
     ne = padded_experts(cfg, tp)
     ne_loc = ne // tp
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
@@ -113,13 +114,13 @@ def moe_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
             e_j = eidx[..., j]
             keeps[j] = keeps[j] & (e_j >= e0) & (e_j < e0 + ne_loc)
             dests[j] = (torch.where(keeps[j], dests[j] - e0 * C, ne_loc * C)
-                        + torch.arange(tp, device=x.device)[:, None] * rows)
-        buf = torch.zeros((tp * rows, d), dtype=ht.dtype, device=x.device)
+                        + torch.arange(nr, device=x.device)[:, None] * rows)
+        buf = torch.zeros((nr * rows, d), dtype=ht.dtype, device=x.device)
         for dest, keep in zip(dests, keeps):
             buf = buf.index_add(0, dest.reshape(-1),
                                 (ht * keep[..., None].to(ht.dtype))
                                 .reshape(-1, d))
-        eb = buf.reshape(tp, rows, d)[:, :-1].reshape(tp, ne_loc, C, d)
+        eb = buf.reshape(nr, rows, d)[:, :-1].reshape(nr, ne_loc, C, d)
         eq = ("recd,redf->recf", "recf,refd->recd")
     else:
         buf = torch.zeros((ne * C + 1, d), dtype=ht.dtype, device=x.device)
@@ -136,7 +137,7 @@ def moe_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
                     torch.zeros(lead + (1, d), dtype=ht.dtype,
                                 device=x.device)], dim=-2)
     if lead:   # every rank's rows of one flat table, as ``dests`` index it
-        eo = eo.reshape(tp * (ne_loc * C + 1), d)
+        eo = eo.reshape(nr * (ne_loc * C + 1), d)
 
     y = torch.zeros(lead + (T, d), dtype=ht.dtype, device=x.device)
     for j, (dest, keep) in enumerate(zip(dests, keeps)):

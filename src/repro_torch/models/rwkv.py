@@ -136,6 +136,7 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     B, S, d = x.shape[-3:]
     tp = ctx.tp if ctx is not None else 1
     nh, hd = rwkv_geometry(cfg, tp)
+    nh = ctx.held(nh) if ctx is not None else nh   # the held ranks' heads
     lead = x.shape[:-1]
     fold = ctx.fold_heads if ctx is not None else (lambda t: t)
 
@@ -184,10 +185,13 @@ def rwkv_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int,
-                    device: str | torch.device = "cpu", tp: int = 1) -> dict:
+                    device: str | torch.device = "cpu", tp: int = 1,
+                    ranks: int | None = None) -> dict:
     """Zeroed recurrent state of one RWKV6 block for ``batch`` rows (every
-    rank's heads, in global order, at ``tp``)."""
+    rank's heads, in global order, at ``tp``; with ``ranks`` those of
+    that many ranks, as a process of a mesh holds one)."""
     nh, hd = rwkv_geometry(cfg, tp)
+    nh = nh * (ranks or tp) // tp
     f32 = torch.float32
     return {"s": torch.zeros((batch, nh, hd, hd), dtype=f32, device=device),
             "tm_prev": torch.zeros((batch, cfg.d_model), dtype=f32,

@@ -20,7 +20,7 @@ Application is the spec layer's single path:
 * ``plan.spec.sim_config()`` + ``plan.spec.cluster.network()`` carry the
   tuned exchange, the env's topology/link regime, AND any calibrated
   alpha/beta (which a preset name alone would silently lose) to the
-  simulator (whose event-loop launcher is not ported yet).
+  simulator (``sim/cluster.simulate``, driven by ``launch/simulate.py``).
 
 Schema v2 (``repro.tune/plan@2``). v1 documents — which stored a tuner
 ``Env`` instead of a spec — still load through a shim, so pre-redesign

@@ -1067,3 +1067,60 @@ def test_sharded_smoke_steps_card_match_cpu(card, layout):
     for name in ("sketch_encode", "sketch_encode_finish", "heavymix_scores",
                  "topk_select"):
         assert counts.get(name, 0) == ma.tp * ma.dp_size * 2 * 2, name
+
+
+def test_mesh_smoke_step_card_bit_equal_to_simulation(card):
+    """Two processes share the card (gloo: every collective staged through
+    pinned host memory), qwen3-4b smoke, gs-SGD psum at P = 2, buckets 2,
+    three steps: losses, params and EF bit-equal to the simulated P = 2
+    step on the card (every sum is two-way; each process runs its
+    worker's kernels at the simulation's shapes), the encode, its finish,
+    the scores kernel and the select launched by each process."""
+    import os
+    import sys
+
+    import numpy as np
+
+    from repro_torch.configs import SMOKES
+    from repro_torch.core.gs_sgd import MeshAxes
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.flatten import init_flat_params
+    # the rank bodies' module by its own name (the spawned ranks import it
+    # so; a site package named ``tests`` may shadow this directory)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_mesh_ranks import build_step, run_cases, run_steps, train_params
+    build.build_all(["sketch_encode", "heavymix_scores", "sketch_decode",
+                     "topk_select"])
+    cfg = SMOKES["qwen3-4b"]
+    rng = np.random.default_rng(3)
+    toks = [rng.integers(0, cfg.vocab_size, (4, 16)) for _ in range(3)]
+    case = dict(kind="train", shape=(1, 2, 1), axes=("pod", "data", "model"),
+                arch="qwen3-4b", opt=("adamw", dict(lr=2e-3)),
+                kw=dict(compressor_kw=dict(k=2048, rows=5, width=4096),
+                        buckets=2), device="cuda",
+                batches=[{"tokens": t, "labels": t} for t in toks])
+    ma = MeshAxes(tp=1, data=2, pod=1, tp_axis="model", data_axis="data",
+                  pod_axis="pod")
+    opt, ts = build_step(case, ma)
+    case["params"] = {k: v.numpy() for k, v in init_flat_params(
+        cfg, torch.Generator().manual_seed(0), 1, ts.fs).items()}
+    _, sim = run_steps(ts, ts.state_from(train_params(case, ts, ma), opt),
+                       case["batches"])
+    torch.cuda.empty_cache()
+    res = spawn(run_cases, 2, [case], device_type="cuda", timeout_s=300)
+    for (out,) in res:
+        w = out["worker"]
+        assert out["backend"] == "gloo"
+        assert out["loss"] == sim["loss"]
+        for k, v in out["params"].items():
+            assert torch.equal(v[0].view(torch.int32),
+                               sim["params"][k][w].view(torch.int32)), k
+        for me, se in zip(out["ef"], sim["ef"]):
+            for x, y in zip(me, se):
+                assert torch.equal(x[0].view(torch.int32),
+                                   y[w].view(torch.int32))
+        for name in ("sketch_encode", "sketch_encode_finish",
+                     "heavymix_scores", "topk_select"):
+            assert out["launches"].get(name, 0) == 2 * 3, (name,
+                                                           out["launches"])
