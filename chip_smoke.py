@@ -210,9 +210,12 @@ Phases (any failure exits non-zero and prints no result line):
                 on the Alg. 1 tree at P = 4 processes, against the
                 simulated tree step from the same state and batches (run
                 first in the parent, freed before the spawn); the scores
-                route (with the filler) 6 times a process. Selections
-                equal every step, the first loss bit-equal, the others and
-                every sampled value of the final state within MESH_RTOL.
+                route (with the filler) 6 times a process. Held bit for
+                bit, as train_mesh: losses, every step's selections and
+                the final state's fingerprints (the second round's 4-way
+                sum is an ordered all-reduce, ``core.pgroup``, in the
+                simulation's worker order; the clip's norm adds each
+                worker's row as a process does).
 6j. train_mesh_tp — the train_tp cell on 4 processes (tp = 2 x data = 2).
                 Its witness runs first in the parent: train_tp's
                 simulated step with the rank-stacked GEMMs, attention and
@@ -340,16 +343,48 @@ Phases (any failure exits non-zero and prints no result line):
                 rounding bound, the agreement printed, and at the
                 reference test's smoke cell at least FP8_AGREEMENT.
 
+12. dryrun_train, dryrun_fsdp, dryrun_serve — ``launch.dryrun.run_cell``
+                on the card (DRYRUN_CELLS): one rank of the production
+                mesh on a fake world, at its local shapes. dryrun_train:
+                qwen3-4b x train_4k x single (one rank of 256: tp 16, all
+                36 layers, seq 4,096, b_loc 16 in slices of 4, k 65,536,
+                R 5, W 2^17, bf16, remat); dryrun_fsdp: yi-9b x train_4k x
+                multi (512 ranks, gs-SGD over the pod axis); dryrun_serve:
+                qwen3-4b x prefill_32k and x decode_32k x single. Each
+                cell's record (launch/dryrun.py's JSON) on one line; held:
+                a peak above the arguments, FLOPs, a train cell's measured
+                step launching the encode, its finish, the decode and the
+                select once each and no plain version, its exchange's
+                all-reduces the summed sketch and the k values; a serve
+                cell no sketch kernel; every cell's float outputs finite
+                (``outputs_finite``). dryrun_train's encode input (the
+                warm-up step's u) then runs the route's kernels against
+                plain at the cell's shapes, timed (``dryrun_shapes``).
+13. long_context — torch's sum over a leading dim against the left fold
+                the simulated sums now use (printed); at qwen3-4b's
+                widths and seq 4,096: the chunked
+                attention (4 KV chunks) against the one-pass (one chunk of
+                4,096) in f32 within LONG_ATTN_ATOL; the loss and every
+                segment gradient of LONG_LAYERS cycles with the remat on
+                and off bit-equal, each one's peak; the train cell with
+                the remat off (train_noremat) against train (on, the
+                default): losses bit-equal, step seconds and peaks.
+
 Every path that launches kernels (train, train_traced, train_watched,
 train_ts, train_interleave, train_minicpm, train_elastic, train_moe,
 train_hybrid and its interleave, train_tp, train_fsdp, train_mesh,
 train_mesh_tree, train_mesh_tp, parity, parity_elastic, parity_families,
-parity_tp, parity_mesh, train_cnn) runs with every
+parity_tp, parity_mesh, train_cnn, dryrun_train, dryrun_fsdp,
+train_noremat) runs with every
 launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts (a
 mesh phase's summed over its processes, each zeroed in its process). The
 serve phases run no kernel of the sketch path: their counts, summed
-(``launches_serve``; ``launches_serve_tp`` for serve_tp), must be 0. The
+(``launches_serve``; ``launches_serve_tp`` for serve_tp,
+``launches_dryrun_serve``, ``launches_long_context``), must be 0. The
+dry-run's counts are its measured step's (``launches_dryrun_train``,
+``launches_dryrun_fsdp``), the kernels at its shapes under
+``dryrun_shapes``. The
 kernels at the sharded cells' bucket shapes are under ``shard_shapes``.
 The
 select's slab-overflow counter is zeroed before each path too and read
@@ -560,12 +595,14 @@ def main_exchange():
 
 
 def full_width_step(torch, device, buckets=2, bwd_chunks=None,
-                    fuse_encode=False, exchange=None, cfg=None, ma=None):
+                    fuse_encode=False, exchange=None, cfg=None, ma=None,
+                    remat=True):
     """The main path's train step (no state allocated yet); with other
     ``buckets`` / ``bwd_chunks`` / ``fuse_encode``, or a whole ``exchange``
     spec (a re-plan's), the same cell with that exchange schedule; with
     ``cfg``, that arch's cell under the same exchange, P, optimizer and
-    lr; with ``ma`` (a process mesh's), on that mesh."""
+    lr; with ``ma`` (a process mesh's), on that mesh; ``remat``: the
+    model's cycle remat (on, the default, or off)."""
     from repro_torch.configs.qwen3_4b import CONFIG
     from repro_torch.core.gs_sgd import MeshAxes, make_train_step
     from repro_torch.optim import make as make_opt
@@ -576,7 +613,7 @@ def full_width_step(torch, device, buckets=2, bwd_chunks=None,
         fuse_encode=fuse_encode)
     ma = ma or MeshAxes(tp=1, data=TRAIN_P, tp_axis=None)
     ts = make_train_step(cfg, ma, opt, spec=spec, dtype=torch.float32,
-                         device=device)
+                         device=device, remat=remat)
     return cfg, opt, ts
 
 
@@ -4549,10 +4586,8 @@ def serve_tp_phase(torch, device) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_AXES = ("pod", "data", "model")
-MESH_RTOL = 1e-6   # train_mesh_tree against its simulated run, where
-#                    the second round's psum of 4 workers and the clip's
-#                    norm add in another order (PERF.md): the losses every
-#                    step and every sampled value of the final state within
+MESH_RTOL = 1e-6   # train_mesh_tp's witness against train_tp: the
+#                    losses every step and the sampled state values within
 #                    this relative bound (plus this absolute one)
 # train_mesh_tp's witness (the train_tp cell with the rank-stacked kernels
 # run one rank at a time, bit-equal to the mesh) against train_tp, whose
@@ -4839,8 +4874,8 @@ def train_mesh_phase(torch, ref: dict) -> dict:
 def train_mesh_tree_phase(torch, device) -> dict:
     """minicpm-2b's cell on the Alg. 1 tree at P = 4 processes against the
     simulated tree step from the same state and batches (run first here,
-    its fingerprints kept, freed before the spawn): selections equal, the
-    state within MESH_RTOL."""
+    its fingerprints kept, freed before the spawn): bit for bit (losses,
+    selections, the final state)."""
     p = ELASTIC_P
     cfg, opt, ts, _, _ = minicpm_step(torch, device, p=p,
                                       allreduce_mode="tree", record=False)
@@ -4851,7 +4886,7 @@ def train_mesh_tree_phase(torch, device) -> dict:
     results, wall = spawn_ranks(torch, mesh_train_body, p,
                                 "train_mesh_tree", (1, p, 1))
     counts = hold_mesh_run(torch, "train_mesh_tree", results, ref,
-                           2 * TRAIN_STEPS, decode=False, exact=False)
+                           2 * TRAIN_STEPS, decode=False)
     log(f"[train_mesh_tree] {p} processes on the tree; spawn to results "
         f"{wall:.1f} s")
     return {"counts": counts, "results": results}
@@ -5212,6 +5247,205 @@ def parity_mesh_phase(torch) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The dry-run at a production rank's shapes, and the long context
+# ---------------------------------------------------------------------------
+
+# (phase, arch, shape, mesh): one rank of the 256-rank ('single') or
+# 512-rank ('multi') production mesh (launch/dryrun.py)
+DRYRUN_CELLS = (("dryrun_train", "qwen3-4b", "train_4k", "single"),
+                ("dryrun_fsdp", "yi-9b", "train_4k", "multi"),
+                ("dryrun_serve", "qwen3-4b", "prefill_32k", "single"),
+                ("dryrun_serve", "qwen3-4b", "decode_32k", "single"))
+# The exchange's group of a train cell: the dp axes in 'dp', the pod in
+# 'fsdp' (core/gs_sgd.py)
+DRYRUN_EXCHANGE = {("dp", "single"): "data", ("dp", "multi"): "pod+data",
+                   ("fsdp", "multi"): "pod"}
+LONG_SEQ = 4_096
+LONG_LAYERS = 4         # the remat's two groups of two cycles
+LONG_ATTN_ATOL = 1e-6   # the chunked attention (4 KV chunks) against the
+#                         one-pass (one chunk) in f32 at S = T = LONG_SEQ,
+#                         stated before the first reading (the reference
+#                         measured 2.9e-7 at S = T = 2,304)
+
+
+class last_encode:
+    """While open, ``GsSGD.stage_encode`` also keeps, from its first call
+    only, a host copy of worker 0's packed vector u (the encode's input)
+    and of the f32 sketch the step made of it, and the compressor: a
+    dry-run's warm-up step, so the measured step's memory and time are
+    untouched. Returns the dict {"part", "u", "sk"}."""
+
+    def __enter__(self):
+        from repro_torch.core import compression as comp
+        self.cls, got = comp.GsSGD, {}
+        self.saved = self.cls.stage_encode
+
+        def kept(part, *a, **kw):
+            u, sk = self.saved(part, *a, **kw)
+            if not got:
+                got.update(part=part, u=u[0].cpu(), sk=sk[0].float().cpu())
+            return u, sk
+
+        self.cls.stage_encode = kept
+        return got
+
+    def __exit__(self, *exc):
+        self.cls.stage_encode = self.saved
+
+
+def dryrun_phases(torch) -> dict:
+    """dryrun_train, dryrun_fsdp, dryrun_serve (DRYRUN_CELLS): each cell
+    through ``launch.dryrun.run_cell`` on the card (its JSON under
+    build/dryrun_torch/ and on one line here). Returns phase -> {"counts"
+    (the measured steps' launches, summed), "records", "shapes" (the
+    kernels timed at dryrun_train's shapes)}."""
+    from repro_torch.launch import dryrun
+    out: dict = {}
+    out_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    for tag, arch, shape, mesh in DRYRUN_CELLS:
+        t0 = time.time()
+        torch.cuda.empty_cache()
+        with plain_calls() as plain, last_encode() as enc:
+            r = dryrun.run_cell(arch, shape, mesh, device="cuda",
+                                out_dir=out_dir)
+        log(f"[{tag}] {json.dumps(r)}")
+        mem, counts = r["memory"], r["launches"]
+        if not (r["status"] == "ok" and mem["peak_bytes"]
+                > mem["argument_bytes"] and r["cost"]["flops"] > 0
+                and r["outputs_finite"]):
+            fail(f"{tag} {arch} x {shape} x {mesh}: status {r['status']}, "
+                 f"peak {mem['peak_bytes']} against arguments "
+                 f"{mem['argument_bytes']}, flops {r['cost']['flops']}, "
+                 f"outputs finite {r['outputs_finite']}")
+        slot = out.setdefault(tag, {"counts": {}, "records": [],
+                                    "shapes": {}})
+        slot["records"].append(r)
+        for k, v in counts.items():
+            slot["counts"][k] = slot["counts"].get(k, 0) + v
+        if shape == "train_4k":
+            check_route(tag, counts, plain, 1)
+            part = enc["part"]
+            want = part.sketch.rows * part.sketch.width * 4 + part.k * 4
+            ex = r["collectives"]["per_axis"][
+                DRYRUN_EXCHANGE[(r["dp_mode"], mesh)]]["all-reduce"]
+            if (ex["count"], ex["result_bytes"]) != (2, want):
+                fail(f"{tag}: the exchange's all-reduces {ex} are not the "
+                     f"summed sketch and the k values ({want} bytes)")
+            if tag == "dryrun_train":
+                got = {0: (enc["u"].cuda(), enc["sk"].cuda())}
+                slot["shapes"] = route_checks(torch, tag, [part], got,
+                                              timed=True)
+        elif counts or plain:
+            fail(f"{tag}: the serve step launched {counts} and called "
+                 f"{plain}: no kernel of the sketch path may run")
+        del enc
+        peak = mem["peak_bytes"] / 2**30
+        log(f"[{tag}] {arch} x {shape} x {mesh}: step "
+            f"{r['step_seconds']:.4f} s, loss {r['loss']!r}, outputs "
+            f"finite, peak {peak:.2f} GiB, arguments "
+            f"{mem['argument_bytes'] / 2**30:.2f} GiB, flops "
+            f"{r['cost']['flops']:.4e}, wire "
+            f"{r['collectives']['total_wire_bytes'] / 2**30:.2f} GiB "
+            f"(counted as executed); cell took {time.time() - t0:.1f} s")
+    return out
+
+
+def long_context_phase(torch, device, train_run: dict) -> dict:
+    """long_context (the docstring's phase 13); ``train_run``: the train
+    phase's losses, step seconds and peak."""
+    from repro_torch.configs.qwen3_4b import CONFIG
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models import layers, model as mdl
+    from repro_torch.models.flatten import make_flat_spec
+    LAUNCHES.clear()
+    gen = torch.Generator(device).manual_seed(0)
+    B, S, hd = 1, LONG_SEQ, CONFIG.hd
+    q = torch.randn((B, S, CONFIG.n_heads, hd), generator=gen, device=device)
+    k = torch.randn((B, S, CONFIG.n_kv_heads, hd), generator=gen,
+                    device=device)
+    v = torch.randn((B, S, CONFIG.n_kv_heads, hd), generator=gen,
+                    device=device)
+    pos = torch.arange(S, device=device)[None]
+    chunked = layers.blockwise_attention(q, k, v, causal=True, q_pos=pos,
+                                         kv_pos=pos)
+    one = layers.blockwise_attention(q, k, v, causal=True, q_pos=pos,
+                                     kv_pos=pos, chunk=S)
+    err = float((chunked - one).abs().max())
+    if not err <= LONG_ATTN_ATOL:
+        fail(f"long_context: the chunked attention at S = T = {S} is "
+             f"{err:.3e} from the one-pass (bound {LONG_ATTN_ATOL})")
+    log(f"[long_context] attention at S = T = {S}, {CONFIG.n_heads}/"
+        f"{CONFIG.n_kv_heads} heads, f32: chunked ({S // 1024} KV chunks) "
+        f"against one chunk max abs {err:.3e} (bound {LONG_ATTN_ATOL})")
+    del q, k, v, chunked, one
+    from repro_torch.core import pgroup
+    moved = {}
+    for p in (2, 3, 4, 16):
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn((p, 1 << 20), generator=gen, device=device)
+                 * 1e3).to(dt)
+            moved[f"{p} {str(dt)[6:]}"] = int((x.sum(0)
+                                              != pgroup.fold_sum(x)).sum())
+    log(f"[long_context] torch's sum(0) against the left fold "
+        f"(pgroup.fold_sum) on the card, coordinates of 2^20 that differ, "
+        f"by rows and dtype: {moved}")
+    del x
+    cfg = dataclasses.replace(CONFIG, n_layers=LONG_LAYERS)
+    fs = make_flat_spec(cfg, 1)
+    segs = {n: torch.randn(sh, generator=gen, device=device).mul_(0.02)
+            for n, sh in fs.seg_shapes().items()}
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=device)
+    runs = {}
+    for remat in (True, False):
+        use = {n: t.detach().clone().requires_grad_()
+               for n, t in segs.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        loss = mdl.loss_fn(cfg, fs, use, {"tokens": toks, "labels": toks},
+                           dtype=torch.bfloat16, remat=remat)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = (loss.detach(), {n: t.grad for n, t in use.items()},
+                       torch.cuda.max_memory_allocated() - base,
+                       time.time() - t0)
+        del use, loss
+    (l1, g1, p1, t1), (l0, g0, p0, t0_) = runs[True], runs[False]
+    same = {n: torch.equal(g1[n], g0[n]) for n in g1}
+    log(f"[long_context] qwen3-4b widths, {LONG_LAYERS} layers, seq {S}, "
+        f"bf16: loss remat on {float(l1)!r} off {float(l0)!r}, bit-equal "
+        f"{torch.equal(l1, l0)}; segment gradients bit-equal {same}; peak "
+        f"above the inputs on {p1 / 2**30:.2f} GiB, off {p0 / 2**30:.2f} "
+        f"GiB; seconds on {t1:.3f} off {t0_:.3f} (first calls)")
+    if not (torch.equal(l1, l0) and all(same.values())):
+        fail("long_context: the remat changed the loss or a gradient")
+    del runs, segs, g1, g0
+    torch.cuda.empty_cache()
+    counts = dict(LAUNCHES)
+    if counts:
+        fail(f"long_context launched sketch kernels: {counts}")
+    cfg2, opt, ts = full_width_step(torch, device, remat=False)
+    with plain_calls() as plain:
+        run = train_phase(torch, cfg2, opt, ts, tag="train_noremat")
+    check_route("train_noremat", run["counts"], plain,
+                TRAIN_P * ts.n_buckets * TRAIN_STEPS)
+    if run["losses"] != train_run["losses"]:
+        fail(f"train_noremat: losses {run['losses']} differ from train's "
+             f"{train_run['losses']} (remat on)")
+    steady = [[round(t, 4) for t in r["times"][1:]] for r in (train_run,
+                                                               run)]
+    log(f"[long_context] train (remat on) against train_noremat: losses "
+        f"bit-equal; steady step_s on {steady[0]} off {steady[1]}; peak on "
+        f"{train_run['peak'] / 2**30:.2f} GiB off "
+        f"{run['peak'] / 2**30:.2f} GiB")
+    del run, ts
+    torch.cuda.empty_cache()
+    return {"counts": counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5240,6 +5474,7 @@ def main() -> int:
     state, stream, counts = run["state"], run["stream"], run["counts"]
     train_peak = run["peak"]
     train_ref = mesh_ref(torch, ts, run, kept)
+    train_run = {k: run[k] for k in ("losses", "times", "peak")}
     del run, kept
     check_launches("train", counts, ("sketch_encode", "sketch_encode_finish",
                                      "sketch_decode", "topk_select"),
@@ -5417,9 +5652,23 @@ def main() -> int:
     t0 = time.time()
     cli_serve_phase()
     log(f"[serve_load, cli_serve] phases took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    dry = dryrun_phases(torch)
+    log(f"[dryrun] phases took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    long_ctx = long_context_phase(torch, device, train_run)
+    log(f"[long_context] phase took {time.time() - t0:.1f} s")
     for kr in kernels:
         kr["launches_serve"] = serve_counts.get(kr["name"], 0)
         kr["launches_serve_tp"] = serve_tp["counts"].get(kr["name"], 0)
+        for tag in ("dryrun_train", "dryrun_fsdp", "dryrun_serve"):
+            kr[f"launches_{tag}"] = dry[tag]["counts"].get(kr["name"], 0)
+        kr["launches_long_context"] = long_ctx["counts"].get(kr["name"], 0)
+        kr["dryrun_shapes"] = dry["dryrun_train"]["shapes"].get(
+            kr["name"], [])
+    if any(dry["dryrun_serve"]["counts"].values()):
+        fail(f"dryrun_serve launched {dry['dryrun_serve']['counts']}")
     log(f"[done] in {time.time() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -600,7 +600,8 @@ class RunSpec:
         help="run seed (data stream, init)")
     remat: bool = _field(
         True, "--no-remat", const=False, surfaces=("train",), dest="remat",
-        help="disable remat (a numerical no-op in the port)")
+        help="disable remat: the per-cycle checkpoint and the sqrt-n cycle "
+             "groups (no value changes; remat trades memory for recompute)")
     ckpt_dir: str | None = _field(
         None, "--ckpt-dir", parse=parse_opt_str, surfaces=("train",),
         help="checkpoint directory ('none' = no checkpoints)")

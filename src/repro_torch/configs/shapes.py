@@ -1,10 +1,12 @@
-"""The reference's input-shape set (``repro/configs/shapes.py``), kept as a
-parity copy: the port runs only training, and no port code reads it yet
-(``tests/test_torch_dense_configs.py`` holds it equal to the reference).
+"""The reference's input-shape set (``repro/configs/shapes.py``), held
+equal to it by ``tests/test_torch_dense_configs.py``. ``launch/dryrun.py``
+runs every (arch x shape) cell that ``applicable`` admits, one rank of a
+production mesh at a time.
 
 ``train_4k`` is a training step's shape; ``prefill_32k``, ``decode_32k``
-and ``long_500k`` are the reference's serving shapes, which the port does
-not run. ``long_500k`` applies only to sub-quadratic architectures.
+and ``long_500k`` are serving shapes (a prompt's prefill, one token
+against a full cache). ``long_500k`` applies only to sub-quadratic
+architectures.
 """
 
 from __future__ import annotations

@@ -149,12 +149,14 @@ def tree_allreduce_rounds(p: int) -> int:
 
 
 def psum_allreduce(x: torch.Tensor, p: int | None = None) -> torch.Tensor:
-    """Sum over the worker axis, broadcast back (a view, not P copies); on
-    a process mesh one all-reduce over the group."""
+    """Sum over the worker axis as a left fold in worker order
+    (``pgroup.fold_sum``), broadcast back (a view, not P copies); on a
+    process mesh one all-reduce over the group, which adds in the same
+    order."""
     ax = current_axis()
     if ax is not None:
         return pgroup.all_reduce(x, ax)
-    return x.sum(dim=0, keepdim=True).expand_as(x)
+    return pgroup.fold_sum(x, keepdim=True).expand_as(x)
 
 
 def allreduce(x: torch.Tensor, p: int, *, mode: str = "psum") -> torch.Tensor:

@@ -673,7 +673,10 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
 
     spec: a ``repro_torch.api.ExchangeSpec`` (compressor, resolved sketch
     geometry at this step's ``d_local``, buckets, overlap); the legacy
-    kwargs must stay at their defaults when it is passed. ``device``:
+    kwargs must stay at their defaults when it is passed. ``remat``: the
+    model's cycle remat (``models.model``: each cycle checkpointed, in
+    the reference's sqrt-n groups), which trades memory for recompute
+    and changes no value. ``device``:
     None means the card (and raises without one); pass "cpu" for the
     plain path. At tp > 1 or in 'fsdp' the step runs the sharded layout
     (module docstring); ``fs`` then is the FlatSpec at ``ma.tp``.
@@ -855,13 +858,22 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         global norm (P,) (coordinates are disjoint over the ranks and, in
         fsdp, over the pod's data shards: the norm sums over both), the
         clip (in place), ``opt.apply``."""
-        gsq = torch.sum(g_mean * g_mean, dim=-1).sum(0)          # (P,)
+        # each (rank, worker) row's squares summed by the call a mesh's
+        # process makes on its own (1, 1, d_local) row, then the ranks
+        # (and the pod's data shards) added in the mesh's order
+        tp_n, p_n = g_mean.shape[:2]
+        gsq = torch.cat([torch.sum(g_mean[r:r + 1, w:w + 1]
+                                   * g_mean[r:r + 1, w:w + 1], dim=-1)
+                         for r in range(tp_n) for w in range(p_n)]
+                        ).reshape(tp_n, p_n)
+        gsq = pgroup.fold_sum(gsq)                                 # (P,)
         if pm is not None:   # the other ranks' (and data shards') squares
             gsq = pgroup.all_reduce(gsq, pm.axis("model"))
             if dp_mode == "fsdp":
                 gsq = pgroup.all_reduce(gsq, pm.axis("data"))
         elif dp_mode == "fsdp":
-            gsq = gsq.reshape(-1, ma.data).sum(-1, keepdim=True).expand(
+            gsq = pgroup.fold_sum(gsq.reshape(-1, ma.data), dim=-1,
+                                  keepdim=True).expand(
                 -1, ma.data).reshape(nworkers)
         gnorm = torch.sqrt(gsq)
         if clip_norm is not None:  # global-norm clip, aggregated grad

@@ -23,12 +23,34 @@ through pinned host memory around each collective (``stage/d2h`` and
 ``stage/h2d`` spans of the ambient tracer, inside the collective's own
 span; ``STAGING`` sums their seconds and bytes). Nothing falls back
 silently: a collective that fails raises.
+
+Sum order: a sum over more than two processes is an *ordered all-reduce*
+(``all_reduce``): every process sends the i-th of ``size`` equal chunks
+of ``x`` to group index i (one ``all_to_all_single``), adds the pieces
+it receives as a left fold in group order, ``((x0 + x1) + x2) + ...``
+(``fold_sum``), and the summed chunks are all-gathered. It moves a ring
+all-reduce's bytes ((size - 1) / size of ``x`` out and back) and gives
+every transport the same bits, those of the simulated layouts, whose
+sums over a rank or worker dimension are the same ``fold_sum``. A sum
+over two processes stays one all-reduce (two terms add alike in either
+order), and so does a max.
+
+On a ``fake`` world (``launch/dryrun.py``: one rank of a production mesh
+in one process) nothing crosses a wire: each collective returns a
+tensor of its result's shape made from this process's own input (a sum
+is ``x``, a gather ``size`` copies of ``x``, a scatter this index's
+chunk), so a step runs on the card or the meta device alike. Inside
+``tally()`` every collective, on any transport, records its kind, group
+and result bytes (the ordered all-reduce as the one all-reduce it
+stands for).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import math
 import time
 from typing import Any
 
@@ -65,17 +87,63 @@ class Axis:
     that share every coordinate but ``names``'. ``ranks`` are global
     ranks in group order, ``index`` is this process's position in it.
     ``stage``: the transport takes host tensors only (gloo), so CUDA
-    tensors are staged through pinned host memory."""
+    tensors are staged through pinned host memory. ``fake``: a fake
+    world's group, whose collectives move nothing (module docstring)."""
 
     names: tuple[str, ...]
     group: Any
     ranks: tuple[int, ...]
     index: int
     stage: bool = False
+    fake: bool = False
 
     @property
     def size(self) -> int:
         return len(self.ranks)
+
+
+def fold_sum(x: torch.Tensor, dim: int = 0,
+             keepdim: bool = False) -> torch.Tensor:
+    """The sum of ``x`` over ``dim`` as a left fold in index order,
+    ``((x[0] + x[1]) + x[2]) + ...``: the order of every sum over more
+    than two processes (``all_reduce``), which the simulated layouts'
+    sums over a worker or rank dimension follow, so that a mesh's sums
+    are bit for bit its simulation's. A new tensor."""
+    n = x.shape[dim]
+    acc = (x.select(dim, 0).clone() if n == 1
+           else x.select(dim, 0) + x.select(dim, 1))
+    for i in range(2, n):
+        acc = acc + x.select(dim, i)
+    return acc.unsqueeze(dim) if keepdim else acc
+
+
+# The collectives recorded inside ``tally()`` (None outside it).
+_TALLY: list | None = None
+
+
+@contextlib.contextmanager
+def tally():
+    """Record every collective run inside: yields a list that gets one
+    dict a call, ``kind`` (the reference's HLO name: all-reduce,
+    all-gather, reduce-scatter, collective-permute), ``axes`` (the
+    group's axis names), ``group`` (its size), ``result_bytes`` (the
+    bytes of this process's result buffer, as the reference's
+    ``parse_collectives`` counts them), ``shape`` and ``dtype``."""
+    global _TALLY
+    outer, _TALLY = _TALLY, []
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = outer
+
+
+def _record(kind: str, axis: Axis, result_shape, dtype) -> None:
+    if _TALLY is None:
+        return
+    _TALLY.append({"kind": kind, "axes": axis.names, "group": axis.size,
+                   "result_bytes": math.prod(result_shape) * dtype.itemsize,
+                   "shape": tuple(int(s) for s in result_shape),
+                   "dtype": str(dtype).replace("torch.", "")})
 
 
 def _staged(x: torch.Tensor, axis: Axis) -> bool:
@@ -122,14 +190,40 @@ def _from_wire(h: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
     """A new tensor: ``x`` reduced over the group (``op`` sum or max),
-    every process receiving the result. ``x`` itself for a group of one."""
+    every process receiving the result; a sum over more than two
+    processes in group order (``_ordered_sum``). ``x`` itself for a
+    group of one."""
     if axis.size == 1:
         return x
+    _record("all-reduce", axis, x.shape, x.dtype)
+    if axis.fake:
+        return x.detach().clone()
+    if op == "sum" and axis.size > 2:
+        return _ordered_sum(x, axis)
     w = x.detach().contiguous()
     w = _to_wire(w, axis) if _staged(w, axis) else w.clone()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     dist.all_reduce(w, op=red, group=axis.group)
     return _from_wire(w, x.device)
+
+
+def _ordered_sum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The ordered all-reduce (module docstring): ``x`` flattened and
+    padded to ``size`` equal chunks, chunk i sent to group index i, the
+    received pieces folded left in group order (``fold_sum``), the
+    summed chunks all-gathered."""
+    size, n = axis.size, x.numel()
+    m = -(-n // size)
+    flat = x.detach().reshape(-1)
+    if m * size != n:
+        flat = torch.cat([flat, flat.new_zeros(m * size - n)])
+    w = _to_wire(flat.contiguous(), axis)
+    recv = torch.empty_like(w)
+    dist.all_to_all_single(recv, w, group=axis.group)
+    part = fold_sum(recv.view(size, m))
+    out = torch.empty_like(w)
+    _all_gather(out, part, group=axis.group)
+    return _from_wire(out[:n].reshape(x.shape), x.device)
 
 
 def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -138,6 +232,9 @@ def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     takes."""
     if axis.size == 1:
         return x[None]
+    _record("all-gather", axis, (axis.size,) + tuple(x.shape), x.dtype)
+    if axis.fake:
+        return x.detach()[None].expand((axis.size,) + x.shape).clone()
     src = x.detach().contiguous()
     wire = src.view(torch.uint8) if src.dtype in _FP8 else src
     w = _to_wire(wire, axis).reshape(-1)
@@ -163,6 +260,9 @@ def reduce_scatter(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     if axis.size == 1:
         return x
     m = x.shape[-1] // axis.size
+    _record("reduce-scatter", axis, x.shape[:-1] + (m,), x.dtype)
+    if axis.fake:
+        return x.detach()[..., axis.index * m:(axis.index + 1) * m].clone()
     src = x.detach().reshape(x.shape[:-1] + (axis.size, m)).movedim(
         -2, 0).contiguous()
     w = _to_wire(src, axis).reshape(-1)
@@ -183,8 +283,11 @@ def permute(x: torch.Tensor, pairs, axis: Axis
     if len(dst) > 1 or len(src) > 1:
         raise ValueError(f"group index {me} sends to {dst} and receives "
                          f"from {src} in one round; at most one each")
+    _record("collective-permute", axis, x.shape, x.dtype)
     if not dst and not src:
         return x, False
+    if axis.fake:
+        return (x.detach().clone(), True) if src else (x, False)
     x = x.contiguous()
     ops = []
     if dst:
@@ -257,7 +360,8 @@ class ProcessMesh:
         group = (dm.get_group(sub[0]) if len(sub) == 1
                  else dm[sub]._flatten().get_group())
         ranks = tuple(dist.get_process_group_ranks(group))
-        return Axis(sub, group, ranks, ranks.index(me), stage)
+        return Axis(sub, group, ranks, ranks.index(me), stage,
+                    self.backend == "fake")
 
     def axis(self, names) -> Axis:
         """The group over ``names`` (a name or a tuple, any order; names

@@ -6,6 +6,10 @@ backend; the port resolves per tensor device:
     device  -> runs
     ------  ------------------------------------------------------
     cpu     plain PyTorch version
+    meta    inside ``meta_shapes()``: the wrapper's shape function, empty
+            outputs of the kernel's shapes and dtypes, no launch
+            (``launch/dryrun.py --device meta`` runs a production rank's
+            step on meta tensors); outside it, as any other device
     other   hand-written CUDA kernel (raises if unbuilt or not CUDA)
 
 A tensor that is not on the CPU never quietly takes the plain path: the
@@ -20,6 +24,7 @@ main path went through the kernels.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 
 import torch
@@ -30,6 +35,32 @@ LAUNCHES: collections.Counter = collections.Counter()
 def resolve_dispatch(device_type: str) -> bool:
     """True -> launch the CUDA kernel, False -> run the plain version."""
     return device_type != "cpu"
+
+
+_META_SHAPES = [False]
+
+
+@contextlib.contextmanager
+def meta_shapes():
+    """While open, a wrapper given a meta tensor returns its shape
+    function's outputs (module docstring)."""
+    outer, _META_SHAPES[0] = _META_SHAPES[0], True
+    try:
+        yield
+    finally:
+        _META_SHAPES[0] = outer
+
+
+def on_meta(t: torch.Tensor) -> bool:
+    """True for a meta tensor inside ``meta_shapes()``: the wrapper
+    returns its shape function's outputs."""
+    return _META_SHAPES[0] and t.device.type == "meta"
+
+
+def meta_empty(shape, dtype=torch.float32) -> torch.Tensor:
+    """A meta tensor of ``shape`` (a kernel output's shape function)."""
+    return torch.empty(tuple(int(s) for s in shape), dtype=dtype,
+                       device="meta")
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

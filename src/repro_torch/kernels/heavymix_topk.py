@@ -55,7 +55,8 @@ from repro_torch.core.count_sketch import SketchConfig
 from repro_torch.core.heavymix import _BIG, _CHUNK
 from repro_torch.core.ts_sketch import TSketchConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch, sm_count
+from repro_torch.kernels.dispatch import (LAUNCHES, meta_empty, on_meta,
+                                          resolve_dispatch, sm_count)
 from repro_torch.kernels.sketch_encode import hash_on_device
 from repro_torch.kernels.topk_select import RADIX_BINS, radix_hist_plain
 from repro_torch.kernels.ts_encode import row_params_on_device
@@ -107,6 +108,8 @@ def heavymix_scores(cfg: SketchConfig, sketch: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(scores (d,), estimates (d,)) for HEAVYMIX selection (greedy, or
     faithful with ``filler``)."""
+    if on_meta(sketch):
+        return meta_empty((d,)), meta_empty((d,))
     if not resolve_dispatch(sketch.device.type):
         return heavymix_scores_plain(cfg, sketch, thresh, d, filler)
     return _launch(cfg, sketch, thresh, int(d), filler=filler)[:2]
@@ -118,6 +121,9 @@ def heavymix_scores_hist(cfg: SketchConfig, sketch: torch.Tensor,
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(scores, estimates, the (2048,) int32 histogram of key bits 30..20
     of the scores) for ``kernels.topk_select``; one launch on the card."""
+    if on_meta(sketch):
+        return (meta_empty((d,)), meta_empty((d,)),
+                meta_empty((RADIX_BINS,), torch.int32))
     if not resolve_dispatch(sketch.device.type):
         scores, est = heavymix_scores_plain(cfg, sketch, thresh, d, filler)
         return scores, est, radix_hist_plain(scores)
@@ -160,6 +166,8 @@ def ts_transpose_plain(tcfg: TSketchConfig, sketch: torch.Tensor
 def ts_transpose(tcfg: TSketchConfig, sketch: torch.Tensor) -> torch.Tensor:
     """The row-transposed copy of a TS sketch that the TS-map scores kernel
     reads; one launch on the card."""
+    if on_meta(sketch):
+        return meta_empty((tcfg.rows, tcfg.width))
     if not resolve_dispatch(sketch.device.type):
         return ts_transpose_plain(tcfg, sketch)
     lib = _lib()
@@ -193,6 +201,9 @@ def heavymix_scores_ts_hist(tcfg: TSketchConfig, sketch: torch.Tensor,
     """(scores, estimates, histogram of key bits 30..20 of the scores) of
     the coordinates [0, d) of a TS sketch; on the card two launches, the
     transpose and the scores kernel."""
+    if on_meta(sketch):
+        return (meta_empty((d,)), meta_empty((d,)),
+                meta_empty((RADIX_BINS,), torch.int32))
     if not resolve_dispatch(sketch.device.type):
         scores, est = heavymix_scores_ts_plain(tcfg, sketch, thresh, d,
                                                filler)

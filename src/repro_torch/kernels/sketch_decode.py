@@ -33,7 +33,8 @@ import torch
 from repro_torch.core import count_sketch as cs
 from repro_torch.core.count_sketch import SketchConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch, sm_count
+from repro_torch.kernels.dispatch import (LAUNCHES, meta_empty, on_meta,
+                                          resolve_dispatch, sm_count)
 from repro_torch.kernels.sketch_encode import hash_on_device
 from repro_torch.kernels.topk_select import RADIX_BINS, radix_hist_plain
 
@@ -62,6 +63,8 @@ def sketch_decode(cfg: SketchConfig, sketch: torch.Tensor, d: int, *,
     (see ``kernels.dispatch``).
     """
     d = int(d)
+    if on_meta(sketch):
+        return meta_empty((d,))
     if not resolve_dispatch(sketch.device.type):
         return sketch_decode_plain(cfg, sketch, d, int(index_offset))
     return _launch(cfg, sketch, d, int(index_offset))[0]
@@ -72,6 +75,8 @@ def sketch_decode_hist(cfg: SketchConfig, sketch: torch.Tensor, d: int
     """(est (d,) f32, the (2048,) int32 histogram of key bits 30..20 of
     |est|) for ``kernels.topk_select``; one kernel launch on the card."""
     d = int(d)
+    if on_meta(sketch):
+        return meta_empty((d,)), meta_empty((RADIX_BINS,), torch.int32)
     if not resolve_dispatch(sketch.device.type):
         est = sketch_decode_plain(cfg, sketch, d)
         return est, radix_hist_plain(est)

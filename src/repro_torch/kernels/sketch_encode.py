@@ -37,7 +37,8 @@ import torch
 from repro_torch.core import count_sketch as cs
 from repro_torch.core.count_sketch import SketchConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch, sm_count
+from repro_torch.kernels.dispatch import (LAUNCHES, meta_empty, on_meta,
+                                          resolve_dispatch, sm_count)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -177,6 +178,8 @@ def sketch_encode(cfg: SketchConfig, g: torch.Tensor, *,
     (tests).
     """
     g = g.reshape(-1)
+    if on_meta(g):
+        return meta_empty((cfg.rows, cfg.width))
     if not resolve_dispatch(g.device.type):
         return sketch_encode_plain(cfg, g, index_offset)
     acc = cs.exact_zeros(cfg, device=g.device)
@@ -193,6 +196,8 @@ def sketch_encode_into(cfg: SketchConfig, g: torch.Tensor,
     The fused interleave's partial encode: the finish comes once, after
     the bucket's fragments (``sketch_encode_finish``)."""
     g = g.reshape(-1)
+    if on_meta(g):
+        return acc
     if not resolve_dispatch(g.device.type):
         return sketch_encode_into_plain(cfg, g, acc, index_offset)
     _accumulate(cfg, g, acc, int(index_offset), plan)
@@ -203,6 +208,8 @@ def sketch_encode_into(cfg: SketchConfig, g: torch.Tensor,
 def sketch_encode_finish(acc: cs.ExactSketch) -> torch.Tensor:
     """The f32 sketch(es) of an exact sketch with any leading dims: one
     launch of the finish kernel on the card."""
+    if on_meta(acc.flags):
+        return meta_empty(acc.flags.shape)
     if not resolve_dispatch(acc.device.type):
         return sketch_encode_finish_plain(acc)
     out = _finish(acc)

@@ -53,7 +53,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch, sm_count
+from repro_torch.kernels.dispatch import (LAUNCHES, meta_empty, on_meta,
+                                          resolve_dispatch, sm_count)
 
 RADIX_BINS = 2048   # digit 1: key bits 30..20
 RADIX_SHIFT = 20
@@ -199,6 +200,9 @@ def topk_select(x: torch.Tensor, k: int, hist: torch.Tensor,
                                  or capacity % (4 * _SEGMENTS)):
         raise ValueError(f"topk_select: capacity {capacity} is not a "
                          f"non-negative multiple of {4 * _SEGMENTS}")
+    if on_meta(x):
+        n = min(max(int(k), 0), x.shape[0])
+        return meta_empty((n,)), meta_empty((n,), torch.int64)
     if not resolve_dispatch(x.device.type):
         return topk_select_plain(x, k, hist)
     if x.device.type != "cuda":

@@ -42,7 +42,8 @@ import torch
 from repro_torch.core import ts_sketch as ts
 from repro_torch.core.ts_sketch import TSketchConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.dispatch import LAUNCHES, resolve_dispatch, sm_count
+from repro_torch.kernels.dispatch import (LAUNCHES, meta_empty, on_meta,
+                                          resolve_dispatch, sm_count)
 from repro_torch.kernels.sketch_encode import DTYPE_CODES
 
 # Mirrors csrc/ts_encode.cu.
@@ -137,6 +138,8 @@ def ts_encode(cfg: TSketchConfig, g: torch.Tensor,
     if plan is not None and plan.kernel == "onepass" and (
             plan != onepass_plan(cfg)):
         raise ValueError(f"{plan} is not the one-pass plan of {cfg}")
+    if on_meta(g):
+        return meta_empty((cfg.rows, cfg.width))
     if not resolve_dispatch(g.device.type):
         return ts_encode_plain(cfg, g)
     lib = _lib()

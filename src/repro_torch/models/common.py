@@ -188,7 +188,7 @@ class ShardCtx:
             return y.to(x.dtype).expand_as(x)
         if self.model is not None:
             return _PsumTP.apply(x, self.model)
-        return x.sum(0, keepdim=True).expand_as(x)
+        return _FoldSumTP.apply(x)
 
     def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
         """The max over the ranks, every rank receiving it (no gradient:
@@ -226,6 +226,21 @@ class ShardCtx:
         B, S, H = t.shape[:3]
         return t.reshape((B, S, self.lead, H // self.lead)
                          + t.shape[3:]).movedim(2, 0)
+
+
+class _FoldSumTP(torch.autograd.Function):
+    """The simulated ``psum`` over the rank dimension: its left fold in
+    rank order (``pgroup.fold_sum``), broadcast back; its transpose the
+    same fold of the cotangent, as a mesh's ``_PsumTP`` all-reduces it
+    (in that order beyond two ranks)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return pgroup.fold_sum(x, keepdim=True).expand_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pgroup.fold_sum(g, keepdim=True).expand_as(g)
 
 
 class _PsumTP(torch.autograd.Function):

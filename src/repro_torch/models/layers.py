@@ -4,9 +4,18 @@ and the serving pieces: one-token decode attention against a KV cache,
 the cache append, full logits and the greedy argmax.
 
 Port of ``repro/models/layers.py``. The reference's flash-style blockwise
-attention is plain jnp, not a Pallas kernel; here it is written as plain
-f32 softmax attention, which is the same function (the reference's online
-softmax over one KV chunk reduces to it exactly).
+attention is plain jnp, not a Pallas kernel, and so is the port's: KV
+chunks of ``chunk`` = 1024 positions (the tail padded with ``kv_pos`` =
+-1) under a running (m, l, o) online softmax, m and l in f32 and o in
+the compute dtype, each chunk's scores computed as a recomputed region
+(``models.remat.remat_call``) so the backward recomputes them and the
+(S, T) matrix never exists. ``lm_loss`` runs the sequence in checkpointed
+chunks of 1024 positions, summing (nll * w, w) chunk by chunk, so the
+(B, S, V) logits never exist either. At T (S) <= chunk one chunk runs
+with no combine step, so the result is bit for bit the one-pass
+function's (the reference's combine from m = -1e30 reduces to it
+exactly). The checkpoints apply only when autograd records; a serve
+forward runs the same chunks plainly.
 
 Tensor parallelism (``ctx``, a ``common.ShardCtx``; None is tp = 1): at
 tp > 1 activations and the model-sharded weights are rank-stacked (a
@@ -45,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ArchConfig, ShardCtx, head_geometry
+from repro_torch.models.remat import remat_call
 
 _NEG_INF = -1e30
 
@@ -116,13 +126,42 @@ def _kv_slice(w: torch.Tensor, hd: int, cfg: ArchConfig,
     return torch.stack([w[:, h * hd:(h + 1) * hd] for h in heads])
 
 
+def _attn_chunk(qt: torch.Tensor, k_c: torch.Tensor, v_c: torch.Tensor,
+                bias: torch.Tensor, scale: float):
+    """One online-softmax step over a KV chunk (grouped GQA heads):
+    qt (B,G,R,S,hd), k_c / v_c (B,G,Ck,hd), bias (B,1,1,S,Ck) additive
+    -> (m (B,G,R,S) f32, l (B,G,R,S) f32, o (B,G,R,S,hd) compute dtype)."""
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qt, k_c).to(torch.float32) * scale
+    s = s + bias
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bgrqk,bgkd->bgrqd", p.to(qt.dtype), v_c)
+    return m[..., 0], l, o
+
+
+def _bias(q_pos: torch.Tensor, kv_pos: torch.Tensor,
+          causal: bool) -> torch.Tensor:
+    """The additive mask (B,1,1,S,Ck): 0 where a key is valid (kv_pos >=
+    0, and at or before the query when causal), -1e30 elsewhere."""
+    valid = (kv_pos >= 0)[:, None, None, None, :]
+    if causal:
+        valid = valid & (q_pos[:, None, None, :, None]
+                         >= kv_pos[:, None, None, None, :])
+    return torch.where(valid, 0.0, _NEG_INF)
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, q_pos: torch.Tensor,
-                        kv_pos: torch.Tensor) -> torch.Tensor:
-    """GQA attention. q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd) -> (B,S,Hq,hd).
+                        kv_pos: torch.Tensor,
+                        chunk: int = 1024) -> torch.Tensor:
+    """Flash-style GQA attention. q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd) ->
+    (B,S,Hq,hd).
 
     Computed in grouped form (KV heads never repeated in memory), with the
-    reference's additive -1e30 mask and its max(l, 1e-20) guard.
+    reference's additive -1e30 mask and its max(l, 1e-20) guard, over KV
+    chunks of ``chunk`` positions (module docstring): live memory O(S *
+    chunk), each chunk's scores recomputed in the backward.
     """
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -133,16 +172,34 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qt = q.permute(0, 2, 1, 3).reshape(B, Hkv, rep, S, hd)
     kt = k.permute(0, 2, 1, 3)                              # (B,Hkv,T,hd)
     vt = v.permute(0, 2, 1, 3)
-    s = torch.einsum("bgrqd,bgkd->bgrqk", qt, kt).to(torch.float32) * scale
-    valid = (kv_pos >= 0)[:, None, None, None, :]
-    if causal:
-        ok = q_pos[:, None, None, :, None] >= kv_pos[:, None, None, None, :]
-        valid = valid & ok
-    s = s + torch.where(valid, 0.0, _NEG_INF)
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = torch.sum(p, dim=-1)
-    o = torch.einsum("bgrqk,bgkd->bgrqd", p.to(q.dtype), vt)
+    chunk = min(chunk, T)
+    pad = (-T) % chunk
+    if pad:
+        kt = F.pad(kt, (0, 0, 0, pad))
+        vt = F.pad(vt, (0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    n_chunks = (T + pad) // chunk
+    if n_chunks == 1:
+        _, l, o = remat_call(_attn_chunk, qt, kt, vt,
+                             _bias(q_pos, kv_pos, causal), scale)
+    else:
+        m = torch.full((B, Hkv, rep, S), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Hkv, rep, S), dtype=torch.float32,
+                        device=q.device)
+        o = torch.zeros((B, Hkv, rep, S, hd), dtype=q.dtype, device=q.device)
+        for c in range(n_chunks):
+            cols = slice(c * chunk, (c + 1) * chunk)
+            m_c, l_c, o_c = remat_call(
+                _attn_chunk, qt, kt[:, :, cols], vt[:, :, cols],
+                _bias(q_pos, kv_pos[:, cols], causal), scale)
+            m_new = torch.maximum(m, m_c)
+            a = torch.exp(m - m_new)
+            b = torch.exp(m_c - m_new)
+            l = a * l + b * l_c
+            o = (o * a[..., None].to(q.dtype)
+                 + o_c * b[..., None].to(q.dtype))
+            m = m_new
     out = o / torch.clamp(l, min=1e-20)[..., None].to(q.dtype)
     return out.reshape(B, Hq, S, hd).permute(0, 2, 1, 3)
 
@@ -366,17 +423,11 @@ def _vocab_cols(cfg: ArchConfig, v_loc: int, ndim: int, device,
     return start, cols < cfg.vocab_size
 
 
-def lm_loss(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
-            cfg: ArchConfig, ctx: ShardCtx | None = None) -> torch.Tensor:
-    """Mean next-token cross-entropy over the padded vocab.
-
-    hidden: (B,S,d); head_w: (d, V_pad); labels: (B,S) with -1 = ignore.
-    Padding columns (ids >= vocab_size) are masked to -1e30. At tp > 1
-    (rank-stacked hidden and head, (tp, d, V_loc)) the logits stay
-    vocab-sharded: the max is pmax'd (stability only, no gradient), the
-    partition sum and the label's logit psum'd; every rank gets the same
-    loss, a (tp,) tensor.
-    """
+def _loss_sums(hidden: torch.Tensor, head_w: torch.Tensor,
+               labels: torch.Tensor, cfg: ArchConfig,
+               ctx: ShardCtx | None):
+    """One sequence chunk's (sum of nll * w, sum of w): its logits, the
+    label's, the partition sum (module docstring of ``lm_loss``)."""
     v_loc = head_w.shape[-1]
     start, col_valid = _vocab_cols(cfg, v_loc, hidden.ndim, hidden.device,
                                    ctx)
@@ -396,7 +447,38 @@ def lm_loss(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
     w = (labels >= 0).to(torch.float32)
     tot = (torch.sum(nll * w, dim=(-2, -1)) if hidden.ndim == 4
            else torch.sum(nll * w))
-    return tot / torch.clamp(torch.sum(w), min=1.0)
+    return tot, torch.sum(w)
+
+
+def lm_loss(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+            cfg: ArchConfig, ctx: ShardCtx | None = None, *,
+            chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross-entropy over the padded vocab.
+
+    hidden: (B,S,d); head_w: (d, V_pad); labels: (B,S) with -1 = ignore.
+    Padding columns (ids >= vocab_size) are masked to -1e30. The sequence
+    runs in checkpointed chunks of ``chunk`` positions (the tail padded
+    with zero rows labelled -1), their (nll * w, w) sums added chunk by
+    chunk, so (B, S, V) logits never exist at once. At tp > 1
+    (rank-stacked hidden and head, (tp, d, V_loc)) the logits stay
+    vocab-sharded: the max is pmax'd (stability only, no gradient), the
+    partition sum and the label's logit psum'd; every rank gets the same
+    loss, a (tp,) tensor.
+    """
+    S = hidden.shape[-2]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = cnt = None
+    for c in range(0, S + pad, chunk):
+        s_c, w_c = remat_call(
+            lambda h, lab: _loss_sums(h, head_w, lab, cfg, ctx),
+            hidden[..., c:c + chunk, :], labels[..., c:c + chunk])
+        tot = s_c if tot is None else tot + s_c
+        cnt = w_c if cnt is None else cnt + w_c
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def lm_logits(hidden: torch.Tensor, head_w: torch.Tensor,

@@ -26,10 +26,20 @@ shard of the logits (tp, B, V_loc) and ``decode_fn`` every rank's (equal)
 ids (tp, B). The cache holds every rank's heads in global order
 (``init_cache(..., ctx=)``). ``chunked_loss_vjp`` is tp = 1 only.
 
-``remat``: accepted for interface parity and a numerical no-op here. The
-reference's sqrt-n remat only trades memory for recompute; at the
-slices' depth and sequence length the activations are small next to the
-optimizer state, so the port keeps them.
+``remat`` (training only): the reference's cycle remat. Each cycle runs
+as a recomputed region (``models.remat.remat_call``), so its
+backward recomputes the cycle's activations from the carry; and with n
+cycles and n2 = isqrt(n) >= 2 the cycles run in the sqrt-n two-level
+structure of the reference's ``_scan_cycles``: n1 = n // n2 outer groups
+of n2 cycles, each group checkpointed as a whole around its cycles'
+checkpoints, then the n - n1 * n2 tail cycles one by one. The backward
+then holds about n1 + n2 carries (B, S, d) and one cycle's activations,
+not n cycles' activations. ``loss_fn`` and each chunk of
+``chunked_loss_vjp`` use it, as the reference's ``_backbone`` and
+``chunk_fn`` do. It trades memory for recompute and changes no value:
+the recomputed forward is the same ops on the same inputs. Collectives
+inside a checkpointed cycle (tp > 1 on a mesh) run again in its
+recompute, as XLA's remat runs them.
 
 ``chunked_loss_vjp`` is the same forward with the graph cut at K chunk
 boundaries of the cycle stack, so the backward can run (and emit each
@@ -47,6 +57,8 @@ A caller that needs the cache it passed in unchanged passes a copy.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.models import mamba as mb
@@ -59,6 +71,7 @@ from repro_torch.models.layers import (attention_block, embed_lookup,
                                        lm_logits, lm_loss, mlp_block,
                                        parallel_attn_mlp_block, rmsnorm,
                                        sharded_argmax)
+from repro_torch.models.remat import remat_call
 
 MOE_AUX_COEF = 0.01
 
@@ -155,29 +168,66 @@ def _apply_cycle(cfg: ArchConfig, cyc_p: dict, shared_p: dict | None,
     return x, aux
 
 
+def scan_cycles(cyc, n: int, x: torch.Tensor, aux: torch.Tensor,
+                remat: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run cycles 0..n-1 of ``cyc(c, x, aux) -> (x, aux)`` on the carry.
+
+    With ``remat`` every cycle is checkpointed and, when n2 = isqrt(n) >=
+    2, the cycles run in the sqrt-n two-level structure of the
+    reference's ``_scan_cycles``: n1 = n // n2 checkpointed groups of n2
+    checkpointed cycles, then the tail (module docstring)."""
+    if not remat:
+        for c in range(n):
+            x, aux = cyc(c, x, aux)
+        return x, aux
+
+    def one(c):
+        return lambda x, aux: cyc(c, x, aux)
+
+    def group(a, b):
+        def run(x, aux):
+            for c in range(a, b):
+                x, aux = remat_call(one(c), x, aux)
+            return x, aux
+        return run
+
+    n2 = math.isqrt(n)
+    done = 0
+    if n2 >= 2:
+        for g in range(n // n2):
+            x, aux = remat_call(group(g * n2, (g + 1) * n2), x, aux)
+        done = n // n2 * n2
+    return group(done, n)(x, aux)
+
+
 def _backbone(cfg: ArchConfig, fs: FlatSpec, segs: dict,
               tokens: torch.Tensor, pos: torch.Tensor, dtype: torch.dtype,
               cross_kv: torch.Tensor | None, mode: str = "train",
               cache: dict | None = None, kv_len=None,
-              ctx: ShardCtx | None = None
+              ctx: ShardCtx | None = None, remat: bool = False
               ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Embed -> cycles -> final norm. Returns (hidden, aux, top params).
 
     With ``cache`` each cycle c works on the views ``cache[kind][leaf][c]``
-    (the reference's serve body, whose carry is updated in place)."""
+    (the reference's serve body, whose carry is updated in place).
+    ``remat``: the cycle remat (training; module docstring)."""
     top = fs.top_params(segs["top_s"], segs["top_r"], dtype)
     x = embed_lookup(top["embed"], tokens, dtype, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cs, cr = segs["cycles_s"], segs["cycles_r"]
     ranked = ctx is not None and ctx.ranked
-    for c in range(fs.n_cycles):
+
+    def cyc(c, x, aux):
         cyc_cache = (None if cache is None
                      else tree_map(lambda a: a[c], cache))
         vs = cs[:, c] if ranked else cs[c]
         x, a = _apply_cycle(cfg, fs.cycle_params(vs, cr[c], dtype),
                             top.get("shared_attn"), x, pos, cross_kv, mode,
                             cyc_cache, kv_len, ctx)
-        aux = aux + a
+        return x, aux + a
+
+    x, aux = scan_cycles(cyc, fs.n_cycles, x, aux,
+                         remat and mode == "train")
     return rmsnorm(x, top["final_norm"], cfg.norm_eps), aux, top
 
 
@@ -206,11 +256,12 @@ def loss_fn(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict, *,
             remat: bool = True, ctx: ShardCtx | None = None) -> torch.Tensor:
     """Mean next-token CE (+ MoE aux). batch: tokens/labels (B, S), and
     optionally cross_kv (B, n_cross_tokens, d_model). At tp > 1 (``ctx``)
-    a (tp,) tensor: every rank's copy of the same loss."""
-    del remat  # see module docstring
+    a (tp,) tensor: every rank's copy of the same loss. ``remat``: the
+    cycle remat (module docstring)."""
     tokens = batch["tokens"]
     hid, aux, top = _backbone(cfg, fs, segs, tokens, _positions(tokens),
-                              dtype, batch.get("cross_kv"), ctx=ctx)
+                              dtype, batch.get("cross_kv"), ctx=ctx,
+                              remat=remat)
     return _loss_head(cfg, hid, aux, top, batch["labels"], ctx)
 
 
@@ -257,8 +308,11 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
     A stage that reads no top parameter gives ``None`` for them
     (``allow_unused``), and nothing is added: no zero tensor the size of
     ``top_s`` is made for it. Each stage's graph is freed by its backward.
+
+    ``remat``: each chunk runs its cycles in the cycle remat's structure
+    (``scan_cycles`` over the chunk's range, as the reference's
+    ``chunk_fn``), so a chunk's graph holds its groups' carries.
     """
-    del remat  # see module docstring
     tokens = batch["tokens"]
     pos = _positions(tokens)
     cross_kv = batch.get("cross_kv")
@@ -287,15 +341,17 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
             x_in = x.detach().requires_grad_()
             vs = segs["cycles_s"][a:b].detach().requires_grad_()
             vr = segs["cycles_r"][a:b].detach().requires_grad_()
-            y, cyc_shared = x_in, []
             aux = aux.detach()
-            for c in range(b - a):
-                pairs, shared_p = shared_leaves()
-                cyc_shared.append(pairs)
+            leaves = [shared_leaves() for _ in range(b - a)]
+            cyc_shared = [pairs for pairs, _ in leaves]
+
+            def cyc(c, y, aux, vs=vs, vr=vr, leaves=leaves):
                 y, a_c = _apply_cycle(
-                    cfg, fs.cycle_params(vs[c], vr[c], dtype), shared_p, y,
-                    pos, cross_kv)
-                aux = aux + a_c
+                    cfg, fs.cycle_params(vs[c], vr[c], dtype), leaves[c][1],
+                    y, pos, cross_kv)
+                return y, aux + a_c
+
+            y, aux = scan_cycles(cyc, b - a, x_in, aux, remat)
             stages.append((x_in, (y, aux), vs, vr, cyc_shared))
             x = y
         epi_in = x.detach().requires_grad_()

@@ -23,11 +23,16 @@ without a mesh, from the same params and batches), rank by rank:
 - (c) the Alg. 1 tree at P = 4 and P = 3 (parking): the tree all-reduce
   itself bit-equal to the simulation's (signed zeros included: a rank
   that receives nothing adds where(mask, x, 0), as the simulation's
-  rows do); the step's
-  first loss and EF bit-equal, the selections equal every step, losses
-  and params within 1e-6 relative after (the second round's exact
-  values are one psum over P workers: gloo's adds are in another order
-  than the simulation's row sum);
+  rows do); the step bit-equal: losses, params and EF (the second
+  round's exact values are one psum over P workers, which the mesh adds
+  as an ordered all-reduce in the simulation's worker order,
+  ``core.pgroup.fold_sum``); and at P = 4 with microbatch slices and
+  the global-norm clip (the norm's per-worker partial computed by the
+  call a process makes on its own row): bit-equal too;
+- (c') the psum all-reduce at P = 3 and 4 (an ordered all-reduce, as
+  every sum over more than two processes) bit-equal to the
+  simulation's left fold of the rows, on rows whose sum depends on the
+  order;
 - (d) gTop-k at P = 4: bit-equal (every merge is pairwise);
 - (e) fsdp at pod = 2 x data = 2 (the gathers over 'data', the
   reduce-scatter, gs-SGD over 'pod'): bit-equal; and at tp = 2 in the
@@ -57,6 +62,7 @@ from repro.models.flatten import init_flat_params as j_init_flat_params
 from repro.optim import make as j_opt
 from repro_torch.configs import SMOKES as T_SMOKES
 from repro_torch.core import allreduce as ar
+from repro_torch.core import pgroup
 from repro_torch.core.gs_sgd import MeshAxes, make_serve_fns
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import specs as tsp
@@ -182,13 +188,18 @@ WORLDS = {
                 "serve_fp8": serve("qwen3-4b", dtype=torch.bfloat16,
                                    comm=torch.float8_e4m3fn)},
     3: lambda: {"tree3_raw": tree(3),
+                "psum3_raw": dict(tree(3), kind="psum"),
                 "tree3": train((1, 3, 1), kw=dict(
                     compressor_kw=dict(GS_KW, allreduce_mode="tree"),
                     buckets=2))},
     4: lambda: {"tree4_raw": tree(4),
+                "psum4_raw": dict(tree(4), kind="psum"),
                 "tree4": train((1, 4, 1), kw=dict(
                     compressor_kw=dict(GS_KW, allreduce_mode="tree"),
                     buckets=2)),
+                "tree4_mb_clip": train((1, 4, 1), kw=dict(
+                    compressor_kw=dict(GS_KW, allreduce_mode="tree"),
+                    buckets=2, microbatch=1, clip_norm=0.5)),
                 "gtopk4": train((1, 4, 1), kw=dict(
                     compressor_name="gtopk", compressor_kw=dict(k=2048))),
                 "fsdp": train((2, 2, 1), arch="yi-9b", dp_mode="fsdp")},
@@ -321,8 +332,27 @@ def test_tree_allreduce_bit_equal(p):
 
 
 @pytest.mark.parametrize("p", [3, 4])
+def test_ordered_psum_bit_equal_left_fold(p):
+    """A sum over p > 2 processes (all-to-all, a left fold in group order,
+    all-gather) is the simulation's ``psum_allreduce``: the left fold of
+    the rows in worker order, bit for bit, on rows whose sum depends on
+    the order (signed zeros, 1e8 + 1)."""
+    case, res = world(p)[f"psum{p}_raw"]
+    x = torch.from_numpy(case["x"])
+    want = ar.psum_allreduce(x, p)
+    assert_bits(want[0], pgroup.fold_sum(x), "simulation")
+    for out in res:
+        assert_bits(out["y"][0], want[out["worker"]], f"worker "
+                    f"{out['worker']}")
+
+
+@pytest.mark.parametrize("p", [3, 4])
 def test_tree_step_matches_simulation(p):
-    hold_close(p, f"tree{p}", first_bits=True)
+    hold_bit_equal(p, f"tree{p}")
+
+
+def test_tree_step_microbatch_clip_bit_equal():
+    hold_bit_equal(4, "tree4_mb_clip")
 
 
 def test_gtopk_p4_bit_equal():

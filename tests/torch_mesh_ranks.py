@@ -1,7 +1,8 @@
 """Rank bodies for tests/test_torch_mesh.py: each runs in a process of its
 own (``launch.mesh.spawn``, gloo on the CPU), builds a process mesh and
-runs the port's train or serve step, or the tree all-reduce, on it. Torch only: the processes
-import nothing of JAX, so they start fast."""
+runs the port's train or serve step, or the tree or psum all-reduce, on
+it. Torch only: the processes import nothing of JAX, so they start
+fast."""
 
 from __future__ import annotations
 
@@ -101,6 +102,17 @@ def tree_case(case: dict) -> dict:
     return {"y": _host(y), "worker": pm.worker()}
 
 
+def psum_case(case: dict) -> dict:
+    """``allreduce.psum_allreduce`` (the ordered all-reduce beyond two
+    processes) over the data axis of this worker's row of ``case["x"]``."""
+    from repro_torch.core import allreduce as ar
+    pm, ma = _setup(case)
+    x = torch.from_numpy(np.array(case["x"]))[pm.worker()][None]
+    with ar.over(pm.axis("data")):
+        y = ar.psum_allreduce(x, ma.data)
+    return {"y": _host(y), "worker": pm.worker()}
+
+
 def serve_case(case: dict) -> dict:
     """Prefill, then decode steps fed the case's tokens, at tp = 2 on a
     model-only mesh, in the case's dtype and wire (``comm``: the fp8
@@ -131,7 +143,8 @@ def serve_case(case: dict) -> dict:
             "coords": dict(pm.coords)}
 
 
-CASES = {"train": train_case, "tree": tree_case, "serve": serve_case}
+CASES = {"train": train_case, "tree": tree_case, "psum": psum_case,
+         "serve": serve_case}
 
 
 def run_cases(rank: int, cases: list[dict]) -> list[dict]:
