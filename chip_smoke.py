@@ -369,13 +369,43 @@ Phases (any failure exits non-zero and prints no result line):
                 and off bit-equal, each one's peak; the train cell with
                 the remat off (train_noremat) against train (on, the
                 default): losses bit-equal, step seconds and peaks.
+14. roofline  — ``bench.roofline.main`` for both meshes fed the dry-run
+                phases' records (build/dryrun_torch/): every row finite,
+                the dry-run's cells joined with their peaks; dryrun_train's
+                row beside its record (analytic against executed FLOPs, the
+                step bound against the measured step); ``measure_encode`` on
+                the card at ROOFLINE_ENCODES (d 2^22 and train's bucket-0
+                d, W 2^14): whole and fused (4 offset fragments into one
+                exact sketch, one finish) bit-equal, and at 2^22 bit-equal
+                to ``sketch_encode_plain``; GB/s and the share of 3.35 TB/s.
+15. perf_iterations — ``bench.perf_iterations.main`` on the host: the
+                three climbs over the H100-priced roofline, printed.
+16. overlap_audit — ``bench.overlap_audit`` of build/train_traced_trace.json,
+                of a traced 3-step run of train_interleave's cell (buckets
+                4, 2 backward chunks, fused encode) through
+                ``launch.train.drive`` (counted: 3 steps and the probe), and
+                of a jitter-free simulator trace, which must pass ``check``
+                at OVERLAP_TOLERANCE; each phase delta and the realization
+                ratio printed.
+17. bench_host — ``bench.drift_audit``, ``sim_sweep``, ``sim_scale`` and
+                ``tune_sweep`` with ``--fast`` on the host (JSON under
+                build/bench_torch/); a nonzero exit or a failed assertion
+                fails.
+18. examples  — the four ``repro_torch.examples`` on the card, each counted:
+                quickstart (16 of 16 planted coordinates, replica
+                divergence 0), fault_tolerant_training (P = 5 -> 4, the
+                drop step, replicas equal), serve_batched (every request
+                finishes, no sketch kernel), train_lm_e2e (30 steps, then
+                ``--resume`` to 40 from its checkpoint under build/,
+                starting at 30, finite losses).
 
 Every path that launches kernels (train, train_traced, train_watched,
 train_ts, train_interleave, train_minicpm, train_elastic, train_moe,
 train_hybrid and its interleave, train_tp, train_fsdp, train_mesh,
 train_mesh_tree, train_mesh_tp, parity, parity_elastic, parity_families,
 parity_tp, parity_mesh, train_cnn, dryrun_train, dryrun_fsdp,
-train_noremat) runs with every
+train_noremat, measure_encode, overlap_audit's interleave run and each
+example) runs with every
 launch counter set to 0 just before and read just after; each kernel of
 the path must have launched, and the JSON line reports those counts (a
 mesh phase's summed over its processes, each zeroed in its process). The
@@ -384,7 +414,8 @@ serve phases run no kernel of the sketch path: their counts, summed
 ``launches_dryrun_serve``, ``launches_long_context``), must be 0. The
 dry-run's counts are its measured step's (``launches_dryrun_train``,
 ``launches_dryrun_fsdp``), the kernels at its shapes under
-``dryrun_shapes``. The
+``dryrun_shapes``. Phases 14-18's: ``launches_measure_encode``,
+``launches_overlap_interleave``, ``launches_example_<name>``. The
 kernels at the sharded cells' bucket shapes are under ``shard_shapes``.
 The
 select's slab-overflow counter is zeroed before each path too and read
@@ -5446,6 +5477,297 @@ def long_context_phase(torch, device, train_run: dict) -> dict:
     return {"counts": counts}
 
 
+# Phases 14-18: the roofline scripts, the audits, the host
+# benches and the examples (the docstring's phases 14-18).
+ROOFLINE_ENCODES = ((1 << 22, 5, 1 << 14),      # measure_encode's default
+                    (388_956_160, 5, 1 << 14))  # train's bucket 0 d
+OVERLAP_SIM_ARGV = ("--p", "4", "--d", "1000000", "--method", "gs-sgd",
+                    "--buckets", "4", "--bwd-chunks", "2", "--steps", "4",
+                    "--compute-jitter", "0")
+OVERLAP_TOLERANCE = 0.5
+LM_E2E_STEPS = (30, 40)     # train_lm_e2e: 30 steps, then resumed to 40
+
+
+def quiet(fn, path):
+    """``fn()`` with its standard output written to ``path``, not the log
+    (a bench's full table); returns (fn's result, the text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def roofline_phase(torch, device, dry: dict) -> dict:
+    """roofline (the docstring's phase 14): ``bench.roofline.main`` for
+    both meshes fed the dry-run phases' records (build/dryrun_torch/),
+    every row finite and the dry-run's cells joined with their peaks;
+    dryrun_train's row beside its record; ``measure_encode`` on the card
+    at ROOFLINE_ENCODES, whole and fused bit-equal (and equal to the plain
+    encode at the first size), counted. Returns {"counts"}."""
+    from repro_torch.bench import roofline
+    from repro_torch.core.count_sketch import SketchConfig
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.kernels.sketch_encode import sketch_encode_plain
+    dry_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    out_dir = os.path.join(ROOT, "build", "roofline_torch")
+    rows = {}
+    for mesh in ("single", "multi"):
+        got, _ = quiet(lambda: roofline.main(
+            ["--mesh", mesh, "--dryrun-dir", dry_dir, "--out-dir",
+             out_dir]), os.path.join(out_dir, f"{mesh}.txt"))
+        bad = roofline.check_rows(got)
+        if len(got) != 32 or bad:
+            fail(f"roofline {mesh}: {len(got)} rows; {bad}")
+        rows.update({(r["arch"], r["shape"], mesh): r for r in got})
+    for tag, arch, shape, mesh in DRYRUN_CELLS:
+        r = rows.get((arch, shape, mesh))
+        if r is None or r["peak_bytes_dev"] is None or not r["dryrun_flops"]:
+            fail(f"roofline: {tag}'s cell {arch} x {shape} x {mesh} has no "
+                 f"row joined with its dry-run record: {r}")
+        log(f"[roofline] {arch} x {shape} x {mesh}: compute "
+            f"{r['t_compute_s']:.4f} s, memory {r['t_memory_s']:.4f} s, "
+            f"collective {r['t_collective_s']:.4f} s ({r['dominant']}); "
+            f"bound {r['step_time_bound_s']:.4f} s, roofline_fraction "
+            f"{r['roofline_fraction']:.4f}; peak "
+            f"{r['peak_bytes_dev'] / 2**30:.2f} GiB")
+    r = rows[("qwen3-4b", "train_4k", "single")]
+    rec = dry["dryrun_train"]["records"][0]
+    log(f"[roofline] dryrun_train beside its record: FLOPs analytic "
+        f"{r['flops']:.4e} against executed {rec['cost']['flops']:.4e} "
+        f"(executed / analytic {rec['cost']['flops'] / r['flops']:.3f}); "
+        f"HBM bytes {r['hbm_bytes']:.4e}, wire bytes model "
+        f"{r['coll_bytes_model']:.4e} data {r['coll_bytes_data']:.4e}; step "
+        f"bound {r['step_time_bound_s']:.4f} s ({r['dominant']}) against "
+        f"the measured step {rec['step_seconds']:.4f} s (the device alone, "
+        "a fake world's collectives); the compute term "
+        f"{r['t_compute_s']:.4f} s is "
+        f"{r['t_compute_s'] / rec['step_seconds'] * 100:.2f}% of it")
+    LAUNCHES.clear()
+    for i, (d, rows_, width) in enumerate(ROOFLINE_ENCODES):
+        m = roofline.measure_encode(d=d, rows=rows_, width=width,
+                                    device=device)
+        whole, fused = m.pop("sketches")
+        if not m["bit_equal"]:
+            fail(f"roofline: measure_encode at d {d}: whole and fused "
+                 "sketches differ")
+        if i == 0:
+            gen = torch.Generator(device).manual_seed(0)
+            g = torch.randn((d,), generator=gen, device=device)
+            plain = sketch_encode_plain(
+                SketchConfig(rows=rows_, width=width, seed=0), g)
+            if not (_bits_equal(torch, whole, plain)
+                    and _bits_equal(torch, fused, plain)):
+                fail(f"roofline: measure_encode at d {d} is not bit-equal "
+                     "to sketch_encode_plain")
+            del g, plain
+        log(f"[roofline] measure_encode d {d:,}, R {rows_}, W {width:,}: "
+            f"whole {m['encode_s'] * 1e3:.3f} ms = "
+            f"{m['measured_Bps'] / 1e9:.2f} GB/s "
+            f"({m['hbm_fraction'] * 100:.2f}% of 3.35 TB/s), fused "
+            f"({m['fragments']} fragments + one finish) "
+            f"{m['fused_encode_s'] * 1e3:.3f} ms = "
+            f"{m['fused_measured_Bps'] / 1e9:.2f} GB/s "
+            f"({m['fused_hbm_fraction'] * 100:.2f}%); bit-equal"
+            + (" to each other and to plain" if i == 0 else ""))
+        del whole, fused
+    counts = dict(LAUNCHES)
+    check_launches("roofline measure_encode", counts,
+                   ("sketch_encode", "sketch_encode_finish"),
+                   ("sketch_decode", "heavymix_scores", "topk_select"))
+    return {"counts": counts}
+
+
+def perf_iterations_phase() -> None:
+    """perf_iterations (phase 15): ``bench.perf_iterations.main`` on the
+    host, its three climbs printed."""
+    from repro_torch.bench import perf_iterations
+    out = perf_iterations.main(["--out", os.path.join(ROOT, "build",
+                                                      "bench_torch")])
+    if len(out) != 4:
+        fail(f"perf_iterations: {len(out)} climbs")
+
+
+def overlap_audit_phase(torch, device) -> dict:
+    """overlap_audit (phase 16): ``bench.overlap_audit`` of the
+    train_traced phase's trace, of a traced 3-step run of
+    train_interleave's cell (buckets 4, 2 backward chunks, fused encode)
+    through ``launch.train.drive``, counted, and of a jitter-free
+    simulator trace, which must pass ``check`` at OVERLAP_TOLERANCE.
+    Returns {"counts"}."""
+    from repro_torch import obs
+    from repro_torch.bench import overlap_audit
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.simulate import main as simulate
+    build = os.path.join(ROOT, "build")
+    paths = [os.path.join(build, "train_traced_trace.json"),
+             os.path.join(build, "overlap_interleave_trace.json"),
+             os.path.join(build, "overlap_sim_trace.json")]
+    exchange = dataclasses.replace(
+        main_exchange(), buckets=INTERLEAVE_BUCKETS,
+        bwd_chunks=INTERLEAVE_CHUNKS, fuse_encode=True)
+    _, opt, ts = full_width_step(torch, device, exchange=exchange)
+    spec = cell_spec(ts, exchange)
+    tracer = obs.Tracer()
+    with plain_calls() as plain:
+        LAUNCHES.clear()
+        run = drive_cell(torch, ts, opt, spec, range(TRAIN_STEPS),
+                         tracer=tracer)
+        counts = dict(LAUNCHES)
+    del run["state"]
+    tracer.save(paths[1], spec=spec, provenance=obs.provenance(spec, device),
+                source="train")
+    if plain:
+        fail(f"overlap_audit: plain versions called on the card: {plain}")
+    for name, cnt in step_launches(ts).items():
+        if counts.get(name, 0) != cnt * (TRAIN_STEPS + 1):
+            fail(f"overlap_audit: {name} launched {counts.get(name, 0)} "
+                 f"times, not {cnt * (TRAIN_STEPS + 1)} ({TRAIN_STEPS} "
+                 "steps and the probe)")
+    log(f"[overlap_audit] interleave cell traced: losses {run['history']}, "
+        f"steps {[round(t, 4) for t in run['times']]} s; launches {counts}")
+    del ts
+    quiet(lambda: simulate(list(OVERLAP_SIM_ARGV) + ["--trace", paths[2]]),
+          os.path.join(build, "overlap_sim.txt"))
+    try:
+        res = overlap_audit.main(paths + [
+            "--tolerance", str(OVERLAP_TOLERANCE), "--out",
+            os.path.join(build, "bench_torch", "BENCH_obs.json")])
+    except SystemExit as e:
+        fail(f"overlap_audit: the simulator trace failed its check ({e})")
+    audits = res["audits"]
+    if [a["source"] for a in audits] != ["train", "train", "sim"]:
+        fail(f"overlap_audit: sources {[a['source'] for a in audits]}")
+    for a in audits:
+        name = os.path.basename(a["trace"])
+        log(f"[overlap_audit] {name}: phase deltas (measured - predicted, "
+            "s a step unit) " + json.dumps(
+                {ph: round(d["delta"], 6) for ph, d in
+                 a["phase_deltas"].items()})
+            + f"; realization ratio {a['realization_ratio']!r}; measured "
+            f"step {a['measured']['step_time']!r} s, scheduled "
+            f"{a['scheduled_step']!r}, serial {a['serial_step']!r}")
+    return {"counts": counts}
+
+
+def bench_host_phase() -> None:
+    """bench_host (phase 17): ``bench.drift_audit``, ``sim_sweep``,
+    ``sim_scale`` and ``tune_sweep`` with ``--fast`` on the host (their
+    JSON under build/bench_torch/); a nonzero exit or a failed assertion
+    fails."""
+    from repro_torch.bench import drift_audit, sim_scale, sim_sweep, \
+        tune_sweep
+    out = os.path.join(ROOT, "build", "bench_torch")
+    benches = (
+        ("drift_audit", lambda: drift_audit.main(
+            ["--fast", "--out", os.path.join(out, "BENCH_drift.json")])),
+        ("sim_sweep", lambda: sim_sweep.main(["--fast", "--out", out])),
+        ("sim_scale", lambda: sim_scale.main(["--fast", "--out", out])),
+        ("tune_sweep", lambda: tune_sweep.main(["--fast", "--out", out])))
+    secs = {}
+    for name, fn in benches:
+        t0 = time.time()
+        try:
+            rc = fn()
+        except AssertionError as e:
+            fail(f"bench_host: {name} failed its assertion: {e}")
+        if isinstance(rc, int) and rc != 0:
+            fail(f"bench_host: {name} exited {rc}")
+        secs[name] = time.time() - t0
+    log(f"[bench_host] all passed; host seconds "
+        + json.dumps({k: round(v, 2) for k, v in secs.items()}))
+
+
+def examples_phase(torch, device) -> dict:
+    """examples (phase 18): the four ``repro_torch.examples`` on the card,
+    each counted on its own: quickstart (16 of 16 planted coordinates
+    recovered, replica divergence 0), fault_tolerant_training (P = 5 -> 4,
+    the drop step, replicas equal), serve_batched (every request
+    finishes; no sketch kernel), train_lm_e2e (LM_E2E_STEPS: a run, then
+    a --resume from its checkpoint under build/ that starts where it
+    stopped; finite losses). Returns {"counts": example -> launches}."""
+    import shutil
+
+    from repro_torch.examples import (fault_tolerant_training, quickstart,
+                                      serve_batched, train_lm_e2e)
+    from repro_torch.kernels.dispatch import LAUNCHES
+    ckpt = os.path.join(ROOT, "build", "lm_e2e_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first, last = LM_E2E_STEPS
+    scores = ("sketch_encode", "sketch_encode_finish", "heavymix_scores",
+              "topk_select")
+    decode = ("sketch_encode", "sketch_encode_finish", "sketch_decode",
+              "topk_select")
+    dev = ["--device", str(device)]
+    runs = (
+        ("quickstart", lambda: quickstart.main(dev), scores),
+        ("fault_tolerant_training",
+         lambda: fault_tolerant_training.main(dev), scores),
+        ("serve_batched", lambda: serve_batched.main(dev), ()),
+        ("train_lm_e2e", lambda: [
+            train_lm_e2e.main(dev + ["--steps", str(first), "--ckpt-dir",
+                                     ckpt]),
+            train_lm_e2e.main(dev + ["--steps", str(last), "--resume",
+                                     "--ckpt-dir", ckpt])], decode))
+    counts, outs = {}, {}
+    for name, fn, route in runs:
+        t0 = time.time()
+        with plain_calls() as plain:
+            _sync(torch, device)
+            LAUNCHES.clear()
+            outs[name] = fn()
+            _sync(torch, device)
+            counts[name] = dict(LAUNCHES)
+        if plain:
+            fail(f"examples: {name} called plain versions on the card: "
+                 f"{plain}")
+        if route:
+            check_launches(f"examples {name}", counts[name], route)
+        elif counts[name]:
+            fail(f"examples: {name} launched {counts[name]}")
+        log(f"[examples] {name}: {time.time() - t0:.1f} s, launches "
+            f"{counts[name]}")
+    q = outs["quickstart"]
+    if (q["sketch"]["recovered"], q["sketch"]["k"]) != (16, 16) or \
+            q["train"]["divergence"] != 0.0:
+        fail(f"examples: quickstart recovered {q['sketch']['recovered']} "
+             f"of 16, divergence {q['train']['divergence']}")
+    ft = outs["fault_tolerant_training"]
+    if ((ft["p_before"], ft["p_after"]) != (5, 4)
+            or ft["mask"] != [True, False, True, True]
+            or len(ft["losses"]) != 9 or ft["divergence"] != 0.0):
+        fail(f"examples: fault_tolerant_training {ft}")
+    sb = outs["serve_batched"]
+    if sb["completed"] != sb["requests"] or \
+            sb["free_blocks"] != sb["num_blocks"] - 1:
+        fail(f"examples: serve_batched finished {sb['completed']} of "
+             f"{sb['requests']} requests")
+    a, b = outs["train_lm_e2e"]
+    losses = list(a["losses"].values()) + list(b["losses"].values())
+    if (a["start"] != 0 or b["start"] != first or sorted(b["losses"])
+            != list(range(first, last))
+            or not all(math.isfinite(x) for x in losses)):
+        fail(f"examples: train_lm_e2e starts {a['start']} / {b['start']}, "
+             f"losses {losses}")
+    log(f"[examples] quickstart: 16/16 recovered, est[0] "
+        f"{q['sketch']['est0']:.4f}, divergence 0; fault_tolerant: P 5 -> "
+        f"4, mask {ft['mask']}, losses {[round(x, 4) for x in ft['losses']]}"
+        f", divergence 0; serve_batched: {sb['completed']} of "
+        f"{sb['requests']} requests, {sb['tokens']} tokens, steady "
+        f"{sb['tok_per_s']:.1f} tok/s (host clock); train_lm_e2e: "
+        f"{a['params']:,} params, step 0 loss {a['losses'][0]:.4f}, step "
+        f"{first - 1} {a['losses'][first - 1]:.4f}, resumed at "
+        f"{b['start']}, step {last - 1} {b['losses'][last - 1]:.4f}; "
+        f"train seconds {a['train_s']:.2f} + {b['train_s']:.2f}, with the "
+        f"checkpoints {a['seconds']:.2f} + {b['seconds']:.2f}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"counts": counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5659,7 +5981,31 @@ def main() -> int:
     t0 = time.time()
     long_ctx = long_context_phase(torch, device, train_run)
     log(f"[long_context] phase took {time.time() - t0:.1f} s")
+    t_new = t0 = time.time()
+    roof = roofline_phase(torch, device, dry)
+    torch.cuda.empty_cache()
+    log(f"[roofline] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    perf_iterations_phase()
+    log(f"[perf_iterations] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    overlap = overlap_audit_phase(torch, device)
+    torch.cuda.empty_cache()
+    log(f"[overlap_audit] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    bench_host_phase()
+    log(f"[bench_host] phase took {time.time() - t0:.1f} s")
+    t0 = time.time()
+    examples = examples_phase(torch, device)
+    log(f"[examples] phase took {time.time() - t0:.1f} s")
+    log(f"[roofline .. examples] the five phases took "
+        f"{time.time() - t_new:.1f} s")
     for kr in kernels:
+        kr["launches_measure_encode"] = roof["counts"].get(kr["name"], 0)
+        kr["launches_overlap_interleave"] = overlap["counts"].get(
+            kr["name"], 0)
+        for name, c in examples["counts"].items():
+            kr[f"launches_example_{name}"] = c.get(kr["name"], 0)
         kr["launches_serve"] = serve_counts.get(kr["name"], 0)
         kr["launches_serve_tp"] = serve_tp["counts"].get(kr["name"], 0)
         for tag in ("dryrun_train", "dryrun_fsdp", "dryrun_serve"):

@@ -99,7 +99,8 @@ def test_port_imports_neither_jax_nor_repro():
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (f, mod)
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks",
+                               "examples"), (f, mod)
 
 
 def test_entry_points_refuse_silent_cpu(monkeypatch):
@@ -114,6 +115,12 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
                         make("adamw"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--spec", SPEC, "--steps", "1"])
+    from repro_torch.bench import roofline
+    from repro_torch.examples import quickstart
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        roofline.measure_encode(d=1000)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quickstart.main([])
 
 
 def _wrapper_calls():
