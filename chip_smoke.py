@@ -94,9 +94,12 @@ Phases (any failure exits non-zero and prints no result line):
                 and step, for both workers; the decode for buckets 0-2, the
                 scores kernel for bucket 3, the select for each; no plain
                 version called); one more step with each fused sketch held
-                against the whole-bucket encode of the same u; one
-                profiled step (profile_interleave: split, idle share, peak
-                memory); then three steps of the same cell with
+                against the whole-bucket encode of the same u; one whose
+                worker-0 packed gradient of each bucket runs the route's
+                kernels bit-equal to plain, timed at these buckets-4
+                shapes (interleave_shapes); one profiled step
+                (profile_interleave: split, idle share, peak memory); then
+                three steps of the same cell with
                 bwd_chunks=None from the same seed (train_bucketed4): the
                 first losses equal, the later ones within
                 INTERLEAVE_LOSS_RTOL, and after the three steps the same
@@ -193,6 +196,26 @@ Phases (any failure exits non-zero and prints no result line):
                 with the selection zeroed) holds every worker's cycles_s
                 shard against the sum over its pod of the workers' full
                 gradients, sliced (FSDP_SCATTER_RTOL).
+6g'. train_tp_interleave, train_fsdp_interleave — the 6f and 6g cells at
+                buckets 4 with the chunked backward (2 chunks: one cycle
+                a chunk) and the fused interleave, one backward serving
+                every exchange group (a model rank; in fsdp a data
+                shard): the partial encodes at the cells' fragment
+                shapes bit-equal to the whole-bucket encode and timed;
+                three counted steps (a partial encode per fragment and
+                (rank, worker): 84; a finish per bucket and group: 24;
+                the select 48; the decode 36 and the scores kernel 12,
+                the last bucket being under 2^22); one step with every
+                group's fused sketch held against the whole-bucket
+                encode; one whose rank-0 worker-0 gradient runs the
+                route's kernels bit-equal to plain, timed at the cells'
+                buckets-4 shapes (shard_shapes); one profiled
+                (profile_*_interleave); then the same cell at buckets 4
+                without chunks (train_*_bucketed4), held as 6 holds
+                train_interleave: first losses equal, the later within
+                INTERLEAVE_LOSS_RTOL, the same selections, params within
+                INTERLEAVE_PARAM_*; one profiled step of it
+                (profile_*_bucketed4).
 6h. train_mesh — the process mesh (``launch/mesh.py``): the train cell
                 (qwen3-4b widths, 2 layers, buckets 2, psum, AdamW, the
                 same seed and batches) with one worker a process, 2
@@ -224,7 +247,12 @@ Phases (any failure exits non-zero and prints no result line):
                 WITNESS_* bounds (the card rounds the batched ranks
                 otherwise; PERF.md). Each process's losses, selections
                 and final state are held bit for bit against the
-                witness's.
+                witness's. Then train_mesh_tp_interleave: the same cell
+                with 2 backward chunks and the fused interleave (buckets
+                2), against its own witness (the simulated interleave
+                under per_rank_kernels; its recoveries position by
+                position over the ranks), bit for bit, each process
+                launching the interleave's counts (18 / 6 / 6 / 6).
 7. parity    — two steps of examples/specs/qwen3_smoke.json on the card
                 (kernels) and on the CPU (plain versions) from the same
                 params and batches: losses and selected coordinates agree.
@@ -381,12 +409,16 @@ Phases (any failure exits non-zero and prints no result line):
 15. perf_iterations — ``bench.perf_iterations.main`` on the host: the
                 three climbs over the H100-priced roofline, printed.
 16. overlap_audit — ``bench.overlap_audit`` of build/train_traced_trace.json,
-                of a traced 3-step run of train_interleave's cell (buckets
-                4, 2 backward chunks, fused encode) through
-                ``launch.train.drive`` (counted: 3 steps and the probe), and
-                of a jitter-free simulator trace, which must pass ``check``
-                at OVERLAP_TOLERANCE; each phase delta and the realization
-                ratio printed.
+                of traced 3-step runs of train_interleave's and
+                train_tp_interleave's cells (buckets 4, 2 backward chunks,
+                fused encode) through ``launch.train.drive`` (counted: 3
+                steps and the probe), and of a jitter-free simulator
+                trace, which must pass ``check`` at OVERLAP_TOLERANCE;
+                each phase delta, the realization ratio and the audit's
+                measured-stage schedule printed, and for both interleave
+                traces the same recurrence with the step's own plan
+                readiness (``plan_schedule``): what a second stream
+                could hide.
 17. bench_host — ``bench.drift_audit``, ``sim_sweep``, ``sim_scale`` and
                 ``tune_sweep`` with ``--fast`` on the host (JSON under
                 build/bench_torch/); a nonzero exit or a failed assertion
@@ -401,8 +433,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 Every path that launches kernels (train, train_traced, train_watched,
 train_ts, train_interleave, train_minicpm, train_elastic, train_moe,
-train_hybrid and its interleave, train_tp, train_fsdp, train_mesh,
-train_mesh_tree, train_mesh_tp, parity, parity_elastic, parity_families,
+train_hybrid and its interleave, train_tp, train_fsdp, their
+interleaves, train_mesh, train_mesh_tree, train_mesh_tp and its
+interleave, parity, parity_elastic, parity_families,
 parity_tp, parity_mesh, train_cnn, dryrun_train, dryrun_fsdp,
 train_noremat, measure_encode, overlap_audit's interleave run and each
 example) runs with every
@@ -415,7 +448,10 @@ serve phases run no kernel of the sketch path: their counts, summed
 dry-run's counts are its measured step's (``launches_dryrun_train``,
 ``launches_dryrun_fsdp``), the kernels at its shapes under
 ``dryrun_shapes``. Phases 14-18's: ``launches_measure_encode``,
-``launches_overlap_interleave``, ``launches_example_<name>``. The
+``launches_overlap_interleave``, ``launches_overlap_tp_interleave``,
+``launches_example_<name>``. The sharded interleaves': ``launches_train_tp_interleave``,
+``launches_train_fsdp_interleave``; 6j's interleave:
+``launches_train_mesh_tp_interleave``. The
 kernels at the sharded cells' bucket shapes are under ``shard_shapes``.
 The
 select's slab-overflow counter is zeroed before each path too and read
@@ -1687,7 +1723,8 @@ def profile_call(torch, tag, fn):
     return result, out
 
 
-def fragment_encode_checks(torch, device, ts) -> tuple[list[dict], dict]:
+def fragment_encode_checks(torch, device, ts, tag="train_interleave"
+                           ) -> tuple[list[dict], dict]:
     """The fused encode's launches at the fragment sizes the interleaved
     cell gives them: each fragment of each bucket added at its offset into
     an exact sketch of its own, the partials summed (as integers) and
@@ -1748,7 +1785,7 @@ def fragment_encode_checks(torch, device, ts) -> tuple[list[dict], dict]:
                "whole_ms": whole_ms,
                "whole_bound_ms": bound_ms(d * 4 + R * W * 4, d * R * 7.0)[0],
                "max_abs_err": err, "bit_equal": same}
-        log(f"[train_interleave] encode bucket {b} (d={d}, R={R}, W={W}): "
+        log(f"[{tag}] encode bucket {b} (d={d}, R={R}, W={W}): "
             f"{len(fr)} partial(s) {[round(x, 4) for x in frag_ms]} ms = "
             f"{sum(frag_ms):.4f} ms + merge (integer sum and finish) "
             f"{merge_ms:.4f} ms, whole-bucket encode {whole_ms:.4f} ms; "
@@ -1773,7 +1810,7 @@ def fragment_encode_checks(torch, device, ts) -> tuple[list[dict], dict]:
                 "src/repro/kernels/sketch_encode.py:87",
                 float((fin - fin_p).abs().max()), ms, plain_ms,
                 bound_ms(cells * (24 + 4 + 4), cells * 12.0), None)
-            log(f"[train_interleave] sketch_encode_finish of {ts.nworkers} x "
+            log(f"[{tag}] sketch_encode_finish of {ts.nworkers} x "
                 f"({R}, {W}) exact sketches: {ms:.4f} ms, bit-equal to plain "
                 f"({plain_ms:.3f} ms)")
             del both, fin, fin_p
@@ -1817,15 +1854,17 @@ class plain_calls:
             setattr(mod, name, f)
 
 
-def fused_sketch_check(torch, ts, state, stream):
+def fused_sketch_check(torch, ts, state, stream, tag="train_interleave"):
     """One more interleaved step (not counted) in which every bucket's
-    merged sketch is held against the whole-bucket encode of the same u
+    merged sketch (each exchange group's, on the sharded layouts) is held
+    against the whole-bucket encode of the same u
     (``GsSGD.stage_encode_merge``, wrapped for this step only): bit-equal,
     and within ENCODE_REL_TOL * max|S|."""
     from repro_torch.core import compression as comp
     from repro_torch.launch.train import shard_batch
     orig = comp.GsSGD.stage_encode_merge
     sizes = list(ts.compressor.spec.sizes)
+    index = {id(c): b for b, c in enumerate(ts.compressor.parts)}
     seen = {}
 
     def checked(self, pieces):
@@ -1834,7 +1873,8 @@ def fused_sketch_check(torch, ts, state, stream):
         err = float((sk.to(torch.float32) - whole).abs().max())
         lim = ENCODE_REL_TOL * float(whole.abs().max())
         same = _bits_equal(torch, sk.to(torch.float32).contiguous(), whole)
-        seen[sizes.index(u.shape[-1])] = (len(pieces), err, lim, same)
+        seen.setdefault(index[id(self)], []).append(
+            (len(pieces), err, lim, same))
         return u, sk
 
     comp.GsSGD.stage_encode_merge = checked
@@ -1845,13 +1885,20 @@ def fused_sketch_check(torch, ts, state, stream):
         float(m["loss"])
     finally:
         comp.GsSGD.stage_encode_merge = orig
-    if sorted(seen) != list(range(len(sizes))):
-        fail(f"the fused merge ran for buckets {sorted(seen)} only")
-    for b, (n, err, lim, same) in sorted(seen.items()):
-        log(f"[train_interleave] fused sketch bucket {b} ({n} fragment(s)): "
-            f"bit-equal to the whole-bucket encode of the same u: {same}; "
-            f"max_abs_err {err:.4g} (limit {lim:.4g} = {ENCODE_REL_TOL} * "
-            "max|S|)")
+    groups = max(1, len(ts.comp_groups))
+    if sorted(seen) != list(range(len(sizes))) or any(
+            len(v) != groups for v in seen.values()):
+        fail(f"the fused merge ran for buckets {sorted(seen)} "
+             f"({[len(v) for v in seen.values()]} times), not each bucket "
+             f"once for each of {groups} exchange group(s)")
+    for b, runs in sorted(seen.items()):
+        n = runs[0][0]
+        err, lim = max(r[1] for r in runs), min(r[2] for r in runs)
+        same = all(r[3] for r in runs)
+        log(f"[{tag}] fused sketch bucket {b} ({n} fragment(s), "
+            f"{len(runs)} exchange group(s)): bit-equal to the whole-bucket "
+            f"encode of the same u: {same}; max_abs_err {err:.4g} (limit "
+            f"{lim:.4g} = {ENCODE_REL_TOL} * max|S|)")
         if not err <= lim:
             fail(f"fused sketch of bucket {b} differs from the whole-bucket "
                  f"encode: {err} > {lim}")
@@ -1861,11 +1908,20 @@ def fused_sketch_check(torch, ts, state, stream):
     return state
 
 
+def _ef_leaves(ef) -> list:
+    """An EF state's tensors: a bucket each, or (sharded layouts) each
+    exchange group's buckets in group order."""
+    if isinstance(ef, (tuple, list)):
+        return [t for e in ef for t in _ef_leaves(e)]
+    return [ef]
+
+
 def _snapshot(state) -> dict:
-    """Worker 0's params and every worker's EF zero pattern (the last
-    step's selected coordinates), copied to the host."""
+    """The params' first row (worker 0's; model rank 0's workers on the
+    sharded layouts) and every worker's EF zero pattern (the last step's
+    selected coordinates), copied to the host."""
     return {"params": {k: v[0].cpu() for k, v in state["params"].items()},
-            "selected": [(e == 0).cpu() for e in state["ef"]]}
+            "selected": [(e == 0).cpu() for e in _ef_leaves(state["ef"])]}
 
 
 def compare_snapshots(got, want, tag="train_interleave") -> None:
@@ -1893,40 +1949,73 @@ def compare_snapshots(got, want, tag="train_interleave") -> None:
              f"at {bad} coordinates (max {worst})")
 
 
-def train_interleave_phase(torch, device) -> dict:
-    """The full-width cell at buckets=4 with the chunked backward and the
-    fused encode, against the same cell's bucketed step (see the module
-    docstring, phase 6). Returns the launch counts and the fragment rows."""
-    cfg, opt, ts = full_width_step(torch, device, buckets=INTERLEAVE_BUCKETS,
-                                   bwd_chunks=INTERLEAVE_CHUNKS,
-                                   fuse_encode=True)
+def interleave_phase(torch, device, tag, build) -> dict:
+    """A cell at buckets 4 with the chunked backward and the fused
+    interleave (``tag``; ``build(exchange)`` gives the cell's (cfg, opt,
+    step)): the partial encodes at the cell's fragment shapes bit-equal
+    to the whole-bucket encode and timed; three counted steps
+    (``check_interleave_launches``: a partial encode per fragment and
+    (rank, worker), a finish per bucket and exchange group); one more
+    step with every fused sketch (every group's) held against the
+    whole-bucket encode; one whose worker-0 packed gradient of each
+    bucket runs the route's kernels bit-equal to plain, timed at the
+    cell's buckets-4 shapes; one profiled (``profile_`` + the tag without
+    ``train_``); then three steps of the same cell at buckets 4 without
+    chunks from the same seed (the tag's ``interleave`` read
+    ``bucketed4``): the first losses equal, the later within
+    INTERLEAVE_LOSS_RTOL, the same selections, the params within
+    INTERLEAVE_PARAM_*; one profiled step of it (module docstring,
+    phases 6 and 6g')."""
+    cfg, opt, ts = build(interleave_exchange())
+    if not (ts.interleave and ts.bwd_chunks == INTERLEAVE_CHUNKS):
+        fail(f"{tag}: the step does not run the interleave (interleave "
+             f"{ts.interleave}, bwd_chunks {ts.bwd_chunks})")
     frags = ts.plan.fragments()
-    n_frags = sum(len(f) for f in frags)
-    log(f"[train_interleave] plan: sizes {list(ts.plan.sizes)}, readiness "
-        f"{list(ts.plan.readiness)}, order {list(ts.plan.order)}, chunks "
-        f"{list(ts.plan.chunks)}; fragments {frags} ({n_frags} a worker)")
-    frag_rows, finish_row = fragment_encode_checks(torch, device, ts)
+    log(f"[{tag}] d_local {ts.d_local}; plan: sizes {list(ts.plan.sizes)}, "
+        f"readiness {list(ts.plan.readiness)}, order {list(ts.plan.order)}, "
+        f"chunks {list(ts.plan.chunks)}; fragments {frags} "
+        f"({sum(len(f) for f in frags)} a worker); exchange groups "
+        f"{[(r, list(range(*sl.indices(ts.nworkers)))) for r, sl in ts.comp_groups]}")
+    frag_rows, finish_row = fragment_encode_checks(torch, device, ts, tag=tag)
     with plain_calls() as plain:
-        run = train_phase(torch, cfg, opt, ts, tag="train_interleave")
+        run = train_phase(torch, cfg, opt, ts, tag=tag)
     counts = run["counts"]
-    check_interleave_launches("train_interleave", ts, counts, plain)
+    check_interleave_launches(tag, ts, counts, plain)
     snap = _snapshot(run["state"])
-    state = fused_sketch_check(torch, ts, run.pop("state"), run["stream"])
-    state, _ = profile_phase(torch, ts, state, run["stream"],
-                             tag="profile_interleave")
+    state = fused_sketch_check(torch, ts, run.pop("state"), run["stream"],
+                               tag=tag)
+    state, got = capture_step(torch, ts, state, run["stream"])
+    state, prof = profile_phase(torch, ts, state, run["stream"],
+                                tag="profile_" + tag[len("train_"):])
     del state
     torch.cuda.empty_cache()
-    _, _, ts_b = full_width_step(torch, device, buckets=INTERLEAVE_BUCKETS)
-    base = train_phase(torch, cfg, opt, ts_b, tag="train_bucketed4")
-    compare_snapshots(snap, _snapshot(base["state"]))
+    shapes = route_checks(torch, tag, ts.compressor.parts, got, timed=True)
+    del ts, got
+    torch.cuda.empty_cache()
+    base_tag = tag.replace("interleave", "bucketed4")
+    _, _, ts_b = build(dataclasses.replace(main_exchange(),
+                                           buckets=INTERLEAVE_BUCKETS))
+    base = train_phase(torch, cfg, opt, ts_b, tag=base_tag)
+    compare_snapshots(snap, _snapshot(base["state"]), tag=tag)
     del snap
-    state, _ = profile_phase(torch, ts_b, base.pop("state"),
-                             base["stream"], tag="profile_bucketed4")
+    state, prof_b = profile_phase(torch, ts_b, base.pop("state"),
+                                  base["stream"],
+                                  tag="profile_" + base_tag[len("train_"):])
     del state, ts_b
     torch.cuda.empty_cache()
-    check_interleaved_losses("train_interleave", run, base)
+    check_interleaved_losses(tag, run, base)
     return {"counts": counts, "fragments": frag_rows,
-            "finish_row": finish_row}
+            "finish_row": finish_row, "shapes": shapes,
+            "times": run["times"], "peak": run["peak"], "profile": prof,
+            "base_times": base["times"], "base_peak": base["peak"],
+            "base_profile": prof_b}
+
+
+def train_interleave_phase(torch, device) -> dict:
+    """The main path's cell through ``interleave_phase``."""
+    return interleave_phase(
+        torch, device, "train_interleave",
+        lambda ex: full_width_step(torch, device, exchange=ex))
 
 
 def decode_route(part, d: int) -> bool:
@@ -1937,18 +2026,23 @@ def decode_route(part, d: int) -> bool:
     return not part.faithful_heavymix and d > _CHUNK and d > 4 * part.k
 
 
-def check_interleave_launches(tag, ts, counts, plain) -> int:
+def check_interleave_launches(tag, ts, counts, plain,
+                              one_process=False) -> int:
     """The fused interleave's launch counts: a partial encode per fragment
-    and worker, one finish per bucket (each merge finishes every worker's
-    sketch), a select per recovery, and the decode or the scores kernel
-    per recovery as each bucket's size and k route it (``decode_route``);
-    no plain version. Returns the fragments a worker."""
+    and (model rank, worker), one finish per bucket and exchange group
+    (each merge finishes the group's workers' sketches), a select per
+    recovery, and the decode or the scores kernel per recovery as each
+    bucket's size and k route it (``decode_route``); no plain version.
+    ``one_process``: one process of a mesh (one rank, one worker, one
+    group), ``ts`` its simulated step. Returns the fragments a worker."""
     n_frags = sum(len(f) for f in ts.plan.fragments())
     n_dec = sum(decode_route(c, d) for c, d in zip(ts.compressor.parts,
                                                     ts.compressor.spec.sizes))
-    per = ts.nworkers * TRAIN_STEPS
+    pairs = 1 if one_process else ts.ma.tp * ts.nworkers
+    groups = 1 if one_process else max(1, len(ts.comp_groups))
+    per = pairs * TRAIN_STEPS
     want = {"sketch_encode": n_frags * per,
-            "sketch_encode_finish": ts.n_buckets * TRAIN_STEPS,
+            "sketch_encode_finish": ts.n_buckets * groups * TRAIN_STEPS,
             "topk_select": ts.n_buckets * per,
             "sketch_decode": n_dec * per,
             "heavymix_scores": (ts.n_buckets - n_dec) * per}
@@ -1961,8 +2055,10 @@ def check_interleave_launches(tag, ts, counts, plain) -> int:
     if plain:
         fail(f"plain versions called on the {tag} path: {plain}")
     log(f"[{tag}] sketch_encode launches {want['sketch_encode']} = "
-        f"{n_frags} fragments x {ts.nworkers} workers x {TRAIN_STEPS} "
-        f"steps; {n_dec} bucket(s) on the decode route, "
+        f"{n_frags} fragments x {pairs} (model rank, worker) pair(s) x "
+        f"{TRAIN_STEPS} steps; finish {ts.n_buckets} buckets x {groups} "
+        f"exchange group(s) x {TRAIN_STEPS}; {n_dec} bucket(s) on the "
+        "decode route, "
         f"{ts.n_buckets - n_dec} on the scores route ({want}); no plain "
         "version called")
     return n_frags
@@ -3403,22 +3499,23 @@ def drive_cell(torch, ts, opt, spec, steps, state=None, **kw):
 
 
 def step_launches(ts) -> dict:
-    """The launches one step of ``ts`` makes on the card: per worker and
-    bucket an encode, its finish (once a bucket for a fused merge, which
-    finishes every worker's sketch), the decode past the reference's
-    chunked threshold (d > 2^22 and d > 4k) or the scores kernel below it,
-    and the select."""
+    """The launches one step of ``ts`` makes on the card: per (model
+    rank, worker) and bucket an encode, its finish (once a bucket and
+    exchange group for a fused merge, which finishes the group's workers'
+    sketches), the decode past the reference's chunked threshold (d >
+    2^22 and d > 4k) or the scores kernel below it, and the select."""
     import collections
 
     from repro_torch.core.heavymix import _CHUNK
     want = collections.Counter()
-    p = ts.nworkers
+    p = ts.ma.tp * ts.nworkers
+    groups = max(1, len(ts.comp_groups))
     sizes = ts.compressor.spec.sizes
     frags = ts.plan.fragments() if ts.fuse_encode else None
     for i, (c, d) in enumerate(zip(ts.compressor.parts, sizes)):
         if frags is not None:
             want["sketch_encode"] += p * len(frags[i])
-            want["sketch_encode_finish"] += 1
+            want["sketch_encode_finish"] += groups
         else:
             want["sketch_encode"] += p
             want["sketch_encode_finish"] += p
@@ -4342,6 +4439,45 @@ def train_fsdp_phase(torch, device) -> dict:
     return {**run, "shapes": shapes}
 
 
+def interleave_exchange(buckets=INTERLEAVE_BUCKETS):
+    """The main path's exchange at ``buckets`` with the chunked backward
+    (INTERLEAVE_CHUNKS) and the fused encode."""
+    return dataclasses.replace(main_exchange(), buckets=buckets,
+                               bwd_chunks=INTERLEAVE_CHUNKS,
+                               fuse_encode=True)
+
+
+def sharded_build(torch, device, cfg, ma, dp_mode="dp"):
+    """The ``build`` that ``interleave_phase`` takes, for a sharded cell."""
+    def build(exchange):
+        return (cfg,) + sharded_step(torch, device, cfg, ma, dp_mode,
+                                     kw={"spec": exchange})
+    return build
+
+
+def train_tp_interleave_phase(torch, device) -> dict:
+    """train_tp's cell (qwen3-4b widths, 2 layers, tp = TP x data =
+    TP_DATA) through ``interleave_phase``."""
+    from repro_torch.configs.qwen3_4b import CONFIG
+    from repro_torch.core.gs_sgd import MeshAxes
+    return interleave_phase(
+        torch, device, "train_tp_interleave",
+        sharded_build(torch, device, dataclasses.replace(CONFIG, n_layers=2),
+                      MeshAxes(tp=TP, data=TP_DATA)))
+
+
+def train_fsdp_interleave_phase(torch, device) -> dict:
+    """train_fsdp's cell (yi-9b widths, 2 layers, fsdp at pod = FSDP_POD
+    x data = FSDP_DATA) through ``interleave_phase``."""
+    from repro_torch.configs.yi_9b import CONFIG
+    from repro_torch.core.gs_sgd import MeshAxes
+    return interleave_phase(
+        torch, device, "train_fsdp_interleave",
+        sharded_build(torch, device, dataclasses.replace(CONFIG, n_layers=2),
+                      MeshAxes(tp=1, data=FSDP_DATA, pod=FSDP_POD,
+                               tp_axis=None, pod_axis="pod"), "fsdp"))
+
+
 def sharded_cell(torch, cfg, ma, dp_mode, kw, dev, opt_kw=None):
     """The smoke cell of ``cfg`` on mesh ``ma`` (simulated, or a process
     mesh's) on ``dev``: (train step, state, ``batch_at(step)``). Params
@@ -4752,7 +4888,9 @@ def _mesh_cell(torch, cell, ma, device):
                             record=False, ma=ma)[:3]
     from repro_torch.configs.qwen3_4b import CONFIG
     cfg = dataclasses.replace(CONFIG, n_layers=2)
-    return (cfg,) + sharded_step(torch, device, cfg, ma)
+    kw = ({"spec": interleave_exchange(2)}
+          if cell == "train_mesh_tp_interleave" else None)
+    return (cfg,) + sharded_step(torch, device, cfg, ma, kw=kw)
 
 
 def mesh_train_body(rank, cell, shape):
@@ -4760,10 +4898,22 @@ def mesh_train_body(rank, cell, shape):
     steps (``train_phase``: counts zeroed before, read after, this
     process's peak) with every plain version counted, the state's
     fingerprints, the host staging (``core.pgroup.STAGING``) over the
-    counted steps, and one traced step's staged spans."""
+    counted steps, and one traced step's staged spans. ``cell``: one
+    cell, or a tuple of cells run in turn on the one mesh (a list of
+    results)."""
     import torch
-    from repro_torch.core import pgroup
     pm, ma, device = mesh_setup(torch, shape)
+    if isinstance(cell, tuple):
+        out = []
+        for c in cell:
+            out.append(_mesh_train_cell(torch, rank, c, pm, ma, device))
+            torch.cuda.empty_cache()
+        return out
+    return _mesh_train_cell(torch, rank, cell, pm, ma, device)
+
+
+def _mesh_train_cell(torch, rank, cell, pm, ma, device):
+    from repro_torch.core import pgroup
     cfg, opt, ts = _mesh_cell(torch, cell, ma, device)
     pgroup.reset_staging()
     with plain_calls() as plain, kept_recoveries() as kept:
@@ -4798,12 +4948,14 @@ def kept_host(kept: dict) -> dict:
 
 
 def selection_diffs(torch, got: dict, want: dict, nb: int, rank: int,
-                    tp: int) -> list:
+                    tp: int, interleaved: bool = False) -> list:
     """Each counted step's count of coordinates that one run selects and
     the other does not, over its ``nb`` buckets: ``got`` a run's kept
     recoveries of model rank ``rank`` (a process's: its buckets a step;
     or a simulation's, ``rank`` < 0: every model rank's buckets a step),
-    ``want`` a simulation's of ``tp`` ranks."""
+    ``want`` a simulation's of ``tp`` ranks: rank by rank, or with
+    ``interleaved`` (one backward serving every rank's exchange) the
+    ranks' recoveries of each position in turn."""
     per = nb if rank >= 0 else tp * nb
     steps = len(got["idx"]) // per
     if len(want["idx"]) != steps * tp * nb:
@@ -4815,7 +4967,8 @@ def selection_diffs(torch, got: dict, want: dict, nb: int, rank: int,
         for r in ([rank] if rank >= 0 else range(tp)):
             for b in range(nb):
                 a = got["idx"][s * per + (0 if rank >= 0 else r * nb) + b]
-                w = want["idx"][(s * tp + r) * nb + b]
+                w = want["idx"][(s * nb + b) * tp + r if interleaved
+                                else (s * tp + r) * nb + b]
                 n += int((~torch.isin(a, w)).sum()
                          + (~torch.isin(w, a)).sum())
         out.append(n)
@@ -4839,10 +4992,12 @@ def spawn_ranks(torch, body, world, *args) -> tuple[list, float]:
 
 
 def hold_mesh_run(torch, tag, results, ref: dict, recoveries,
-                  decode=True, exact=True) -> dict:
+                  decode=True, exact=True, launches=None,
+                  interleaved=False) -> dict:
     """Each rank of a mesh train phase against the one-process run ``ref``
     (``mesh_ref``): its route's kernels ``recoveries`` times in each
-    process and no plain version called; every step's selections equal;
+    process and no plain version called (or ``launches(who, counts,
+    plain)`` checks them); every step's selections equal;
     ``exact``: the losses and every tensor of the final state bit-equal;
     else the first loss bit-equal, every loss within MESH_RTOL relative
     and no sampled value of the final state beyond MESH_RTOL (relative
@@ -4852,14 +5007,17 @@ def hold_mesh_run(torch, tag, results, ref: dict, recoveries,
     for res in results:
         key = (res["coords"]["model"], res["worker"])
         who = f"{tag} rank {res['rank']} {res['coords']}"
-        check_route(who, res["counts"], res["plain"], recoveries,
-                    decode=decode)
+        if launches is not None:
+            launches(who, res["counts"], res["plain"])
+        else:
+            check_route(who, res["counts"], res["plain"], recoveries,
+                        decode=decode)
         got, want = res["losses"], ref["losses"]
         rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
         if (got != want if exact else got[0] != want[0] or rel > MESH_RTOL):
             fail(f"{who}: losses {got} against {want} (rel {rel:.3e})")
         sel = selection_diffs(torch, res["kept"], ref["kept"],
-                              len(res["buckets"]), key[0], tp)
+                              len(res["buckets"]), key[0], tp, interleaved)
         if any(sel):
             fail(f"{who}: coordinates selected in one run only, by step: "
                  f"{sel}")
@@ -4923,126 +5081,6 @@ def train_mesh_tree_phase(torch, device) -> dict:
     return {"counts": counts, "results": results}
 
 
-def _rank_grads(fn, ins, g) -> list:
-    """The gradients of ``fn(*ins)`` at ``g`` by autograd, each input a
-    fresh leaf of its layout: what a mesh process's backward of the same
-    call on the same inputs computes."""
-    import torch
-    ins = [t.detach().requires_grad_() for t in ins]
-    with torch.enable_grad():
-        y = fn(*ins)
-    return list(torch.autograd.grad(y, ins, g))
-
-
-def _per_rank_fn():
-    """An autograd Function that runs ``fn`` on each model rank's slice
-    of its inputs (``split(r, *xs)``) and joins the ranks' outputs
-    (``join``); its backward recomputes each rank's call under autograd
-    (``_rank_grads``) and joins each input's rank gradients
-    (``join_grads``). One node, as the call it replaces, so the
-    gradients outside it accumulate in the same order."""
-    import torch
-
-    class PerRank(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, spec, *xs):
-            fn, split, join, split_g, join_grads, tp = spec
-            ctx.spec, ctx.tp = spec, tp
-            ctx.save_for_backward(*xs)
-            return join([fn(*split(r, *xs)) for r in range(tp)])
-
-        @staticmethod
-        def backward(ctx, g):
-            fn, split, join, split_g, join_grads, tp = ctx.spec
-            xs = ctx.saved_tensors
-            per = [_rank_grads(fn, split(r, *xs), split_g(r, g))
-                   for r in range(tp)]
-            return (None,) + tuple(join_grads(i, [p[i] for p in per])
-                                   for i in range(len(xs)))
-
-    return PerRank
-
-
-class per_rank_kernels:
-    """While open, the calls of the model whose kernels see a simulated
-    step's rank dimension run one model rank at a time, each on its
-    rank's slice in a mesh process's layout, and so does their backward
-    (``_per_rank_fn``): ``lin`` of a rank-stacked weight (one batched
-    GEMM over the ranks), the attention over the ranks' folded heads,
-    and in ``rmsnorm`` the gain's product with the rank-stacked
-    activations (its gradient one reduction over every rank's rows; per
-    rank, the ranks' sums added, as the mesh's reduce-scatter adds
-    them). The arithmetic is the simulated step's, rounded as each
-    process rounds it."""
-
-    def __init__(self, tp: int):
-        self.tp = tp
-
-    def __enter__(self):
-        import torch
-        from repro_torch.models import layers, model as mdl
-        tp, PerRank = self.tp, _per_rank_fn()
-        lin, attn = layers.lin, layers.blockwise_attention
-
-        def cat(parts):
-            return torch.cat(parts)
-
-        def rows(r, *xs):
-            return tuple(x[r:r + 1] for x in xs)
-
-        def per_lin(x, w):
-            if w.ndim == 2:
-                return lin(x, w)
-            return PerRank.apply(
-                (lin, rows, cat, lambda r, g: g[r:r + 1],
-                 lambda i, gs: torch.cat(gs), tp), x, w)
-
-        def heads(t):    # (B, S, tp * H, hd) -> the ranks' (B, S, H, hd)
-            return t.reshape(t.shape[:2] + (tp, -1, t.shape[-1]))
-
-        def per_attn(q, k, v, **kw):
-            def split(r, *xs):
-                return tuple(heads(x)[:, :, r].contiguous() for x in xs)
-
-            def join(outs):   # the head-major layout attention returns
-                return torch.cat([o.permute(0, 2, 1, 3) for o in outs],
-                                 dim=1).permute(0, 2, 1, 3)
-            return PerRank.apply(
-                (lambda a, b, c: attn(a, b, c, **kw), split, join,
-                 lambda r, g: heads(g)[:, :, r], lambda i, gs: join(gs),
-                 tp), q, k, v)
-
-        def gain_mul(a, x):   # (1 + delta) * xf, x rank-stacked
-            if x.ndim < 4 or x.shape[0] != tp:
-                return a * x
-            return PerRank.apply(
-                (torch.mul, lambda r, a, x: (a, x[r:r + 1]), cat,
-                 lambda r, g: g[r:r + 1],
-                 lambda i, gs: gs[0] + gs[1] if i == 0 else torch.cat(gs),
-                 tp), a, x)
-
-        def per_norm(x, delta, eps):
-            xf = x.to(torch.float32)
-            rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-            return (gain_mul(1.0 + delta.to(torch.float32), xf)
-                    * rms).to(x.dtype)
-
-        if tp != 2:
-            raise ValueError("per_rank_kernels adds the ranks' gain "
-                             "gradients pairwise: tp = 2 only")
-        self.saved = [(layers, "lin", lin), (layers, "rmsnorm",
-                                             layers.rmsnorm),
-                      (mdl, "rmsnorm", mdl.rmsnorm),
-                      (layers, "blockwise_attention", attn)]
-        layers.lin, layers.rmsnorm, mdl.rmsnorm = per_lin, per_norm, per_norm
-        layers.blockwise_attention = per_attn
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, f in self.saved:
-            setattr(mod, name, f)
-
-
 def hold_witness(torch, wit: dict, ref: dict) -> dict:
     """train_mesh_tp's witness (``per_rank_kernels``) against ``train_tp``
     (``ref``): the same arithmetic rounded per rank, so the losses within
@@ -5088,23 +5126,54 @@ def train_mesh_tp_phase(torch, device, ref: dict) -> dict:
     its witness: ``train_tp``'s simulated step in one process with the
     rank-stacked kernels run one rank at a time (``per_rank_kernels``;
     run first, freed before the spawn), which is held against
-    ``train_tp`` (``ref``) by ``hold_witness``."""
+    ``train_tp`` (``ref``) by ``hold_witness``. Then the same cell with
+    the chunked backward and the fused interleave (buckets 2,
+    INTERLEAVE_CHUNKS chunks: ``train_mesh_tp_interleave``), held bit for
+    bit against its own witness (the simulated interleave under
+    ``per_rank_kernels``), each process's launches the interleave's."""
     from repro_torch.configs.qwen3_4b import CONFIG
     from repro_torch.core.gs_sgd import MeshAxes
+    from repro_torch.launch.mesh import per_rank_kernels
     cfg = dataclasses.replace(CONFIG, n_layers=2)
-    opt, ts = sharded_step(torch, device, cfg, MeshAxes(tp=TP, data=TP_DATA))
-    with per_rank_kernels(TP), kept_recoveries() as kept:
-        run = train_phase(torch, cfg, opt, ts, tag="train_mesh_tp witness")
-    wit = mesh_ref(torch, ts, run, kept)
-    del run, ts, kept
-    witness = hold_witness(torch, wit, ref)
+    cells = {"train_mesh_tp": None,
+             "train_mesh_tp_interleave": {"spec": interleave_exchange(2)}}
+    out = {}
+    for cell, kw in cells.items():
+        opt, ts = sharded_step(torch, device, cfg,
+                               MeshAxes(tp=TP, data=TP_DATA), kw=kw)
+        with per_rank_kernels(TP), kept_recoveries() as kept:
+            run = train_phase(torch, cfg, opt, ts, tag=f"{cell} witness")
+        wit = mesh_ref(torch, ts, run, kept)
+        del run, kept
+        if kw is None:
+            witness = hold_witness(torch, wit, ref)
+            launches = None
+        else:
+            same = all(wit["prints"][key][t]["bits"]
+                       == out["train_mesh_tp"]["wit"]["prints"][key][t]["bits"]
+                       for key in wit["prints"] for t in wit["prints"][key])
+            log(f"[{cell}] witness: losses {wit['losses']}; final state "
+                f"bit-equal to train_mesh_tp's witness (no chunks): {same}")
+            launches = (lambda who, c, p, ts=ts: check_interleave_launches(
+                who, ts, c, p, one_process=True))
+        out[cell] = {"wit": wit, "launches": launches}
+        del ts
+        torch.cuda.empty_cache()
+    # both cells in one world, one after the other in each process
     results, wall = spawn_ranks(torch, mesh_train_body, TP * TP_DATA,
-                                "train_mesh_tp", (1, TP_DATA, TP))
-    counts = hold_mesh_run(torch, "train_mesh_tp", results, wit,
-                           2 * TRAIN_STEPS)
-    log(f"[train_mesh_tp] {TP * TP_DATA} processes; spawn to results "
-        f"{wall:.1f} s")
-    return {"counts": counts, "results": results, "witness": witness}
+                                tuple(cells), (1, TP_DATA, TP))
+    for i, (cell, kw) in enumerate(cells.items()):
+        res = [r[i] for r in results]
+        out[cell].update(results=res, counts=hold_mesh_run(
+            torch, cell, res, out[cell]["wit"], 2 * TRAIN_STEPS,
+            launches=out[cell]["launches"], interleaved=kw is not None))
+    log(f"[train_mesh_tp] {TP * TP_DATA} processes, both cells; spawn to "
+        f"results {wall:.1f} s")
+    return {"counts": out["train_mesh_tp"]["counts"],
+            "results": out["train_mesh_tp"]["results"],
+            "interleave_counts": out["train_mesh_tp_interleave"]["counts"],
+            "interleave_results": out["train_mesh_tp_interleave"]["results"],
+            "witness": witness}
 
 
 # parity_mesh: the CPU tests' smoke mesh runs (tests/test_torch_mesh.py),
@@ -5592,25 +5661,12 @@ def perf_iterations_phase() -> None:
         fail(f"perf_iterations: {len(out)} climbs")
 
 
-def overlap_audit_phase(torch, device) -> dict:
-    """overlap_audit (phase 16): ``bench.overlap_audit`` of the
-    train_traced phase's trace, of a traced 3-step run of
-    train_interleave's cell (buckets 4, 2 backward chunks, fused encode)
-    through ``launch.train.drive``, counted, and of a jitter-free
-    simulator trace, which must pass ``check`` at OVERLAP_TOLERANCE.
-    Returns {"counts"}."""
+def traced_interleave(torch, device, tag, ts, opt, exchange, path):
+    """A traced 3-step run of an interleave cell through
+    ``launch.train.drive`` (the probe included), counted; its trace
+    saved to ``path``. Returns the launch counts."""
     from repro_torch import obs
-    from repro_torch.bench import overlap_audit
     from repro_torch.kernels.dispatch import LAUNCHES
-    from repro_torch.launch.simulate import main as simulate
-    build = os.path.join(ROOT, "build")
-    paths = [os.path.join(build, "train_traced_trace.json"),
-             os.path.join(build, "overlap_interleave_trace.json"),
-             os.path.join(build, "overlap_sim_trace.json")]
-    exchange = dataclasses.replace(
-        main_exchange(), buckets=INTERLEAVE_BUCKETS,
-        bwd_chunks=INTERLEAVE_CHUNKS, fuse_encode=True)
-    _, opt, ts = full_width_step(torch, device, exchange=exchange)
     spec = cell_spec(ts, exchange)
     tracer = obs.Tracer()
     with plain_calls() as plain:
@@ -5619,19 +5675,94 @@ def overlap_audit_phase(torch, device) -> dict:
                          tracer=tracer)
         counts = dict(LAUNCHES)
     del run["state"]
-    tracer.save(paths[1], spec=spec, provenance=obs.provenance(spec, device),
+    tracer.save(path, spec=spec, provenance=obs.provenance(spec, device),
                 source="train")
     if plain:
         fail(f"overlap_audit: plain versions called on the card: {plain}")
     for name, cnt in step_launches(ts).items():
         if counts.get(name, 0) != cnt * (TRAIN_STEPS + 1):
-            fail(f"overlap_audit: {name} launched {counts.get(name, 0)} "
-                 f"times, not {cnt * (TRAIN_STEPS + 1)} ({TRAIN_STEPS} "
-                 "steps and the probe)")
-    log(f"[overlap_audit] interleave cell traced: losses {run['history']}, "
+            fail(f"overlap_audit {tag}: {name} launched "
+                 f"{counts.get(name, 0)} times, not "
+                 f"{cnt * (TRAIN_STEPS + 1)} ({TRAIN_STEPS} steps and the "
+                 "probe)")
+    log(f"[overlap_audit] {tag} traced: losses {run['history']}, "
         f"steps {[round(t, 4) for t in run['times']]} s; launches {counts}")
+    return counts
+
+
+def plan_schedule(path, ts) -> dict:
+    """The readiness recurrence (``compression.interleaved_schedule_time``)
+    on a traced interleave's own stage times per probe (each bucket's
+    encode spans, fused partials included, and all-reduce spans, every
+    exchange group's summed), each bucket ready when the step's plan
+    says (``ts.plan.readiness``, event e at (e + 1) / K of the backward;
+    the top's event with the last chunk): what a second stream could
+    hide of it. ``bench.overlap_audit``'s own schedule takes the
+    simulator's readiness model of a flat d instead."""
+    from repro_torch.core import compression as comp
+    from repro_torch.obs import trace as obtrace
+    from repro_torch.sim import replay
+    doc = obtrace.load(path)
+    n = max(1, len(obtrace.spans(doc, cat="probe")))
+    t_enc = [t / n for t in obtrace.bucket_durations(doc, "encode",
+                                                     "encode/b")]
+    t_comm = [t / n for t in obtrace.bucket_durations(doc, "comm",
+                                                      "allreduce/b")]
+    t_bwd = obtrace.phase_totals(doc).get("backward", 0.0) / n
+    k = len(ts.plan.chunks)
+    ev_t = replay.event_times(t_bwd, k)
+    ready = [ev_t[min(e, k - 1)] for e in ts.plan.readiness]
+    serial, pipelined, exposed, _ = comp.interleaved_schedule_time(
+        t_enc, t_comm, ready, t_backward=t_bwd)
+    return {"t_backward": t_bwd, "t_encode": t_enc, "t_comm": t_comm,
+            "readiness": list(ts.plan.readiness), "serial": serial,
+            "pipelined": pipelined, "exposed": exposed,
+            "hideable": serial - pipelined,
+            "hideable_frac": (serial - pipelined) / serial if serial else None}
+
+
+def overlap_audit_phase(torch, device) -> dict:
+    """overlap_audit (phase 16): ``bench.overlap_audit`` of the
+    train_traced phase's trace, of traced 3-step runs of
+    train_interleave's cell (buckets 4, 2 backward chunks, fused encode)
+    and of train_tp_interleave's (the same exchange at tp = 2 x data = 2)
+    through ``launch.train.drive``, counted, and of a jitter-free
+    simulator trace, which must pass ``check`` at OVERLAP_TOLERANCE.
+    Returns {"counts", "counts_tp"}."""
+    from repro_torch.bench import overlap_audit
+    from repro_torch.configs.qwen3_4b import CONFIG
+    from repro_torch.core.gs_sgd import MeshAxes
+    from repro_torch.launch.simulate import main as simulate
+    build = os.path.join(ROOT, "build")
+    paths = [os.path.join(build, "train_traced_trace.json"),
+             os.path.join(build, "overlap_interleave_trace.json"),
+             os.path.join(build, "overlap_tp_interleave_trace.json"),
+             os.path.join(build, "overlap_sim_trace.json")]
+    exchange = interleave_exchange()
+    _, opt, ts = full_width_step(torch, device, exchange=exchange)
+    counts = traced_interleave(torch, device, "interleave cell", ts, opt,
+                               exchange, paths[1])
+    sched = {"interleave": plan_schedule(paths[1], ts)}
     del ts
-    quiet(lambda: simulate(list(OVERLAP_SIM_ARGV) + ["--trace", paths[2]]),
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(CONFIG, n_layers=2)
+    opt, ts = sharded_step(torch, device, cfg, MeshAxes(tp=TP, data=TP_DATA),
+                           kw={"spec": exchange})
+    counts_tp = traced_interleave(torch, device, "train_tp_interleave cell",
+                                  ts, opt, exchange, paths[2])
+    sched["tp_interleave"] = plan_schedule(paths[2], ts)
+    del ts
+    for tag, sc in sched.items():
+        log(f"[overlap_audit] {tag}: the plan's readiness "
+            f"{sc['readiness']} on the probe's stage times (backward "
+            f"{sc['t_backward'] * 1e3:.2f} ms; encode "
+            f"{[round(t * 1e3, 2) for t in sc['t_encode']]} ms; all-reduce "
+            f"{[round(t * 1e3, 3) for t in sc['t_comm']]} ms): serial "
+            f"{sc['serial'] * 1e3:.2f} ms, pipelined "
+            f"{sc['pipelined'] * 1e3:.2f} ms; a second stream could hide "
+            f"{sc['hideable'] * 1e3:.2f} ms ({sc['hideable_frac']:.1%})")
+    torch.cuda.empty_cache()
+    quiet(lambda: simulate(list(OVERLAP_SIM_ARGV) + ["--trace", paths[3]]),
           os.path.join(build, "overlap_sim.txt"))
     try:
         res = overlap_audit.main(paths + [
@@ -5640,7 +5771,7 @@ def overlap_audit_phase(torch, device) -> dict:
     except SystemExit as e:
         fail(f"overlap_audit: the simulator trace failed its check ({e})")
     audits = res["audits"]
-    if [a["source"] for a in audits] != ["train", "train", "sim"]:
+    if [a["source"] for a in audits] != ["train", "train", "train", "sim"]:
         fail(f"overlap_audit: sources {[a['source'] for a in audits]}")
     for a in audits:
         name = os.path.basename(a["trace"])
@@ -5650,8 +5781,12 @@ def overlap_audit_phase(torch, device) -> dict:
                  a["phase_deltas"].items()})
             + f"; realization ratio {a['realization_ratio']!r}; measured "
             f"step {a['measured']['step_time']!r} s, scheduled "
-            f"{a['scheduled_step']!r}, serial {a['serial_step']!r}")
-    return {"counts": counts}
+            f"{a['scheduled_step']!r}, serial {a['serial_step']!r}; "
+            "measured-stage schedule " + json.dumps(
+                {k: v for k, v in (a["measured_schedule"] or {}).items()
+                 if k in ("t_backward", "serial", "pipelined", "saving",
+                          "saving_frac")}))
+    return {"counts": counts, "counts_tp": counts_tp, "schedules": sched}
 
 
 def bench_host_phase() -> None:
@@ -5873,6 +6008,14 @@ def main() -> int:
     log(f"[train_fsdp] phase took {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
+    tp_inter = train_tp_interleave_phase(torch, device)
+    log(f"[train_tp_interleave] phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    fsdp_inter = train_fsdp_interleave_phase(torch, device)
+    log(f"[train_fsdp_interleave] phase took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
     mesh_run = train_mesh_phase(torch, train_ref)
     log(f"[train_mesh] phase took {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -5928,6 +6071,12 @@ def main() -> int:
         kr["launches_train_tp"] = tp_run["counts"].get(kr["name"], 0)
         kr["launches_train_fsdp"] = fsdp_run["counts"].get(kr["name"], 0)
         kr["launches_parity_tp"] = parity_tp.get(kr["name"], 0)
+        kr["launches_train_tp_interleave"] = tp_inter["counts"].get(
+            kr["name"], 0)
+        kr["launches_train_fsdp_interleave"] = fsdp_inter["counts"].get(
+            kr["name"], 0)
+        kr["launches_train_mesh_tp_interleave"] = \
+            mesh_tp["interleave_counts"].get(kr["name"], 0)
         # the process mesh's phases: summed over their processes
         kr["launches_train_mesh"] = mesh_run["counts"].get(kr["name"], 0)
         kr["launches_train_mesh_tree"] = mesh_tree["counts"].get(
@@ -5935,13 +6084,18 @@ def main() -> int:
         kr["launches_train_mesh_tp"] = mesh_tp["counts"].get(kr["name"], 0)
         kr["launches_parity_mesh"] = parity_mesh.get(kr["name"], 0)
         kr["shard_shapes"] = (tp_run["shapes"].get(kr["name"], [])
-                              + fsdp_run["shapes"].get(kr["name"], []))
+                              + fsdp_run["shapes"].get(kr["name"], [])
+                              + tp_inter["shapes"].get(kr["name"], [])
+                              + fsdp_inter["shapes"].get(kr["name"], []))
         for model, run in cnn.items():
             kr[f"launches_cnn_{model}"] = run["counts"].get(kr["name"], 0)
             kr.setdefault("cnn_shapes", []).extend(
                 run["shapes"].get(kr["name"], []))
+        kr["interleave_shapes"] = inter["shapes"].get(kr["name"], [])
         if kr["name"] == "sketch_encode":
             kr["interleave_fragments"] = inter["fragments"]
+            kr["tp_interleave_fragments"] = tp_inter["fragments"]
+            kr["fsdp_interleave_fragments"] = fsdp_inter["fragments"]
         if kr["name"] == "heavymix_scores":  # the main path's shapes first
             old = {k: kr[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}
@@ -6003,6 +6157,8 @@ def main() -> int:
     for kr in kernels:
         kr["launches_measure_encode"] = roof["counts"].get(kr["name"], 0)
         kr["launches_overlap_interleave"] = overlap["counts"].get(
+            kr["name"], 0)
+        kr["launches_overlap_tp_interleave"] = overlap["counts_tp"].get(
             kr["name"], 0)
         for name, c in examples["counts"].items():
             kr[f"launches_example_{name}"] = c.get(kr["name"], 0)

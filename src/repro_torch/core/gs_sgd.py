@@ -18,10 +18,14 @@ override row): the step casts it to f32 before the exchange and the new
 residual back to its own dtype after it, as the reference's does.
 
 With ``bwd_chunks=K`` the backward is cut into K chunks
-(``model.chunked_loss_vjp``): the forward runs for every worker, then
-``exchange_interleaved`` drives the backward itself, chunk by chunk, and
-starts each bucket's encode and sketch all-reduce at the event that
-completes its gradient, recovering one bucket behind. With
+(``model.chunked_loss_vjp``) on every layout: the forward runs for every
+worker, then ``exchange_interleaved`` drives the backward itself, chunk
+by chunk, and starts each bucket's encode and sketch all-reduce at the
+event that completes its gradient, recovering one bucket behind. Without
+a staged bucketed compressor or the pipelined schedule (``overlap``)
+the chunked backward runs all the same and the exchange takes its
+gradient after it (``flat_of_chunks``, span ``backward``); the
+``TrainStep`` says which (``bwd_chunks``, ``interleave``). With
 ``fuse_encode`` each emitted gradient slice is EF-added and partially
 encoded at once (Count-Sketch linearity) and the bucket's exact partial
 sketches are summed at its event (as integers: the fused sketch is
@@ -72,13 +76,33 @@ pods, once per data index, each exchanging its own shard's
 coordinates); a single-pod fsdp step is dense and EF-free (the data sum
 is the gradient's). The EF is a tuple with one compressor state per such
 group. The global norm sums over the ranks (and the pod's data shards
-in fsdp); the reported loss is the mean over the workers. A chunked
-backward (``bwd_chunks``) runs there as the monolithic backward and the
-bucketed exchange after it (the interleave's numbers; its overlap with
-the backward is not scheduled on the sharded layouts). The tp = 1 'dp'
-step is the same step with one rank, one worker a group (its leaves
-views of the worker's params) and one exchange over all workers, whose
-EF is the compressor state itself.
+in fsdp); the reported loss is the mean over the workers.
+
+A chunked backward on the sharded layouts runs one
+``model.chunked_loss_vjp`` a gather group, on the group's storage with
+the gathers: the top segments gathered once, each chunk's cycle rows
+in their chunk, every worker of the group on the same leaves; a chunk's
+backward step scatters its rows' gradient at once, so the emitted
+slices are (tp, P, ...) in the storage layout, and the top segments'
+scatter runs once, last (``group_backward``). The gradients are the
+monolithic backward's bit for bit. All ranks (and the groups) are one
+backward, so the interleave serves every exchange group from it: at
+each emission event the slices are emitted once, then each group's
+ready buckets are encoded (fused: each group's own partial sketches),
+all-reduced and recovered one bucket behind, each group with its own
+EF, include mask and compressor state. A single-pod fsdp step (no
+exchange axis) and a compressor that cannot stage take the
+post-accumulation path. On a process mesh every process runs the same
+schedule, so the chunks' model-axis collectives (gathers in the
+forward, a reduce-scatter a chunk and one for the top in the backward)
+and the exchange's collectives over the dp axes are issued in the same
+order everywhere (tests/test_torch_mesh.py pins it); they are
+synchronous calls, issued in program order, so nothing of the exchange
+overlaps the backward yet.
+
+The tp = 1 'dp' step is the same step with one rank, one worker a
+group (its leaves views of the worker's params) and one exchange over
+all workers, whose EF is the compressor state itself.
 
 On a process mesh (``MeshAxes.mesh``, a ``core.pgroup.ProcessMesh``
 built by ``launch/mesh.py``) the same step runs with one model rank and
@@ -320,19 +344,17 @@ def exchange_bucketed(bc: comp.BucketedCompressor, ef_state, g_flat, *,
 
 
 def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
-                         ef_state, bwd_steps, top_grads, *,
-                         nworkers: int, include=None,
-                         fuse_encode: bool = False,
-                         n_local: int | None = None):
+                         bwd_steps, top_grads, groups, *, nworkers: int,
+                         fuse_encode: bool = False):
     """Readiness-driven bucketed exchange interleaved with backward chunks.
 
     Port of ``repro/core/gs_sgd.py:exchange_interleaved``, on the worker
     axis: ``bwd_steps`` / ``top_grads`` are every worker's chunked backward
-    (``worker_backward``) and emit (P, ...) gradient slices, chunk K-1
-    first, the top segments last, at the packed offsets of ``plan.emits``.
-    After each emission event every bucket whose packed range is complete
-    (``plan.readiness``) is encoded and its sketch all-reduced, and the
-    recovery runs one bucket behind:
+    (``group_backward``) and emit (tp, P, ...) gradient slices in the
+    storage layout, chunk K-1 first, the top segments last, at the packed
+    offsets of ``plan.emits``. After each emission event every bucket
+    whose packed range is complete (``plan.readiness``) is encoded and its
+    sketch all-reduced, and the recovery runs one bucket behind:
 
         bwd(K-1); enc(b); red(b); bwd(K-2); enc(b'); red(b'); rec(b); ...
 
@@ -346,15 +368,23 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
     fuse_encode: each emitted slice is EF-added and partially encoded the
     moment it is emitted (``stage_encode_partial`` at its offset inside the
     bucket); at the bucket's event the exact partial sketches are summed
-    and converted once (``stage_encode_merge``). A bucket whose compressor cannot fuse (the TS
-    encoder, a dense baseline) assembles its slices and encodes them at its
-    event. Returns (upd_sum (P, d), ef_new, BucketedCommStats).
-    ``n_local``: the leading worker dim of the emitted slices when it is
-    not ``nworkers`` (1 on a process mesh).
+    and converted once (``stage_encode_merge``). A bucket whose compressor
+    cannot fuse (the TS encoder, a dense baseline) assembles its slices
+    and encodes them at its event.
+
+    ``groups``: the exchanges the one backward feeds, each ``((rank,
+    worker slice), ef_state, include)``: all workers' at tp = 1 in 'dp';
+    on the sharded layouts one a model rank (and in 'fsdp' a data
+    index), over the workers of the slice. A group's rows of an emitted
+    slice are ``slice[rank, workers]``. Each event's slices are emitted
+    once; then every ready bucket is encoded and all-reduced for each
+    group in group order, and each group recovers one bucket behind, with
+    its own EF, include mask and compressor state. Returns one (upd_sum
+    (n, d), ef_new, BucketedCommStats) a group.
     """
     parts, spec = bc.parts, bc.spec
-    n_local = n_local or nworkers
     n = spec.n
+    G = len(groups)
     by_event: dict[int, list[int]] = {}
     for i in plan.order:
         by_event.setdefault(plan.readiness[i], []).append(i)
@@ -365,46 +395,54 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
     tr = obtrace.current()
     fusable = [bool(fuse_encode and getattr(p, "can_fuse", False))
                for p in parts]
-    frags: list[list] = [[] for _ in range(n)]  # (off-in-bucket, u, sketch)
-    # (packed offset, (P, m) slice); kept only for buckets that assemble
-    pieces: list[tuple[int, torch.Tensor]] = []
+    # per group and bucket: (off-in-bucket, u, sketch)
+    frags: list[list[list]] = [[[] for _ in range(n)] for _ in range(G)]
+    # (packed offset, length, emitted slice); kept only for buckets that
+    # assemble
+    pieces: list[tuple[int, int, torch.Tensor]] = []
     keep_pieces = not all(fusable)
 
-    def fuse_piece(off: int, arr: torch.Tensor) -> None:
+    def rows(g: int, t: torch.Tensor, m: int) -> torch.Tensor:
+        """Group g's (n, m) rows of an emitted slice."""
+        r, sl = groups[g][0]
+        return t[r, sl].reshape(-1, m)
+
+    def fuse_piece(g: int, off: int, arr: torch.Tensor) -> None:
         """Partial-encode the overlap of one emitted slice with every
         fusable bucket, at its offset inside that bucket."""
+        ef_g = groups[g][1]
         for i, lo, hi in plan.overlaps(off, arr.shape[-1]):
             if not fusable[i]:
                 continue
             o = spec.offsets[i]
             with tr.span(f"encode/b{i}", cat="encode") as sp:
                 u_piece, sk = parts[i].stage_encode_partial(
-                    ef_state[i][:, lo - o:hi - o], arr[:, lo - off:hi - off],
+                    ef_g[i][:, lo - o:hi - o], arr[:, lo - off:hi - off],
                     lo - o)
                 sp.sync(sk.limbs)
-            frags[i].append((lo - o, u_piece, sk))
+            frags[g][i].append((lo - o, u_piece, sk))
 
     def emit(ev: int, grads) -> None:
-        """Emit event ``ev``'s gradient slices, (P, ...) each, at the
-        plan's packed offsets."""
-        for (off, m), g in zip(emits[ev], grads):
-            if g.numel() != n_local * m:
-                raise ValueError(f"event {ev} emitted {tuple(g.shape)} at "
+        """Emit event ``ev``'s (tp, P, ...) gradient slices at the plan's
+        packed offsets."""
+        for (off, m), t in zip(emits[ev], grads):
+            if m and t[0, 0].numel() != m:
+                raise ValueError(f"event {ev} emitted {tuple(t.shape)} at "
                                  f"offset {off}; the plan has {m} a worker")
             if not m:
                 continue
-            arr = g.reshape(n_local, m)
             if keep_pieces:
-                pieces.append((off, arr))
-            fuse_piece(off, arr)
+                pieces.append((off, m, t))
+            for g in range(G):
+                fuse_piece(g, off, rows(g, t, m))
 
-    def assemble(i: int) -> torch.Tensor:
+    def assemble(g: int, i: int) -> torch.Tensor:
         o, sz = spec.offsets[i], spec.sizes[i]
         got = []
-        for off, arr in pieces:
-            lo, hi = max(o, off), min(o + sz, off + arr.shape[-1])
+        for off, m, t in pieces:
+            lo, hi = max(o, off), min(o + sz, off + m)
             if lo < hi:
-                got.append((lo, arr[:, lo - off:hi - off]))
+                got.append((lo, rows(g, t, m)[:, lo - off:hi - off]))
         got.sort(key=lambda t: t[0])
         if sum(a.shape[-1] for _, a in got) != sz:
             raise ValueError(
@@ -413,19 +451,19 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
         return got[0][1] if len(got) == 1 else torch.cat(
             [a for _, a in got], dim=-1)
 
-    us: list = [None] * n
-    sk_sum: list = [None] * n
-    scale: list = [None] * n
-    outs: list = [None] * n
-    launched: list[int] = []
+    us = [[None] * n for _ in range(G)]
+    sk_sum = [[None] * n for _ in range(G)]
+    scale = [[None] * n for _ in range(G)]
+    outs = [[None] * n for _ in range(G)]
+    launched: list[list[int]] = [[] for _ in range(G)]
 
-    def recover(i: int) -> None:
+    def recover(g: int, i: int) -> None:
         with tr.span(f"recover/b{i}", cat="recover") as sp:
-            outs[i] = parts[i].stage_recover(
-                us[i], sk_sum[i], scale[i], nworkers=nworkers,
-                include=include)
-            sp.sync(outs[i][0])
-        us[i] = sk_sum[i] = None
+            outs[g][i] = parts[i].stage_recover(
+                us[g][i], sk_sum[g][i], scale[g][i], nworkers=nworkers,
+                include=groups[g][2])
+            sp.sync(outs[g][i][0])
+        us[g][i] = sk_sum[g][i] = None
 
     n_chunks = len(bwd_steps)
     for ev in range(plan.n_events):
@@ -444,69 +482,80 @@ def exchange_interleaved(bc: comp.BucketedCompressor, plan: BucketPlan,
         for i in by_event.get(ev, []):
             tr.instant(f"ready/b{i}", cat="encode",
                        args={"bucket": i, "event": ev})
-            with tr.span(f"encode/b{i}", cat="encode") as sp:
-                if fusable[i]:
-                    us[i], sk = parts[i].stage_encode_merge(frags[i])
-                    frags[i] = []
-                else:
-                    us[i], sk = parts[i].stage_encode(ef_state[i],
-                                                      assemble(i))
-                sp.sync(sk)
-            with tr.span(f"allreduce/b{i}", cat="comm") as sp:
-                sk_sum[i], scale[i] = parts[i].stage_reduce(
-                    sk, nworkers=nworkers, include=include)
-                sp.sync(sk_sum[i])
-            del sk
-            launched.append(i)
-            while len(launched) > 1:  # recover, one bucket behind
-                recover(launched.pop(0))
-    for i in launched:
-        recover(i)
-    upd = spec.join([outs[i][0] for i in range(n)])
-    ef_new = tuple(outs[i][1] for i in range(n))
-    stats = comp.BucketedCommStats(tuple(outs[i][2] for i in range(n)),
-                                   label=bc.name + "|interleaved")
-    return upd, ef_new, stats
+            for g in range(G):
+                with tr.span(f"encode/b{i}", cat="encode") as sp:
+                    if fusable[i]:
+                        us[g][i], sk = parts[i].stage_encode_merge(
+                            frags[g][i])
+                        frags[g][i] = []
+                    else:
+                        us[g][i], sk = parts[i].stage_encode(
+                            groups[g][1][i], assemble(g, i))
+                    sp.sync(sk)
+                with tr.span(f"allreduce/b{i}", cat="comm") as sp:
+                    sk_sum[g][i], scale[g][i] = parts[i].stage_reduce(
+                        sk, nworkers=nworkers, include=groups[g][2])
+                    sp.sync(sk_sum[g][i])
+                del sk
+                launched[g].append(i)
+                while len(launched[g]) > 1:  # recover, one bucket behind
+                    recover(g, launched[g].pop(0))
+    for g in range(G):
+        for i in launched[g]:
+            recover(g, i)
+    res = []
+    for g in range(G):
+        upd = spec.join([outs[g][i][0] for i in range(n)])
+        ef_new = tuple(outs[g][i][1] for i in range(n))
+        stats = comp.BucketedCommStats(tuple(outs[g][i][2] for i in range(n)),
+                                       label=bc.name + "|interleaved")
+        res.append((upd, ef_new, stats))
+    return res
 
 
-def worker_backward(vjps):
-    """Every worker's chunked backward as one: ``vjps`` holds each
-    worker's ``(bwd_steps, top_grads)`` from ``model.chunked_loss_vjp``.
-    Returns the same contract on the worker axis: step j runs step j of
-    every worker and returns ``((a, b), d_cs (P, b-a, f_cs), d_cr (P,
-    b-a, f_cr))``; ``top_grads()`` returns ``(d_top_s (P, f), d_top_r (P,
-    f))``."""
+def group_backward(vjps):
+    """Every gather group's chunked backward as one: ``vjps`` holds each
+    group's ``(bwd_steps, top_grads)`` from ``model.chunked_loss_vjp``
+    with the gathers, which emit (tp, n, ...) in the storage layout (tp =
+    1 included). Step j runs step j of every group in group order and
+    joins them along the worker dim: ``((a, b), d_cs (tp, P, b-a, f_cs),
+    d_cr (tp, P, b-a, f_cr))``; ``top_grads()`` returns ``(d_top_s (tp, P,
+    f), d_top_r (tp, P, f))``."""
+    def join(ts):
+        return ts[0] if len(ts) == 1 else torch.cat(ts, dim=1)
+
     def make_step(j: int):
         def run():
             outs = [steps[j]() for steps, _ in vjps]
-            return (outs[0][0], torch.stack([o[1] for o in outs]),
-                    torch.stack([o[2] for o in outs]))
+            return (outs[0][0], join([o[1] for o in outs]),
+                    join([o[2] for o in outs]))
         return run
 
     def top_grads():
         tops = [top() for _, top in vjps]
-        return (torch.stack([t[0] for t in tops]),
-                torch.stack([t[1] for t in tops]))
+        return join([t[0] for t in tops]), join([t[1] for t in tops])
 
     return [make_step(j) for j in range(len(vjps[0][0]))], top_grads
 
 
 def flat_of_chunks(bwd_steps, top_grads, d_local: int) -> torch.Tensor:
-    """The post-accumulation fallback of a chunked backward: drain the
-    steps and reassemble ``pack_segs`` order (top_s, top_r, cycle rows
-    ascending per segment) as (P, d_local)."""
+    """The post-accumulation path of a chunked backward: drain the steps
+    and reassemble ``pack_segs`` order (top_s, top_r, cycle rows ascending
+    per segment) as (tp, P, d_local) from ``group_backward``'s (tp, P,
+    ...) slices."""
     cs_parts, cr_parts = [], []
     for step in bwd_steps:
         (a, _), d_cs, d_cr = step()
         cs_parts.append((a, d_cs))
         cr_parts.append((a, d_cr))
     d_ts, d_tr = top_grads()
-    nw = d_ts.shape[0]
+    lead = tuple(d_ts.shape[:-1])
 
     def rows(ps):
-        return [p.reshape(nw, -1) for _, p in sorted(ps, key=lambda t: t[0])]
+        return [p.reshape(lead + (-1,))
+                for _, p in sorted(ps, key=lambda t: t[0])]
 
-    g = torch.cat([d_ts.reshape(nw, -1), d_tr.reshape(nw, -1)]
+    g = torch.cat([d_ts, d_tr.reshape(lead + (-1,))]
                   + rows(cs_parts) + rows(cr_parts), dim=-1)
     if g.shape[-1] != d_local:
         raise ValueError(f"chunked gradients cover {g.shape[-1]} of "
@@ -536,6 +585,9 @@ class TrainStep:
     bwd_chunks: int = 0           # backward chunks (0 = monolithic backward)
     plan: BucketPlan | None = None  # readiness plan (bucketed exchange)
     fuse_encode: bool = False     # fragment-wise encode in the interleave
+    # the exchange runs inside the chunked backward, at each bucket's
+    # readiness event (else after it: the post-accumulation exchange)
+    interleave: bool = False
     # sharded layouts: each exchange's model rank and worker slice
     comp_groups: tuple[tuple[int, slice], ...] = ()
 
@@ -749,7 +801,7 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
     # The readiness interleave needs a staged bucketed compressor and the
     # pipelined schedule; otherwise a chunked backward still runs, but the
     # exchange sees the gradient only after the whole backward.
-    chunked = bwd_chunks is not None and not sharded
+    chunked = bwd_chunks is not None
     interleave = (chunked and plan is not None and overlap
                   and all(hasattr(c, "stage_encode")
                           for c in compressor.parts))
@@ -816,19 +868,31 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         return losses, g_flat
 
     def forward(params: dict, batch: dict):
-        """Every worker's chunked forward (tp = 1 in 'dp'): per-worker loss
-        (P,) and the workers' backward as one (``worker_backward``). All P
-        graphs stay alive until the backward has run."""
-        losses, vjps = [], []
-        for p in range(nworkers):
-            segs = {k: params[k][p] for k in SEG_NAMES}
-            wb = {k: v[p] for k, v in batch.items()}
+        """Every worker's chunked forward: per-worker loss (P,) and the
+        workers' backward as one (``group_backward``: (tp, P, ...) slices
+        in the storage layout, tp = 1 included). One chunked graph a
+        gather group, as ``loss_and_grad`` loops: the group's storage
+        gathered by the chunked forward itself (the top segments once,
+        each chunk's cycle rows in their chunk; at tp = 1 in 'dp' views
+        of the worker's params), every worker of the group on those
+        leaves, the 1/tp seed. All graphs stay alive until the backward
+        has run."""
+        losses = torch.empty((nworkers,), dtype=torch.float32, device=device)
+        vjps = []
+        for a in range(0, nworkers, n_group):
+            store = {k: (params[k] if ma.tp > 1 else params[k][None])
+                     [:, a:a + n_group] for k in SEG_NAMES}
+            wbs = [{k: v[w] for k, v in batch.items()}
+                   for w in range(a, a + n_group)]
             loss, steps, top = mdl.chunked_loss_vjp(
-                cfg, fs, segs, wb, chunks=bwd_chunks, dtype=dtype,
-                remat=remat)
-            losses.append(loss)
+                cfg, fs, store, wbs, chunks=bwd_chunks, dtype=dtype,
+                remat=remat, ctx=ctx, gathers=(gather, scatter),
+                grad_seed=inv_tp)
+            for j, l in enumerate(loss):   # as loss_and_grad reports it
+                l = l[0] if l.ndim else l
+                losses[a + j] = (inv_tp * l) * ma.tp
             vjps.append((steps, top))
-        return torch.stack(losses), worker_backward(vjps)
+        return losses, group_backward(vjps)
 
     def exchange(ef, g, include):
         """The post-accumulation exchange of (n, d) gradients over comp_n
@@ -898,8 +962,9 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                 sp.sync(losses)
             if not interleave:
                 with tr.span("backward", cat="backward") as sp:
-                    g = flat_of_chunks(bwd_steps, top_grads, d_local)[None]
+                    g = flat_of_chunks(bwd_steps, top_grads, d_local)
                     sp.sync(g)
+                del bwd_steps, top_grads
         else:
             # monolithic autodiff: forward and backward are one call, so
             # the span carries both under cat='backward'
@@ -910,22 +975,31 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
         # is stored in its own dtype and added/encoded in f32
         groups = comp_groups or ((0, slice(None)),)
         efs = ef_stored if comp_groups else (ef_stored,)
+        dtypes = [_stored_dtype(e) for e in efs]
+        if compressor is not None:
+            efs = [_cast_tree(e, torch.float32) for e in efs]
+        incs = [None if include is None else include[sl]
+                for _, sl in groups]
+        if interleave:
+            # one backward, every group's exchange at its events
+            with ar.over(ex_axis):
+                res = exchange_interleaved(
+                    compressor, plan, bwd_steps, top_grads,
+                    tuple(zip(groups, efs, incs)), nworkers=comp_n,
+                    fuse_encode=fuse_encode)
+            del bwd_steps, top_grads
+            if sharded:
+                g = torch.empty((tp_lead, nworkers, d_local),
+                                dtype=torch.float32, device=device)
+        else:
+            res = [None] * len(groups)
         ef_new = []
-        for (r, sl), ef_g in zip(groups, efs):
-            ef_dtype = _stored_dtype(ef_g)
-            if compressor is not None:
-                ef_g = _cast_tree(ef_g, torch.float32)
-            inc = None if include is None else include[sl]
-            if interleave:
-                kw = {} if inc is None else {"include": inc}
-                with ar.over(ex_axis):
-                    upd, ef_g, _ = exchange_interleaved(
-                        compressor, plan, ef_g, bwd_steps, top_grads,
-                        nworkers=comp_n, fuse_encode=fuse_encode,
-                        n_local=nworkers, **kw)
-                del bwd_steps, top_grads
-            else:
+        for gi, ((r, sl), ef_g, inc, ef_dtype) in enumerate(
+                zip(groups, efs, incs, dtypes)):
+            if res[gi] is None:
                 upd, ef_g = exchange(ef_g, g[r, sl], inc)
+            else:
+                (upd, ef_g, _), res[gi] = res[gi], None
             if sharded:
                 g[r, sl] = upd
             else:
@@ -960,7 +1034,7 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                                               comp.BucketedCompressor) else 1),
                      overlap=overlap, bwd_chunks=(bwd_chunks or 0),
                      plan=plan, fuse_encode=fuse_encode,
-                     comp_groups=comp_groups)
+                     comp_groups=comp_groups, interleave=bool(interleave))
 
 
 # ---------------------------------------------------------------------------

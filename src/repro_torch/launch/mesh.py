@@ -29,6 +29,13 @@ group of its axes from it (``core.pgroup.ProcessMesh``), and
 ``spawn`` starts a world on one host (one process a rank, a ``FileStore``
 in a temporary directory, no port) and returns what each rank's body
 returned.
+
+``per_rank_kernels`` is a simulated step's witness for a mesh at tp > 1:
+while it is open, the model's calls whose kernels see the rank
+dimension (the rank-stacked GEMMs, the attention, the norm gains'
+product) run one rank at a time in a process's layout, so the simulated
+step rounds as the mesh's processes do and their runs can be held to it
+bit for bit.
 """
 
 from __future__ import annotations
@@ -189,3 +196,124 @@ def spawn(body, world: int, *args, device_type: str = "cuda",
                            nprocs=world, join=True, start_method="spawn")
         return [torch.load(os.path.join(d, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# A simulated step rounded as a mesh's processes round it
+# ---------------------------------------------------------------------------
+
+
+def _rank_grads(fn, ins, g) -> list:
+    """The gradients of ``fn(*ins)`` at ``g`` by autograd, each input a
+    fresh leaf of its layout: what a mesh process's backward of the same
+    call on the same inputs computes."""
+    ins = [t.detach().requires_grad_() for t in ins]
+    with torch.enable_grad():
+        y = fn(*ins)
+    return list(torch.autograd.grad(y, ins, g))
+
+
+def _per_rank_fn():
+    """An autograd Function that runs ``fn`` on each model rank's slice
+    of its inputs (``split(r, *xs)``) and joins the ranks' outputs
+    (``join``); its backward recomputes each rank's call under autograd
+    (``_rank_grads``) and joins each input's rank gradients
+    (``join_grads``). One node, as the call it replaces, so the
+    gradients outside it accumulate in the same order."""
+    class PerRank(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, spec, *xs):
+            fn, split, join, split_g, join_grads, tp = spec
+            ctx.spec, ctx.tp = spec, tp
+            ctx.save_for_backward(*xs)
+            return join([fn(*split(r, *xs)) for r in range(tp)])
+
+        @staticmethod
+        def backward(ctx, g):
+            fn, split, join, split_g, join_grads, tp = ctx.spec
+            xs = ctx.saved_tensors
+            per = [_rank_grads(fn, split(r, *xs), split_g(r, g))
+                   for r in range(tp)]
+            return (None,) + tuple(join_grads(i, [p[i] for p in per])
+                                   for i in range(len(xs)))
+
+    return PerRank
+
+
+class per_rank_kernels:
+    """While open, the calls of the model whose kernels see a simulated
+    step's rank dimension run one model rank at a time, each on its
+    rank's slice in a mesh process's layout, and so does their backward
+    (``_per_rank_fn``): ``lin`` of a rank-stacked weight (one batched
+    GEMM over the ranks), the attention over the ranks' folded heads,
+    and in ``rmsnorm`` the gain's product with the rank-stacked
+    activations (its gradient one reduction over every rank's rows; per
+    rank, the ranks' sums added, as the mesh's reduce-scatter adds
+    them). The arithmetic is the simulated step's, rounded as each
+    process rounds it."""
+
+    def __init__(self, tp: int):
+        self.tp = tp
+
+    def __enter__(self):
+        from repro_torch.models import layers, model as mdl
+        tp, PerRank = self.tp, _per_rank_fn()
+        lin, attn = layers.lin, layers.blockwise_attention
+
+        def cat(parts):
+            return torch.cat(parts)
+
+        def rows(r, *xs):
+            return tuple(x[r:r + 1] for x in xs)
+
+        def per_lin(x, w):
+            if w.ndim == 2:
+                return lin(x, w)
+            return PerRank.apply(
+                (lin, rows, cat, lambda r, g: g[r:r + 1],
+                 lambda i, gs: torch.cat(gs), tp), x, w)
+
+        def heads(t):    # (B, S, tp * H, hd) -> the ranks' (B, S, H, hd)
+            return t.reshape(t.shape[:2] + (tp, -1, t.shape[-1]))
+
+        def per_attn(q, k, v, **kw):
+            def split(r, *xs):
+                return tuple(heads(x)[:, :, r].contiguous() for x in xs)
+
+            def join(outs):   # the head-major layout attention returns
+                return torch.cat([o.permute(0, 2, 1, 3) for o in outs],
+                                 dim=1).permute(0, 2, 1, 3)
+            return PerRank.apply(
+                (lambda a, b, c: attn(a, b, c, **kw), split, join,
+                 lambda r, g: heads(g)[:, :, r], lambda i, gs: join(gs),
+                 tp), q, k, v)
+
+        def gain_mul(a, x):   # (1 + delta) * xf, x rank-stacked
+            if x.ndim < 4 or x.shape[0] != tp:
+                return a * x
+            return PerRank.apply(
+                (torch.mul, lambda r, a, x: (a, x[r:r + 1]), cat,
+                 lambda r, g: g[r:r + 1],
+                 lambda i, gs: gs[0] + gs[1] if i == 0 else torch.cat(gs),
+                 tp), a, x)
+
+        def per_norm(x, delta, eps):
+            xf = x.to(torch.float32)
+            rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+            return (gain_mul(1.0 + delta.to(torch.float32), xf)
+                    * rms).to(x.dtype)
+
+        if tp != 2:
+            raise ValueError("per_rank_kernels adds the ranks' gain "
+                             "gradients pairwise: tp = 2 only")
+        self.saved = [(layers, "lin", lin), (layers, "rmsnorm",
+                                             layers.rmsnorm),
+                      (mdl, "rmsnorm", mdl.rmsnorm),
+                      (layers, "blockwise_attention", attn)]
+        layers.lin, layers.rmsnorm, mdl.rmsnorm = per_lin, per_norm, per_norm
+        layers.blockwise_attention = per_attn
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, f in self.saved:
+            setattr(mod, name, f)

@@ -82,11 +82,13 @@ def build(spec: RunSpec, device=None):
         print(f"bucketed exchange: {ts.n_buckets} buckets "
               f"(sizes {list(sizes)}), "
               f"overlap={'on' if spec.exchange.overlap else 'off'}")
-    if ts.bwd_chunks:
-        ready = list(ts.plan.readiness) if ts.plan is not None else None
+    if ts.bwd_chunks and ts.interleave:
         print(f"backward-interleaved readiness: {ts.bwd_chunks} chunk(s), "
-              f"bucket readiness {ready}, "
+              f"bucket readiness {list(ts.plan.readiness)}, "
               f"fuse_encode={'on' if ts.fuse_encode else 'off'}")
+    elif ts.bwd_chunks:
+        print(f"chunked backward: {ts.bwd_chunks} chunk(s), the exchange "
+              "after it (post-accumulation)")
     return cfg, opt, ma, ts
 
 

@@ -24,7 +24,8 @@ Activations are then rank-stacked (tp, B, S, d); the loss is a (tp,)
 tensor, every rank's equal; ``prefill_fn`` returns each rank's vocab
 shard of the logits (tp, B, V_loc) and ``decode_fn`` every rank's (equal)
 ids (tp, B). The cache holds every rank's heads in global order
-(``init_cache(..., ctx=)``). ``chunked_loss_vjp`` is tp = 1 only.
+(``init_cache(..., ctx=)``). ``chunked_loss_vjp`` takes the same
+``ctx``, and the storage layout with the gathers (its docstring).
 
 ``remat`` (training only): the reference's cycle remat. Each cycle runs
 as a recomputed region (``models.remat.remat_call``), so its
@@ -265,9 +266,10 @@ def loss_fn(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict, *,
     return _loss_head(cfg, hid, aux, top, batch["labels"], ctx)
 
 
-def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
+def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch,
                      *, chunks: int, dtype: torch.dtype = torch.float32,
-                     remat: bool = True):
+                     remat: bool = True, ctx: ShardCtx | None = None,
+                     gathers=None, grad_seed: float = 1.0):
     """Training forward with the cycle stack cut into K autograd chunks.
 
     Port of ``repro/models/model.py:chunked_loss_vjp``. The forward runs
@@ -284,14 +286,39 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
     a plain sum), so for MoE archs each chunk's aux output takes that
     cotangent beside its ``x`` output's.
 
+    Sharded layouts (``ctx``, ``gathers``, ``grad_seed``, as the
+    reference's): without ``gathers`` ``segs`` is the use layout
+    ``loss_fn`` reads (rank-stacked at tp > 1). With ``gathers`` =
+    ``(gather, scatter)`` of ``core.gs_sgd`` (``_gather_closures`` or, on
+    a process mesh, ``_mesh_gather_closures``), ``segs`` is one gather
+    group's storage, every segment (tp, n, *local), and ``batch`` a list
+    of the group's n workers' batches, which share the gathered storage
+    (a pod's ``data`` workers in 'fsdp'; n = 1 in 'dp'). The top segments
+    are gathered once, in a stage of their own: every stage of every
+    worker reads those leaves, their cotangents accumulate on them (each
+    worker's in stage order, then the workers' added in worker order, as
+    the monolithic backward's ``.grad`` adds them), and the gather's
+    transpose (``scatter``: the reference's psum_scatter, a
+    reduce-scatter on a mesh) runs once, in ``top_grads``. So a K-chunk
+    step does not multiply the top segments' collectives by K + 2. Each
+    chunk gathers its own cycle rows, and its backward step scatters
+    their gradient (the group's workers' summed in worker order) at
+    once: a step returns its cycle gradients in the storage layout, (tp,
+    n, b-a, *local), complete at its emission event. ``grad_seed`` is
+    the loss cotangent (the caller's 1/tp seed; every rank's copy of the
+    (tp,) loss takes it, as ``(loss / tp).sum().backward()`` gives it).
+
     Returns ``(loss, bwd_steps, top_grads)``, the reference's contract:
 
-      loss       -- 0-dim tensor (detached), ``loss_fn``'s value.
+      loss       -- ``loss_fn``'s value, detached (unseeded): 0-dim, (tp,)
+                    when ranked, or with a list of batches the workers'
+                    losses stacked.
       bwd_steps  -- K thunks to call STRICTLY in order. Step j runs chunk
                     K-1-j's backward and returns ``((a, b), d_cs, d_cr)``:
-                    the chunk's cycle rows and its (b-a, f) gradients.
-                    Step 0 first runs the epilogue's backward; the last
-                    step also runs the prologue's.
+                    the chunk's cycle rows and its (b-a, f) gradients
+                    (the storage layout with ``gathers``). Step 0 first
+                    runs the epilogue's backward; the last step also runs
+                    the prologue's.
       top_grads  -- thunk, to call once after every step ran:
                     ``(d_top_s, d_top_r)``, accumulated in the reference's
                     order (epilogue, chunks K-1..0, prologue).
@@ -303,7 +330,10 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
     top gradient one cycle at a time, last cycle first. The other top
     coordinates receive at most two terms (tied embeddings: the lookup
     and the head), whose sum is exact in any order. So the gradients are
-    the monolithic backward's, bit for bit.
+    the monolithic backward's, bit for bit, on every layout: a rank
+    sum (a replicated leaf read by every rank) is inside one stage's
+    node, as in the monolithic graph, and the cycle rows of different
+    cycles are disjoint.
 
     A stage that reads no top parameter gives ``None`` for them
     (``allow_unused``), and nothing is added: no zero tensor the size of
@@ -313,113 +343,179 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch: dict,
     (``scan_cycles`` over the chunk's range, as the reference's
     ``chunk_fn``), so a chunk's graph holds its groups' carries.
     """
-    tokens = batch["tokens"]
-    pos = _positions(tokens)
-    cross_kv = batch.get("cross_kv")
+    group = isinstance(batch, (list, tuple))
+    batches = list(batch) if group else [batch]
+    gather, scatter = gathers or (None, None)
+    ranked = ctx is not None and ctx.ranked
     bounds = chunk_plan(fs.n_cycles, chunks)
     K = len(bounds)
     moe = bool(cfg.n_experts)
-    ts = segs["top_s"].detach().requires_grad_()
-    tr = segs["top_r"].detach().requires_grad_()
+    if gather is None:
+        top_use = {k: segs[k] for k in ("top_s", "top_r")}
+    else:
+        top_use = gather({k: segs[k] for k in ("top_s", "top_r")})
+    ts = top_use["top_s"].detach().requires_grad_()
+    tr = top_use["top_r"].detach().requires_grad_()
+    del top_use
     shared = [l for l in fs.top_leaves if l.path[0] == "shared_attn"]
+
+    def cycle_rows(a: int, b: int) -> tuple:
+        """The chunk's cycle rows as leaves of the use layout."""
+        if gather is None:
+            cs, cr = segs["cycles_s"], segs["cycles_r"]
+            rows = {"cycles_s": cs[:, a:b] if ranked else cs[a:b],
+                    "cycles_r": cr[a:b]}
+        else:
+            rows = gather({k: segs[k][:, :, a:b]
+                           for k in ("cycles_s", "cycles_r")})
+        return (rows["cycles_s"].detach().requires_grad_(),
+                rows["cycles_r"].detach().requires_grad_())
+
+    def shared_slot(l, seg):
+        """A shared-block leaf's coordinates in its top segment (a view;
+        every rank's at tp > 1, as ``FlatSpec.top_params`` reads them)."""
+        if l.rep or seg.ndim == 1:
+            return seg[l.offset:l.offset + l.size]
+        return seg[:, l.offset:l.offset + l.size]
 
     def shared_leaves():
         """One cycle's shared block: (leaf, tensor) pairs and the tree."""
-        pairs = [(l, (tr if l.rep else ts)[l.offset:l.offset + l.size]
-                  .detach().reshape(l.shape).to(dtype).requires_grad_())
-                 for l in shared]
+        pairs = []
+        for l in shared:
+            slot = shared_slot(l, tr if l.rep else ts)
+            pairs.append((l, slot.detach().reshape(slot.shape[:-1] + l.shape)
+                          .to(dtype).requires_grad_()))
         return pairs, (tree_from_paths([(l.path[1:], v) for l, v in pairs])
                        if pairs else None)
 
-    stages = []   # per chunk: (x in, (x out, aux out), cs, cr, shared)
+    chunk_leaves = [cycle_rows(a, b) for a, b in bounds]
+    workers = []   # per worker: its stages, epilogue and loss
     with torch.enable_grad():
-        top = fs.top_params(ts, tr, dtype)
-        pro_out = embed_lookup(top["embed"], tokens, dtype)
-        x = pro_out
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for a, b in bounds:
-            x_in = x.detach().requires_grad_()
-            vs = segs["cycles_s"][a:b].detach().requires_grad_()
-            vr = segs["cycles_r"][a:b].detach().requires_grad_()
-            aux = aux.detach()
-            leaves = [shared_leaves() for _ in range(b - a)]
-            cyc_shared = [pairs for pairs, _ in leaves]
+        for wb in batches:
+            tokens = wb["tokens"]
+            pos = _positions(tokens)
+            cross_kv = wb.get("cross_kv")
+            top = fs.top_params(ts, tr, dtype)
+            pro_out = embed_lookup(top["embed"], tokens, dtype, ctx)
+            x = pro_out
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            stages = []   # per chunk: (x in, (x out, aux out), shared)
+            for (a, b), (vs, vr) in zip(bounds, chunk_leaves):
+                x_in = x.detach().requires_grad_()
+                aux = aux.detach()
+                leaves = [shared_leaves() for _ in range(b - a)]
 
-            def cyc(c, y, aux, vs=vs, vr=vr, leaves=leaves):
-                y, a_c = _apply_cycle(
-                    cfg, fs.cycle_params(vs[c], vr[c], dtype), leaves[c][1],
-                    y, pos, cross_kv)
-                return y, aux + a_c
+                def cyc(c, y, aux, vs=vs, vr=vr, leaves=leaves, pos=pos,
+                        cross_kv=cross_kv):
+                    y, a_c = _apply_cycle(
+                        cfg, fs.cycle_params(vs[:, c] if ranked else vs[c],
+                                             vr[c], dtype),
+                        leaves[c][1], y, pos, cross_kv, ctx=ctx)
+                    return y, aux + a_c
 
-            y, aux = scan_cycles(cyc, b - a, x_in, aux, remat)
-            stages.append((x_in, (y, aux), vs, vr, cyc_shared))
-            x = y
-        epi_in = x.detach().requires_grad_()
-        epi_aux = aux.detach().requires_grad_(moe)
-        top = fs.top_params(ts, tr, dtype)
-        hid = rmsnorm(epi_in, top["final_norm"], cfg.norm_eps)
-        loss = _loss_head(cfg, hid, epi_aux, top, batch["labels"])
-    del top, hid, x, aux
+                y, aux = scan_cycles(cyc, b - a, x_in, aux, remat)
+                stages.append((x_in, (y, aux), [p for p, _ in leaves]))
+                x = y
+            epi_in = x.detach().requires_grad_()
+            epi_aux = aux.detach().requires_grad_(moe)
+            top = fs.top_params(ts, tr, dtype)
+            hid = rmsnorm(epi_in, top["final_norm"], cfg.norm_eps)
+            loss = _loss_head(cfg, hid, epi_aux, top, wb["labels"], ctx)
+            workers.append({"stages": stages, "pro_out": pro_out,
+                            "epi_in": epi_in, "epi_aux": epi_aux,
+                            "loss": loss, "d_ts": None, "d_tr": None})
+            del top, hid, x, aux, pro_out, loss
 
-    st: dict = {"d_ts": None, "d_tr": None}
-
-    def acc_top(d_ts, d_tr):
+    def acc_top(st, d_ts, d_tr):
         for name, g in (("d_ts", d_ts), ("d_tr", d_tr)):
             if g is not None:
                 st[name] = g if st[name] is None else st[name].add_(g)
 
-    def acc_shared(pairs, grads):
+    def acc_shared(st, pairs, grads):
         for (l, v), g in zip(pairs, grads):
             name = "d_tr" if l.rep else "d_ts"
             if st[name] is None:
                 st[name] = torch.zeros_like(tr if l.rep else ts)
             if g is not None:
-                st[name][l.offset:l.offset + l.size].add_(g.reshape(-1))
+                slot = shared_slot(l, st[name])
+                slot.add_(g.reshape(slot.shape))
 
     def grad(out, inputs, cot):
         return torch.autograd.grad(out, inputs, grad_outputs=cot,
                                    allow_unused=True)
+
+    def run_worker(st, c: int, vs, vr):
+        """Chunk c's backward of one worker (the epilogue's first when c is
+        the last chunk, the prologue's after chunk 0): its cycle rows'
+        gradients."""
+        if c == K - 1:
+            loss = st.pop("loss")
+            seed = torch.full_like(loss, grad_seed)
+            if moe:
+                st["d_carry"], st["d_aux"], d_ts, d_tr = grad(
+                    loss, (st["epi_in"], st["epi_aux"], ts, tr), seed)
+            else:
+                st["d_carry"], d_ts, d_tr = grad(
+                    loss, (st["epi_in"], ts, tr), seed)
+            acc_top(st, d_ts, d_tr)
+        x_in, (y, aux_out), cyc_shared = st["stages"][c]
+        st["stages"][c] = None
+        outs, cots = (y,), (st.pop("d_carry"),)
+        if moe:
+            outs, cots = (y, aux_out), cots + (st["d_aux"],)
+        flat_shared = [v for pairs in cyc_shared for _, v in pairs]
+        d_carry, d_cs, d_cr, d_ts, d_tr, *d_sh = grad(
+            outs, (x_in, vs, vr, ts, tr, *flat_shared), cots)
+        acc_top(st, d_ts, d_tr)
+        n = len(shared)
+        for i in reversed(range(len(cyc_shared))):
+            acc_shared(st, cyc_shared[i], d_sh[i * n:(i + 1) * n])
+        if c == 0:  # embed backward: the top segments' last piece
+            acc_top(st, *grad(st.pop("pro_out"), (ts, tr), d_carry))
+        else:
+            st["d_carry"] = d_carry
+        return d_cs, d_cr
+
+    def worker_sum(parts, like):
+        """The group's workers' gradients of one leaf, added in worker
+        order (zeros for a leaf no worker reads)."""
+        parts = [p for p in parts if p is not None]
+        if not parts:
+            return torch.zeros_like(like)
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc
+
+    def to_storage(use: dict) -> tuple:
+        if scatter is None:
+            return tuple(use.values())
+        out = scatter(use, len(batches))
+        return tuple(out[k] for k in use)
 
     def make_step(j: int):
         c = K - 1 - j
         a, b = bounds[c]
 
         def run():
-            if j == 0:
-                if moe:
-                    st["d_carry"], st["d_aux"], d_ts, d_tr = grad(
-                        loss, (epi_in, epi_aux, ts, tr), torch.ones_like(loss))
-                else:
-                    st["d_carry"], d_ts, d_tr = grad(
-                        loss, (epi_in, ts, tr), torch.ones_like(loss))
-                acc_top(d_ts, d_tr)
-            x_in, (y, aux_out), vs, vr, cyc_shared = stages[c]
-            stages[c] = None
-            outs, cots = (y,), (st.pop("d_carry"),)
-            if moe:
-                outs, cots = (y, aux_out), cots + (st["d_aux"],)
-            flat_shared = [v for pairs in cyc_shared for _, v in pairs]
-            d_carry, d_cs, d_cr, d_ts, d_tr, *d_sh = grad(
-                outs, (x_in, vs, vr, ts, tr, *flat_shared), cots)
-            acc_top(d_ts, d_tr)
-            n = len(shared)
-            for i in reversed(range(len(cyc_shared))):
-                acc_shared(cyc_shared[i], d_sh[i * n:(i + 1) * n])
-            if c == 0:  # embed backward: the top segments' last piece
-                acc_top(*grad(pro_out, (ts, tr), d_carry))
-            else:
-                st["d_carry"] = d_carry
-            return ((a, b), torch.zeros_like(vs) if d_cs is None else d_cs,
-                    torch.zeros_like(vr) if d_cr is None else d_cr)
+            vs, vr = chunk_leaves[c]
+            chunk_leaves[c] = None
+            grads = [run_worker(st, c, vs, vr) for st in workers]
+            d_cs, d_cr = to_storage({
+                "cycles_s": worker_sum([g[0] for g in grads], vs),
+                "cycles_r": worker_sum([g[1] for g in grads], vr)})
+            return (a, b), d_cs, d_cr
 
         return run
 
     def top_grads():
-        d_ts, d_tr = st.pop("d_ts"), st.pop("d_tr")
-        return (torch.zeros_like(ts) if d_ts is None else d_ts,
-                torch.zeros_like(tr) if d_tr is None else d_tr)
+        d_ts = worker_sum([st.pop("d_ts") for st in workers], ts)
+        d_tr = worker_sum([st.pop("d_tr") for st in workers], tr)
+        return to_storage({"top_s": d_ts, "top_r": d_tr})
 
-    return loss.detach(), [make_step(j) for j in range(K)], top_grads
+    losses = [w["loss"].detach() for w in workers]
+    loss = torch.stack(losses) if group else losses[0]
+    return loss, [make_step(j) for j in range(K)], top_grads
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,17 @@ without a mesh, from the same params and batches), rank by rank:
   reduce-scatter, gs-SGD over 'pod'): bit-equal; and at tp = 2 in the
   8-process world (the replicated segments over ('data', 'model')):
   selections equal, losses and params within 1e-6 relative;
+- (e') the chunked backward and the backward-interleaved exchange at
+  tp = 2 x data = 2 (buckets 2, 2 chunks, the fused encode): each
+  process bit-equal (losses, params, EF every step) to the simulated
+  step run with the rank-stacked kernels one rank at a time
+  (``launch.mesh.per_rank_kernels``, rounded as the processes round);
+  against the plain simulation the losses, the selections every step
+  and the model-sharded segments bit-equal, the replicated ones (the
+  norm gains, whose gradient the simulation sums over every rank's rows
+  in one reduction) within 1e-6 relative; every process issues the same
+  collectives in the same order, the top segments' reduce-scatter once
+  a step and each chunk's rows' at its chunk;
 - (f) serving at tp = 2 for qwen3-4b, starcoder2-3b (replicated KV),
   rwkv6-7b, zamba2-2.7b and granite-moe-3b-a800m smoke: each rank's
   prefill logits shard and decode ids equal to the simulated rank's.
@@ -202,7 +213,10 @@ WORLDS = {
                     buckets=2, microbatch=1, clip_norm=0.5)),
                 "gtopk4": train((1, 4, 1), kw=dict(
                     compressor_name="gtopk", compressor_kw=dict(k=2048))),
-                "fsdp": train((2, 2, 1), arch="yi-9b", dp_mode="fsdp")},
+                "fsdp": train((2, 2, 1), arch="yi-9b", dp_mode="fsdp"),
+                "tp_interleave": train((1, 2, 2), kw=dict(
+                    compressor_kw=GS_KW, buckets=2, bwd_chunks=2,
+                    fuse_encode=True))},
     8: lambda: {"fsdp_tp": train((2, 2, 2), dp_mode="fsdp")},
 }
 
@@ -357,6 +371,61 @@ def test_tree_step_microbatch_clip_bit_equal():
 
 def test_gtopk_p4_bit_equal():
     hold_bit_equal(4, "gtopk4")
+
+
+def test_tp2_interleave_bit_equal_to_the_per_rank_simulation():
+    case, res = world(4)["tp_interleave"]
+    with tmesh.per_rank_kernels(2):
+        ts, sim = sim_train(case)
+    assert ts.bwd_chunks == 2 and ts.interleave and ts.sharded
+    for out in res:
+        s, m = sim_rows(ts, sim, out["coords"]["model"], out["worker"]), \
+            mesh_rows(ts, out)
+        assert out["loss"] == sim["loss"], (out["loss"], sim["loss"])
+        for k in SEG_NAMES:
+            assert_bits(m["params"][k], s["params"][k], k)
+        for step, (me, se) in enumerate(zip(m["ef"], s["ef"])):
+            for b, (x, y) in enumerate(zip(me, se)):
+                assert_bits(x, y, f"EF step {step} bucket {b}")
+
+
+def test_tp2_interleave_against_the_batched_simulation():
+    """The plain simulation batches the ranks: a replicated norm gain's
+    gradient is one reduction over every rank's rows there, a process's
+    own rows plus the two-way all-reduce on the mesh. Everything else is
+    bit-equal."""
+    ts, sim, rows = each_rank(4, "tp_interleave")
+    for out, s, m in rows:
+        assert out["loss"] == sim["loss"], (out["loss"], sim["loss"])
+        for step, (me, se) in enumerate(zip(m["ef"], s["ef"])):
+            for b, (x, y) in enumerate(zip(me, se)):
+                assert torch.equal(x == 0, y == 0), (step, b)
+        for k in SEG_NAMES:
+            if k.endswith("_s"):
+                assert_bits(m["params"][k], s["params"][k], k)
+            np.testing.assert_allclose(m["params"][k], s["params"][k],
+                                       rtol=SIM_RTOL, atol=SIM_RTOL, err_msg=k)
+
+
+def test_tp2_interleave_collectives_in_one_order():
+    """Every process issues the same collectives in the same order (a
+    mismatch deadlocks NCCL): per step the top segments' replicated
+    slices gathered and reduce-scattered over ``model`` once, each
+    chunk's rows gathered in the forward and reduce-scattered in its
+    backward step, then the exchange over the dp axes."""
+    case, res = world(4)["tp_interleave"]
+    seqs = [out["collectives"] for out in res]
+    assert all(q == seqs[0] for q in seqs[1:])
+    steps = len(case["batches"])
+    rs = [c for c in seqs[0] if c[0] == "reduce-scatter"]
+    assert len(rs) == steps * (2 + 1) and all(c[1] == ("model",) for c in rs)
+    gathers = [c for c in seqs[0] if c[0] == "all-gather"
+               and c[1] == ("model",)]
+    assert len(gathers) == steps * (1 + 2)
+    ex = [i for i, c in enumerate(seqs[0]) if c[1] == ("pod", "data")
+          and c[0] == "all-reduce"]
+    # each step's sketch and value all-reduces: two buckets
+    assert len(ex) == steps * 4
 
 
 def test_fsdp_pod2_data2_bit_equal():

@@ -78,17 +78,22 @@ def run_steps(ts, state, batches, include=None) -> tuple[dict, dict]:
 def train_case(case: dict) -> dict:
     """The case's steps on its mesh: losses, norms, EF every step, the
     first and the last params, the kernels' launches; this process's
-    coordinates."""
+    coordinates; and every collective the steps issued, in order (kind,
+    axes, shape; ``core.pgroup.tally``)."""
+    from repro_torch.core import pgroup
     from repro_torch.kernels.dispatch import LAUNCHES
     pm, ma = _setup(case)
     opt, ts = build_step(case, ma)
     state = ts.state_from(train_params(case, ts, ma), opt)
     params0 = _host(state["params"])
     LAUNCHES.clear()
-    _, out = run_steps(ts, state, case["batches"], case.get("include"))
+    with pgroup.tally() as calls:
+        _, out = run_steps(ts, state, case["batches"], case.get("include"))
     return dict(out, params0=params0, coords=dict(pm.coords),
                 worker=pm.worker(), launches=dict(LAUNCHES),
-                backend=pm.backend)
+                backend=pm.backend,
+                collectives=[(c["kind"], c["axes"], c["shape"])
+                             for c in calls])
 
 
 def tree_case(case: dict) -> dict:
