@@ -223,8 +223,8 @@ Phases (any failure exits non-zero and prints no result line):
                 copies its CUDA tensors through pinned host memory, in
                 ``stage/*`` spans). Each process: three counted steps (the
                 encode, its finish, the decode and the select 6 times, no
-                plain version), its peak, the staging over the counted
-                steps and one traced step's ``allreduce/b{i}`` and
+                plain version), its peak, the wire counter over the
+                counted steps and one traced step's ``allreduce/b{i}`` and
                 ``recover/b{i}`` spans with the staging inside them. Held
                 bit for bit against ``train``: losses, the final state's
                 fingerprints (bit digests of every params segment and EF
@@ -4897,7 +4897,7 @@ def mesh_train_body(rank, cell, shape):
     """A spawned rank of a mesh train phase: the cell's three counted
     steps (``train_phase``: counts zeroed before, read after, this
     process's peak) with every plain version counted, the state's
-    fingerprints, the host staging (``core.pgroup.STAGING``) over the
+    fingerprints, the wire counter (``core.pgroup.WIRE``) over the
     counted steps, and one traced step's staged spans. ``cell``: one
     cell, or a tuple of cells run in turn on the one mesh (a list of
     results)."""
@@ -4915,17 +4915,17 @@ def mesh_train_body(rank, cell, shape):
 def _mesh_train_cell(torch, rank, cell, pm, ma, device):
     from repro_torch.core import pgroup
     cfg, opt, ts = _mesh_cell(torch, cell, ma, device)
-    pgroup.reset_staging()
+    before = dict(pgroup.WIRE)
     with plain_calls() as plain, kept_recoveries() as kept:
         run = train_phase(torch, cfg, opt, ts, tag=f"{cell} rank {rank}")
-    staging = pgroup.reset_staging()
+    wire = {k: v - before[k] for k, v in pgroup.WIRE.items()}
     kept = kept_host(kept)
     prints = state_prints(torch, ts, run["state"])
     spans = staged_spans(torch, ts, run["state"], run["stream"])
     return {"rank": rank, "coords": dict(pm.coords), "backend": pm.backend,
             "worker": pm.worker(), "losses": run["losses"], "times": run["times"],
             "peak": run["peak"], "counts": run["counts"],
-            "plain": dict(plain), "prints": prints, "staging": staging,
+            "plain": dict(plain), "prints": prints, "wire": wire,
             "spans": spans, "d_local": ts.d_local, "kept": kept,
             "buckets": list(ts.compressor.spec.sizes)}
 
@@ -5030,17 +5030,16 @@ def hold_mesh_run(torch, tag, results, ref: dict, recoveries,
         spans = " ".join(f"{k} {v[0] * 1e3:.2f} ms (staged "
                          f"{v[1] * 1e3:.2f})"
                          for k, v in sorted(res["spans"].items()))
-        sg = res["staging"]
+        wire = res["wire"]
         log(f"[{tag}] rank {res['rank']} {res['coords']} ({res['backend']})"
             f": losses {got} bit-equal: {got == want} (max rel {rel:.3e}); "
             f"selections equal every step; final state: {st['same']} of "
             f"{st['n']} tensors bit-equal, the others' samples max abs diff "
             f"{st['max_abs']:.3e}, {st['beyond']} of {st['sampled']} beyond "
             f"{MESH_RTOL}; step_s {[round(t, 4) for t in res['times']]}; "
-            f"peak {res['peak']} bytes ({res['peak'] / 2**30:.2f} GiB); host "
-            f"staging over the counted steps d2h {sg['d2h_s']:.4f} s, h2d "
-            f"{sg['h2d_s']:.4f} s, {sg['bytes']} bytes in {sg['copies']} "
-            f"copies; traced step: {spans}")
+            f"peak {res['peak']} bytes ({res['peak'] / 2**30:.2f} GiB); "
+            f"wire over the counted steps {wire['calls']} collectives, "
+            f"{wire['bytes']} payload bytes; traced step: {spans}")
         for k, v in res["counts"].items():
             total[k] = total.get(k, 0) + v
     return total

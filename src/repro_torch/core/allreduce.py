@@ -21,6 +21,10 @@ round of ``masked_permute`` (so the tree and gTop-k's merge) is one
 the worker ids. The adds are the simulation's: a rank that receives
 nothing still adds ``where(mask, received, 0)``, so its -0.0 turns to
 +0.0 as in the simulation.
+
+The wire counter (``core.pgroup.WIRE``) counts each simulated psum and
+each permute round once, with one worker's row as the payload, as each
+process of a mesh counts its own collectives.
 """
 
 from __future__ import annotations
@@ -87,6 +91,12 @@ def reduce_schedule_arrays(p: int) -> tuple[tuple[np.ndarray, np.ndarray], ...]:
     return tuple(rounds)
 
 
+def _count_row(x: torch.Tensor) -> None:
+    """Count a simulated collective on the worker axis of ``x``: one
+    worker's row is its payload (``pgroup.WIRE``)."""
+    pgroup.count_wire(x[0].numel() * x.element_size())
+
+
 def _complete_perm(pairs: list[tuple[int, int]], p: int) -> list[tuple[int, int]]:
     """Extend a partial (src, dst) map to a full permutation of range(p)."""
     srcs = {s for s, _ in pairs}
@@ -113,6 +123,7 @@ def masked_permute(x: torch.Tensor, pairs: list[tuple[int, int]],
         received, got = pgroup.permute(x, pairs, ax)
         return received, torch.full((1,) * x.dim(), got, dtype=torch.bool,
                                     device=x.device)
+    _count_row(x)
     src_of = [0] * p
     for s, d in _complete_perm(pairs, p):
         src_of[d] = s
@@ -156,6 +167,7 @@ def psum_allreduce(x: torch.Tensor, p: int | None = None) -> torch.Tensor:
     ax = current_axis()
     if ax is not None:
         return pgroup.all_reduce(x, ax)
+    _count_row(x)
     return pgroup.fold_sum(x, keepdim=True).expand_as(x)
 
 

@@ -17,6 +17,11 @@ Compressors: ``DenseAllReduce``, ``TopKCompressor``, ``GTopK``,
 ``SketchedSGD``, ``GsSGD`` (the paper), ``FetchSGDStyle``, ``SignSGD``,
 ``PowerSGD``.
 
+Spans (cat ``detail``, ``obs/trace.py``): gs-SGD's error-feedback add
+(``ef/add``) and residual (``ef/residual``), and the exact values' round
+of every sketch-based compressor (``values/round``: the gather, the
+k-float sum, the scale and the scatter to dense rows).
+
 Recovery from an exact sketch goes through ``kernels.ops.heavymix_recover``
 (the decode or scores kernel and a top-k with the reference's tie order)
 where the reference calls the pure-jnp ``heavymix.heavymix``; the two
@@ -45,6 +50,7 @@ from repro_torch.core import ts_sketch as ts
 from repro_torch.core.heavymix import draw_filler, topk_lower_index
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ts_encode import ts_encode
+from repro_torch.obs import trace as obtrace
 
 _F32 = 4  # wire bytes per float32
 _I32 = 4
@@ -225,13 +231,15 @@ class _SketchBased:
         filler = self._filler(d, u.device)
         idx = torch.stack([self._select(sketch_sum[p], d, filler)
                            for p in range(u.shape[0])])
-        vals = torch.gather(u, -1, idx)
-        if include is not None:
-            vals = vals * include[:, None]
-        vals = ar.psum_allreduce(vals)  # second round (Alg.2 line 4): k floats
-        if scale is not None:
-            vals = vals * scale[:, None]
-        return _scatter(d, idx, vals), idx
+        with obtrace.current().span("values/round", cat="detail"):
+            vals = torch.gather(u, -1, idx)
+            if include is not None:
+                vals = vals * include[:, None]
+            # second round (Alg.2 line 4): k floats
+            vals = ar.psum_allreduce(vals)
+            if scale is not None:
+                vals = vals * scale[:, None]
+            return _scatter(d, idx, vals), idx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,7 +285,8 @@ class GsSGD(_SketchBased):
     def stage_encode(self, acc: torch.Tensor, g: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """Stage 1 (compute): EF add + each worker's Count-Sketch encode."""
-        u = ef.add(acc, g)
+        with obtrace.current().span("ef/add", cat="detail"):
+            u = ef.add(acc, g)
         return u, self._encode_workers(u).to(self.wire_dtype)
 
     # The fused encode of the backward interleave: stage 1 split into
@@ -302,7 +311,8 @@ class GsSGD(_SketchBased):
         the bucket slice [offset, offset + n) of (P, n) ``g_piece``.
         Returns (u_piece (P, n), the exact partial sketches, P x (R, W)
         f32 sketches held as integer limb sums)."""
-        u_piece = ef.add(acc_piece, g_piece)
+        with obtrace.current().span("ef/add", cat="detail"):
+            u_piece = ef.add(acc_piece, g_piece)
         sk = cs.exact_zeros(self.sketch, (u_piece.shape[0],),
                             device=u_piece.device)
         for p in range(u_piece.shape[0]):
@@ -362,10 +372,12 @@ class GsSGD(_SketchBased):
         d = u.shape[-1]
         inc = include.to(torch.float32) if include is not None else None
         upd, idx = self._recover(sk_sum, u, d, include=inc, scale=scale)
-        if include is None:
-            acc = ef.residual_global(u, idx, inplace=True)
-        else:
-            acc = torch.where(inc[:, None] > 0, ef.residual_global(u, idx), u)
+        with obtrace.current().span("ef/residual", cat="detail"):
+            if include is None:
+                acc = ef.residual_global(u, idx, inplace=True)
+            else:
+                acc = torch.where(inc[:, None] > 0,
+                                  ef.residual_global(u, idx), u)
         return upd, acc, self.comm_stats(d, nworkers)
 
     def comm_stats(self, d: int, nworkers: int) -> CommStats:

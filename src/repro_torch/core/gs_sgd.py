@@ -40,13 +40,19 @@ Spans: each phase of the step runs under a span of the ambient tracer
 the monolithic exchange, ``optimizer``; ``ready/b{i}`` instants in the
 interleave), each ending in ``sp.sync`` of its result where the
 reference's does. A fused partial encode runs under its bucket's
-``encode/b{i}`` (the reference gives it no span of its own). With tracing
-off (``NULL``) a span is only a ``torch.profiler.record_function`` range
-and ``sync`` does nothing, so the step's device work is the same and it
-never waits on the card; under ``torch.profiler.profile`` each range's
-device time is the sum of the kernels launched inside it
-(``chip_smoke.py`` reads them). With a tracer active each span syncs the
-card at its end, so its host duration covers its kernels.
+``encode/b{i}`` (the reference gives it no span of its own). Inside the
+monolithic ``loss_and_grad`` each worker's ``model/forward/w{w}`` and
+``model/backward/w{w}``, then ``model/pack`` (the gradients scattered and
+packed into the flat rows), cat ``detail``, as the model's
+``params/views`` and ``remat/recompute`` and the compressor's ``ef/*``
+and ``values/round`` (``obs/trace.py``). With tracing off (``NULL``) a
+span is a ``torch.profiler.record_function`` range while a profiler
+records and nothing otherwise, and ``sync`` does nothing, so the step's
+device work is the same and it never waits on the card; under
+``torch.profiler.profile`` each range's device time is the sum of the
+kernels launched inside it (``chip_smoke.py`` and the benchmark read
+them). With a tracer active each span syncs the card at its end, so its
+host duration covers its kernels; the ``detail`` spans do not sync.
 
 ``microbatch=mb`` cuts each worker's batch into slices of mb rows and
 sums their losses and gradients in f32, then divides by the slice count
@@ -834,6 +840,7 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
             raise ValueError(f"local batch {b_loc} is not divisible by "
                              f"microbatch {mb}")
         n_mb = max(1, b_loc // mb)
+        tr = obtrace.current()
         for a in range(0, P, n_group):
             store = {k: (params[k] if tp > 1 else params[k][None])
                      [:, a:a + n_group] for k in SEG_NAMES}
@@ -847,22 +854,25 @@ def make_train_step(cfg: ArchConfig, ma: MeshAxes, opt: Optimizer, *,
                         slice(None)
                     wb = {k: v[w, rows] for k, v in batch.items()}
                     with torch.enable_grad():
-                        loss = inv_tp * mdl.loss_fn(cfg, fs, use, wb,
-                                                    dtype=dtype, remat=remat,
-                                                    ctx=ctx)
-                        loss.sum().backward()
+                        with tr.span(f"model/forward/w{w}", cat="detail"):
+                            loss = inv_tp * mdl.loss_fn(
+                                cfg, fs, use, wb, dtype=dtype, remat=remat,
+                                ctx=ctx)
+                        with tr.span(f"model/backward/w{w}", cat="detail"):
+                            loss.sum().backward()
                     loss = loss.detach()
                     loss = loss[0] if loss.ndim else loss
                     loss_w = loss if loss_w is None else loss_w + loss
                 losses[w] = (loss_w / n_mb if n_mb > 1 else loss_w) * ma.tp
-            grads = scatter({k: (v.grad if v.grad is not None
-                                 else torch.zeros_like(v))
-                             for k, v in use.items()}, n_group)
-            del use
-            for j in range(n_group):
-                g_flat[:, a + j] = pack_segs({k: grads[k][:, j]
-                                              for k in SEG_NAMES}, lead=1)
-            del grads
+            with tr.span("model/pack", cat="detail"):
+                grads = scatter({k: (v.grad if v.grad is not None
+                                     else torch.zeros_like(v))
+                                 for k, v in use.items()}, n_group)
+                del use
+                for j in range(n_group):
+                    g_flat[:, a + j] = pack_segs({k: grads[k][:, j]
+                                                  for k in SEG_NAMES}, lead=1)
+                del grads
         if n_mb > 1:
             g_flat /= n_mb
         return losses, g_flat

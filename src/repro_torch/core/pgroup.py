@@ -21,8 +21,17 @@ of its own, gloo when ranks share one (NCCL refuses two ranks on one
 device) or run on the CPU. On gloo a CUDA tensor is copied explicitly
 through pinned host memory around each collective (``stage/d2h`` and
 ``stage/h2d`` spans of the ambient tracer, inside the collective's own
-span; ``STAGING`` sums their seconds and bytes). Nothing falls back
-silently: a collective that fails raises.
+span). Nothing falls back silently: a collective that fails raises.
+
+The wire counter: ``WIRE`` sums the collectives a worker takes part in
+(``calls``) and the payload it hands them (``bytes``: its own input, not
+the result), since the process started; a reader takes the difference
+of two readings. Each collective counts once, where it runs: here on a
+mesh (any transport, a fake world's included), and in
+``core.allreduce`` on the simulated worker axis (a psum, a permute round
+of the tree or of gTop-k's merge), with one worker's row as the payload,
+so a simulated step and each process of its mesh count alike (the mesh
+adds its own scalars: the losses' gather, the norms' sums).
 
 Sum order: a sum over more than two processes is an *ordered all-reduce*
 (``all_reduce``): every process sends the i-th of ``size`` equal chunks
@@ -51,7 +60,6 @@ import contextlib
 import dataclasses
 import itertools
 import math
-import time
 from typing import Any
 
 import torch
@@ -61,17 +69,15 @@ from repro_torch.obs import trace as obtrace
 
 AXIS_ORDER = ("pod", "data", "model")
 
-# Host staging of CUDA tensors on the gloo transport, summed since the
-# last ``reset_staging``: seconds of device-to-host and host-to-device
-# copies (each ended by a sync) and the bytes they moved.
-STAGING = {"d2h_s": 0.0, "h2d_s": 0.0, "bytes": 0, "copies": 0}
+# Collectives a worker took part in and the payload bytes it handed
+# them, since the process started (module docstring).
+WIRE = {"calls": 0, "bytes": 0}
 
 
-def reset_staging() -> dict:
-    """Zero ``STAGING``; returns what it held."""
-    old = dict(STAGING)
-    STAGING.update(d2h_s=0.0, h2d_s=0.0, bytes=0, copies=0)
-    return old
+def count_wire(nbytes: int) -> None:
+    """Count one collective call of ``nbytes`` payload a worker."""
+    WIRE["calls"] += 1
+    WIRE["bytes"] += nbytes
 
 
 # The non-deprecated names where this torch has them.
@@ -137,13 +143,17 @@ def tally():
         _TALLY = outer
 
 
-def _record(kind: str, axis: Axis, result_shape, dtype) -> None:
+def _record(kind: str, axis: Axis, x: torch.Tensor, result_shape) -> None:
+    """Count the collective on ``x`` (``WIRE``) and, inside ``tally()``,
+    record it."""
+    count_wire(x.numel() * x.element_size())
     if _TALLY is None:
         return
     _TALLY.append({"kind": kind, "axes": axis.names, "group": axis.size,
-                   "result_bytes": math.prod(result_shape) * dtype.itemsize,
+                   "result_bytes": (math.prod(result_shape)
+                                    * x.element_size()),
                    "shape": tuple(int(s) for s in result_shape),
-                   "dtype": str(dtype).replace("torch.", "")})
+                   "dtype": str(x.dtype).replace("torch.", "")})
 
 
 def _staged(x: torch.Tensor, axis: Axis) -> bool:
@@ -157,17 +167,12 @@ def _to_wire(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     if not _staged(x, axis):
         return x
     nbytes = x.numel() * x.element_size()
-    # the work that made x ends first, so the span and STAGING time the
-    # copy alone
+    # the work that made x ends first, so the span times the copy alone
     torch.cuda.current_stream(x.device).synchronize()
     with obtrace.current().span("stage/d2h", cat="comm",
                                 args={"bytes": nbytes}):
-        t0 = time.perf_counter()
         h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         h.copy_(x)
-        STAGING["d2h_s"] += time.perf_counter() - t0
-    STAGING["bytes"] += nbytes
-    STAGING["copies"] += 1
     return h
 
 
@@ -179,12 +184,8 @@ def _from_wire(h: torch.Tensor, device: torch.device) -> torch.Tensor:
     nbytes = h.numel() * h.element_size()
     with obtrace.current().span("stage/h2d", cat="comm",
                                 args={"bytes": nbytes}):
-        t0 = time.perf_counter()
         out = h.to(device)
         torch.cuda.current_stream(device).synchronize()
-        STAGING["h2d_s"] += time.perf_counter() - t0
-    STAGING["bytes"] += nbytes
-    STAGING["copies"] += 1
     return out
 
 
@@ -195,7 +196,7 @@ def all_reduce(x: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
     group of one."""
     if axis.size == 1:
         return x
-    _record("all-reduce", axis, x.shape, x.dtype)
+    _record("all-reduce", axis, x, x.shape)
     if axis.fake:
         return x.detach().clone()
     if op == "sum" and axis.size > 2:
@@ -232,7 +233,7 @@ def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     takes."""
     if axis.size == 1:
         return x[None]
-    _record("all-gather", axis, (axis.size,) + tuple(x.shape), x.dtype)
+    _record("all-gather", axis, x, (axis.size,) + tuple(x.shape))
     if axis.fake:
         return x.detach()[None].expand((axis.size,) + x.shape).clone()
     src = x.detach().contiguous()
@@ -260,7 +261,7 @@ def reduce_scatter(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     if axis.size == 1:
         return x
     m = x.shape[-1] // axis.size
-    _record("reduce-scatter", axis, x.shape[:-1] + (m,), x.dtype)
+    _record("reduce-scatter", axis, x, x.shape[:-1] + (m,))
     if axis.fake:
         return x.detach()[..., axis.index * m:(axis.index + 1) * m].clone()
     src = x.detach().reshape(x.shape[:-1] + (axis.size, m)).movedim(
@@ -283,7 +284,7 @@ def permute(x: torch.Tensor, pairs, axis: Axis
     if len(dst) > 1 or len(src) > 1:
         raise ValueError(f"group index {me} sends to {dst} and receives "
                          f"from {src} in one round; at most one each")
-    _record("collective-permute", axis, x.shape, x.dtype)
+    _record("collective-permute", axis, x, x.shape)
     if not dst and not src:
         return x, False
     if axis.fake:

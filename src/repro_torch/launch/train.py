@@ -346,7 +346,8 @@ def drive(spec: RunSpec | None, ts, state: dict, batch_at, steps, *,
     """Run the train step over ``steps`` (``batch_at(step)`` gives the
     global batch), each step timed on the host clock up to a device sync.
 
-    tracer: an ``obs.Tracer``: every step under a ``step{n}`` span, and one
+    tracer: an ``obs.Tracer``: every step under a ``step{n}`` span (its
+    batch made and sharded before it, under ``step/input``), and one
     probe step (``probe_step``) before the second step (the first, for a
     one-step run). recorder: a ``Trace2Recorder`` fed every step.
     watchdog: a ``tune.Watchdog`` fed every step's record; when it returns
@@ -368,7 +369,8 @@ def drive(spec: RunSpec | None, ts, state: dict, batch_at, steps, *,
     replanned_at = None   # the step after a re-plan is tagged warmup
     t0 = time.time()
     for step in steps:
-        batch = ts.shard(batch_at(step))
+        with tnull.span("step/input", cat="detail"):
+            batch = ts.shard(batch_at(step))
         if step == probe_at:
             probe = probe_step(tracer, ts, state, batch, step)
         warm = step == start or replanned_at == step - 1

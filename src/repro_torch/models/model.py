@@ -7,6 +7,10 @@ Port of ``repro/models/model.py`` (``_apply_cycle``, ``_backbone``,
 cache helpers). Parameters arrive as flat segments
 (``flatten.FlatSpec``); the per-cycle views are sliced from the cycle
 segments, so autograd lands the gradient of every leaf in its segment.
+The ops that make those views run under a ``params/views`` span (cat
+``detail``, ``obs/trace.py``): under ``torch.profiler`` their backward
+nodes (``SelectBackward0``, ``SliceBackward0``, ...) carry the same
+sequence numbers, and their ranges are the segment gradients' assembly.
 A cycle applies its blocks in ``cfg.cycle`` order and returns ``(x,
 aux)``, the MoE blocks' load-balance loss summed from 0 (0 for every
 other family); the backbone carries ``(x, aux)`` from cycle to cycle, and
@@ -73,6 +77,7 @@ from repro_torch.models.layers import (attention_block, embed_lookup,
                                        parallel_attn_mlp_block, rmsnorm,
                                        sharded_argmax)
 from repro_torch.models.remat import remat_call
+from repro_torch.obs import trace as obtrace
 
 MOE_AUX_COEF = 0.01
 
@@ -212,7 +217,8 @@ def _backbone(cfg: ArchConfig, fs: FlatSpec, segs: dict,
     With ``cache`` each cycle c works on the views ``cache[kind][leaf][c]``
     (the reference's serve body, whose carry is updated in place).
     ``remat``: the cycle remat (training; module docstring)."""
-    top = fs.top_params(segs["top_s"], segs["top_r"], dtype)
+    with obtrace.current().span("params/views", cat="detail"):
+        top = fs.top_params(segs["top_s"], segs["top_r"], dtype)
     x = embed_lookup(top["embed"], tokens, dtype, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cs, cr = segs["cycles_s"], segs["cycles_r"]
@@ -221,10 +227,10 @@ def _backbone(cfg: ArchConfig, fs: FlatSpec, segs: dict,
     def cyc(c, x, aux):
         cyc_cache = (None if cache is None
                      else tree_map(lambda a: a[c], cache))
-        vs = cs[:, c] if ranked else cs[c]
-        x, a = _apply_cycle(cfg, fs.cycle_params(vs, cr[c], dtype),
-                            top.get("shared_attn"), x, pos, cross_kv, mode,
-                            cyc_cache, kv_len, ctx)
+        with obtrace.current().span("params/views", cat="detail"):
+            p = fs.cycle_params(cs[:, c] if ranked else cs[c], cr[c], dtype)
+        x, a = _apply_cycle(cfg, p, top.get("shared_attn"), x, pos,
+                            cross_kv, mode, cyc_cache, kv_len, ctx)
         return x, aux + a
 
     x, aux = scan_cycles(cyc, fs.n_cycles, x, aux,
@@ -395,7 +401,8 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch,
             tokens = wb["tokens"]
             pos = _positions(tokens)
             cross_kv = wb.get("cross_kv")
-            top = fs.top_params(ts, tr, dtype)
+            with obtrace.current().span("params/views", cat="detail"):
+                top = fs.top_params(ts, tr, dtype)
             pro_out = embed_lookup(top["embed"], tokens, dtype, ctx)
             x = pro_out
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -407,10 +414,12 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch,
 
                 def cyc(c, y, aux, vs=vs, vr=vr, leaves=leaves, pos=pos,
                         cross_kv=cross_kv):
-                    y, a_c = _apply_cycle(
-                        cfg, fs.cycle_params(vs[:, c] if ranked else vs[c],
-                                             vr[c], dtype),
-                        leaves[c][1], y, pos, cross_kv, ctx=ctx)
+                    with obtrace.current().span("params/views",
+                                                cat="detail"):
+                        p = fs.cycle_params(vs[:, c] if ranked else vs[c],
+                                            vr[c], dtype)
+                    y, a_c = _apply_cycle(cfg, p, leaves[c][1], y, pos,
+                                          cross_kv, ctx=ctx)
                     return y, aux + a_c
 
                 y, aux = scan_cycles(cyc, b - a, x_in, aux, remat)
@@ -418,7 +427,8 @@ def chunked_loss_vjp(cfg: ArchConfig, fs: FlatSpec, segs: dict, batch,
                 x = y
             epi_in = x.detach().requires_grad_()
             epi_aux = aux.detach().requires_grad_(moe)
-            top = fs.top_params(ts, tr, dtype)
+            with obtrace.current().span("params/views", cat="detail"):
+                top = fs.top_params(ts, tr, dtype)
             hid = rmsnorm(epi_in, top["final_norm"], cfg.norm_eps)
             loss = _loss_head(cfg, hid, epi_aux, top, wb["labels"], ctx)
             workers.append({"stages": stages, "pro_out": pro_out,

@@ -22,7 +22,8 @@ they are kept.
 This is ``torch.utils.checkpoint``'s non-reentrant scheme without its
 options, and without its first call's import of ``torch._dynamo``,
 which takes seconds in every process that trains. Nothing in a region
-draws random numbers, so no RNG state is saved.
+draws random numbers, so no RNG state is saved. A recompute runs under a
+``remat/recompute`` span (cat ``detail``, ``obs/trace.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from __future__ import annotations
 import weakref
 
 import torch
+
+from repro_torch.obs import trace as obtrace
 
 
 class _Filled(Exception):
@@ -109,9 +112,11 @@ class _Region:
                 raise _Filled
             return None
 
+        # on autograd's thread: the span does not sync
         try:
-            with torch.autograd.graph.saved_tensors_hooks(
-                    fill, lambda _: None), torch.enable_grad():
+            with obtrace.current().span("remat/recompute", cat="detail"), \
+                    torch.autograd.graph.saved_tensors_hooks(
+                        fill, lambda _: None), torch.enable_grad():
                 self.fn(*args)
         except _Filled:
             pass

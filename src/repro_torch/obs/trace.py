@@ -8,25 +8,34 @@ instrumented code (``core/gs_sgd.py``'s step and exchanges,
 ``core/allreduce.tree_allreduce``, ``obs/drift.py``) calls
 ``current()``, which returns the active tracer or the module ``NULL``.
 
-Two differences from the reference, both for the card:
+Differences from the reference, for the card and its profiler:
 
 * ``Span.sync(x)`` calls ``torch.cuda.synchronize`` on the device of every
   CUDA tensor in ``x`` (tensors inside tuples, lists and dicts), so an
   active span's duration covers its kernels; it is the identity for CPU
   tensors. A failed sync raises: nothing is swallowed.
-* Every span, the ``NULL`` tracer's included, also opens a
-  ``torch.profiler.record_function`` range of the same name, so a
-  ``torch.profiler`` trace of an untraced step keeps the per-phase ranges
-  ``chip_smoke.py`` and ``bench/time_paths.py`` read. With tracing off a
-  span costs that one range object (as the step's ranges did before the
-  tracer existed) and ``sync`` is the identity: the step does the same
-  device work with tracing on or off, and no host sync.
+* Every span also opens a ``torch.profiler.record_function`` range of
+  the same name, so a ``torch.profiler`` trace of an untraced step keeps
+  the per-phase ranges ``chip_smoke.py``, ``bench/time_paths.py`` and
+  the benchmark read. The ``NULL`` tracer's span opens its range only
+  while a profiler records (``torch.autograd._profiler_enabled()``, a
+  flag read); otherwise it is inert, for a range enters and leaves the
+  profiler's dispatcher whether or not anything records it. ``sync`` is
+  the identity with tracing off: the step does the same device work with
+  tracing on or off, and no host sync.
+* A ``Tracer`` on its own clock (``time.perf_counter``, the epoch read
+  at construction) also reads ``time.time_ns()`` beside the epoch, and
+  its export carries it as ``epoch_unix_ns``: a span's Unix time in us
+  is ``epoch_unix_ns / 1e3 + ts``, as a ``torch.profiler`` trace's event
+  is at ``ts + baseTimeNanoseconds / 1e3``, so the program's spans land
+  on the profiler's timeline. A tracer on an injected clock or epoch has
+  no Unix time and exports none.
 
 The train driver runs one PROBE step under the tracer (on a copy of the
 state, its output discarded) for per-phase attribution, and wraps every
 step in a driver-level ``step{n}`` span (see ``launch/train.py``).
 
-Span taxonomy — the ``cat`` field (the reference's):
+Span taxonomy — the ``cat`` field (the reference's, and ``detail``):
 
     step       one whole training step (driver timeline)
     probe      the instrumented step the phase spans live under
@@ -38,6 +47,14 @@ Span taxonomy — the ``cat`` field (the reference's):
     optimizer  the segment-wise optimizer sweep
     runtime    watchdog, elastic-replan and straggler-drop instants
     stall      sim-only (``from_sim``: the barrier wait and detection)
+    detail     the port's own spans inside a phase, which the reference
+               has not: ``model/forward/w{w}``, ``model/backward/w{w}``,
+               ``model/pack``, ``params/views``, ``remat/recompute``,
+               ``ef/add``, ``ef/residual``, ``values/round`` and, at the
+               driver, ``step/input``. A category of its own, so every
+               reader of the categories above reads what it did; opened
+               on autograd's thread (``remat/recompute``) a span does not
+               ``sync``
 
 ``from_sim`` renders the simulator's event-loop result
 (``sim/cluster.SimResult``) in the same schema, on the simulated clock.
@@ -87,7 +104,8 @@ def sync(x):
 
 
 class _NullSpan:
-    """``NULL.span(...)``: a ``record_function`` range and nothing else."""
+    """``NULL.span(...)`` while a profiler records: a ``record_function``
+    range and nothing else."""
 
     __slots__ = ("_rf",)
 
@@ -129,7 +147,9 @@ class _NullTracer:
     __slots__ = ()
 
     def span(self, name, *, cat="", track="main", args=None):
-        return _NullSpan(name)
+        if torch.autograd._profiler_enabled():
+            return _NullSpan(name)
+        return _INERT_SPAN
 
     def begin(self, name, *, cat="", track="main", args=None):
         return _INERT_SPAN
@@ -197,6 +217,10 @@ class Tracer:
         self._clock = clock
         self.pid = pid
         self.epoch = clock() if epoch is None else epoch
+        # the epoch's Unix time, where the epoch is this process's
+        # perf_counter (module docstring)
+        self.epoch_unix_ns = (time.time_ns() if epoch is None
+                              and clock is time.perf_counter else None)
         self.events: list[dict] = []
         self._stacks: dict[str, list[Span]] = {}
 
@@ -286,9 +310,12 @@ class Tracer:
                 ev["s"] = "t"
             out.append(ev)
         spec_doc = (spec.to_json() if hasattr(spec, "to_json") else spec)
-        return {"schema": TRACE_SCHEMA, "source": source,
-                "spec": spec_doc, "provenance": provenance,
-                "displayTimeUnit": "ms", "traceEvents": out}
+        doc = {"schema": TRACE_SCHEMA, "source": source,
+               "spec": spec_doc, "provenance": provenance,
+               "displayTimeUnit": "ms", "traceEvents": out}
+        if self.epoch_unix_ns is not None:
+            doc["epoch_unix_ns"] = self.epoch_unix_ns
+        return doc
 
     def save(self, path: str, *, spec=None, provenance: dict | None = None,
              source: str = "train") -> dict:

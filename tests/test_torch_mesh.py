@@ -360,6 +360,23 @@ def test_ordered_psum_bit_equal_left_fold(p):
                     f"{out['worker']}")
 
 
+@pytest.mark.parametrize("kind", ["tree", "psum"])
+@pytest.mark.parametrize("p", [3, 4])
+def test_wire_counter_matches_the_simulation(kind, p):
+    """Each process counts its collectives where they run (``pgroup``'s,
+    a permute a tree round, one all-reduce for the ordered sum) as the
+    simulation counts the worker axis's: the same calls and one worker's
+    row of payload each."""
+    case, res = world(p)[f"{kind}{p}_raw"]
+    x = torch.from_numpy(case["x"])
+    before = dict(pgroup.WIRE)
+    (ar.tree_allreduce if kind == "tree" else ar.psum_allreduce)(x, p)
+    want = {k: v - before[k] for k, v in pgroup.WIRE.items()}
+    assert want["bytes"] == want["calls"] * x[0].numel() * x.element_size()
+    for out in res:
+        assert out["wire"] == want, f"worker {out['worker']}"
+
+
 @pytest.mark.parametrize("p", [3, 4])
 def test_tree_step_matches_simulation(p):
     hold_bit_equal(p, f"tree{p}")

@@ -3,10 +3,11 @@ smoke config, held against ``repro.launch.train`` on the same spec: the
 reference is run once (with ``--json``) and shared through a module
 fixture; the port's trace carries the events the reference's does
 (``REF_EVENTS``, the reference's trace of this spec, which
-``tests/test_obs.py`` pins). The re-planning half (``--auto-tune``, ``--watch``, the
+``tests/test_obs.py`` pins), and its own ``detail`` spans. The re-planning half (``--auto-tune``, ``--watch``, the
 tuner CLI) is in ``test_torch_train_replan.py``."""
 
 import json
+from collections import Counter
 
 import pytest
 
@@ -47,6 +48,11 @@ REF_EVENTS = sorted(
                              ("X", "allreduce", "comm"),
                              ("X", "recover", "recover"),
                              ("i", "ready", "encode"))])
+# the port's own spans inside the phases (cat detail; the reference has
+# none): each step's input, the probe's EF add and residual and exact
+# values' round a bucket, besides its parameter views and recomputes
+DETAIL_EVENTS = {"step/input": STEPS, "ef/add": 2, "ef/residual": 2,
+                 "values/round": 2}
 
 
 @pytest.fixture(scope="module")
@@ -88,15 +94,23 @@ def test_trace_structure_like_the_reference(runs):
         assert len(ttrace.bucket_durations(doc, cat, prefix)) == 2
     assert ttrace.instants(doc, "ready/b0")
 
-    # the same events (names, categories) and fields as the reference's
+    # the same events (names, categories) and fields as the reference's,
+    # and the port's detail spans
     assert sorted((e["ph"], e["name"], e.get("cat", ""))
-                  for e in doc["traceEvents"]) == REF_EVENTS
+                  for e in doc["traceEvents"]
+                  if e.get("cat") != "detail") == REF_EVENTS
+    detail = Counter(e["name"] for e in doc["traceEvents"]
+                     if e.get("cat") == "detail")
+    assert set(detail) == set(DETAIL_EVENTS) | {"params/views",
+                                                "remat/recompute"}
+    assert {k: detail[k] for k in DETAIL_EVENTS} == DETAIL_EVENTS
     for e in doc["traceEvents"]:
         if e["ph"] == "X":
             assert sorted(e) == ["args", "cat", "dur", "name", "ph", "pid",
                                  "tid", "ts"]
-    assert sorted(doc) == ["displayTimeUnit", "provenance", "schema",
-                           "source", "spec", "traceEvents"]
+    # and the Unix time of the tracer's epoch (obs/trace.py)
+    assert sorted(doc) == ["displayTimeUnit", "epoch_unix_ns", "provenance",
+                           "schema", "source", "spec", "traceEvents"]
 
 
 def test_trace2_static_fields_equal_the_reference(runs):

@@ -98,24 +98,31 @@ def train_case(case: dict) -> dict:
 
 def tree_case(case: dict) -> dict:
     """``allreduce.tree_allreduce`` over the data axis of this worker's
-    row of ``case["x"]`` (P, n)."""
+    row of ``case["x"]`` (P, n), and what the wire counter counted."""
     from repro_torch.core import allreduce as ar
+    from repro_torch.core import pgroup
     pm, ma = _setup(case)
     x = torch.from_numpy(np.array(case["x"]))[pm.worker()][None]
+    before = dict(pgroup.WIRE)
     with ar.over(pm.axis("data")):
         y = ar.tree_allreduce(x, ma.data)
-    return {"y": _host(y), "worker": pm.worker()}
+    return {"y": _host(y), "worker": pm.worker(),
+            "wire": {k: v - before[k] for k, v in pgroup.WIRE.items()}}
 
 
 def psum_case(case: dict) -> dict:
     """``allreduce.psum_allreduce`` (the ordered all-reduce beyond two
-    processes) over the data axis of this worker's row of ``case["x"]``."""
+    processes) over the data axis of this worker's row of ``case["x"]``,
+    and what the wire counter counted."""
     from repro_torch.core import allreduce as ar
+    from repro_torch.core import pgroup
     pm, ma = _setup(case)
     x = torch.from_numpy(np.array(case["x"]))[pm.worker()][None]
+    before = dict(pgroup.WIRE)
     with ar.over(pm.axis("data")):
         y = ar.psum_allreduce(x, ma.data)
-    return {"y": _host(y), "worker": pm.worker()}
+    return {"y": _host(y), "worker": pm.worker(),
+            "wire": {k: v - before[k] for k, v in pgroup.WIRE.items()}}
 
 
 def serve_case(case: dict) -> dict:
