@@ -44,7 +44,12 @@ Phases (any failure exits non-zero and prints no result line):
                 forced to overflow, in every CTA and in some, on bucket 0's
                 est, on the TS scores (all heavy keys tied at 1e30) and on
                 the NaN keys: equal to ``topk_lower_index``, the device
-                counter equal to the CTAs over capacity.
+                counter equal to the CTAs over capacity. AdamW's update at
+                every flat segment of the train cell and of minicpm-2b
+                (8 layers) and yi-9b (2 layers) at P = 2, the gradient a
+                column slice of the mean gradient: bit-equal to its plain
+                version over two steps, timed beside ``_fused_adamw_`` and
+                its bound.
 3. train     — the main path: three gs-SGD steps of qwen3-4b at its
                 published widths (depth cut to 2 layers), P=2 workers,
                 buckets=2, psum, AdamW, SketchSpec(rows=5, width=None,
@@ -53,7 +58,7 @@ Phases (any failure exits non-zero and prints no result line):
                 the select, not the scores kernel; the encode (its
                 accumulate and its finish, each a launch counted on its
                 own), the decode and the select launch once per recovery:
-                12 times each.
+                12 times each; AdamW's kernel once a segment and step.
 4. profile   — one more full-width step under ``torch.profiler``: device
                 time per span (loss_and_grad / encode / allreduce / recover
                 / optimizer; each device event counted once, in the span
@@ -1538,11 +1543,121 @@ def kernels_phase(torch, device, ts) -> list[dict]:
     out += [ts_row] + ts_recover_checks(
         torch, cases, (wide_cfg, wide_sk, sizes[0], parts[0].k))
     del ts_sks, cases, wide_sk
+    torch.cuda.empty_cache()
+    out.append(adamw_checks(torch, device, ts))
     for kr in out:
         log("[kernels] " + json.dumps({key: kr[key] for key in (
             "name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err")}))
     return out
+
+
+# AdamW's kernel is also timed at the benchmark configurations' segments
+# (tp = 1, P = 2); its settings are optim.adamw's defaults at TRAIN_LR
+ADAMW_CELLS = (("minicpm-2b", 8), ("yi-9b", 2))
+ADAMW_HP = dict(lr=TRAIN_LR, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _adamw_library_ms(torch, p, g, m, v, step):
+    """PyTorch's one-call AdamW (``_fused_adamw_``, the kernel of
+    ``torch.optim.AdamW(fused=True)``; the weight decay applied to p
+    first, so other rounding; never called by the port) on the same
+    tensors, in place; None where this torch has none."""
+    fused = getattr(torch, "_fused_adamw_", None)
+    if fused is None:
+        return None
+    t = torch.full((), float(step), device=p.device)
+    hp = ADAMW_HP
+    return time_ms(torch, lambda: fused(
+        [p], [g], [m], [v], [], [t], lr=hp["lr"], beta1=hp["b1"],
+        beta2=hp["b2"], weight_decay=hp["weight_decay"], eps=hp["eps"],
+        amsgrad=False, maximize=False), reps=10)
+
+
+def adamw_checks(torch, device, ts) -> dict:
+    """AdamW's kernel at every flat segment of the train cell and of the
+    ADAMW_CELLS (P = 2): the gradient a column slice of one (P, d) mean
+    gradient, as ``core/gs_sgd.update`` passes it; params, m and v after
+    two steps (two bias corrections) bit-equal to the plain version from
+    the same state; the kernel (10 calls), the plain version (2) and
+    ``_fused_adamw_`` (10) timed beside the bound (28 bytes a coordinate).
+    Returns the kernel row: the train cell's four segments summed, each
+    segment and each configuration's sum under ``shapes``."""
+    from repro_torch import configs
+    from repro_torch.kernels.adamw import adamw_update, adamw_update_plain
+    from repro_torch.models.flatten import make_flat_spec
+    f32 = torch.float32
+    steps = []
+    for t in (1, 2):   # the bias corrections as optim.adamw forms them
+        tt = torch.tensor(float(t), dtype=f32)
+        steps.append(dict(ADAMW_HP, **{
+            f"bc{i}": (1 - torch.tensor(ADAMW_HP[f"b{i}"], dtype=f32) ** tt)
+            .item() for i in (1, 2)}))
+    cells = [("train", ts.fs.seg_shapes(), ts.nworkers)]
+    for arch, layers in ADAMW_CELLS:
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        cells.append((f"{arch}-{layers}L", make_flat_spec(cfg, 1)
+                      .seg_shapes(), 2))
+    gen = torch.Generator(device=device).manual_seed(3)
+    shapes, sums = [], {}
+    for cell, segs, P in cells:
+        d = sum(math.prod(s) for s in segs.values())
+        if cell == "train" and d != ts.d_local:
+            fail(f"adamw: the train cell's segments hold {d} coordinates, "
+                 f"not d_local {ts.d_local}")
+        g_mean = 1e-3 * torch.randn((P, d), generator=gen, device=device)
+        off = 0
+        for seg, shape in segs.items():
+            n = math.prod(shape)
+            g = g_mean[:, off:off + n].reshape((P, *shape))
+            off += n
+            p = torch.randn((P, *shape), generator=gen, device=device)
+            m = 1e-3 * torch.randn((P, *shape), generator=gen, device=device)
+            v = 1e-6 * torch.rand((P, *shape), generator=gen, device=device)
+            pk, mk, vk = p, m.clone(), v.clone()
+            for s, kw in enumerate(steps):
+                pk = adamw_update(pk, g, mk, vk, **kw)
+                p = adamw_update_plain(p, g, m, v, **kw)
+                if not (torch.equal(pk, p) and torch.equal(mk, m)
+                        and torch.equal(vk, v)):
+                    fail(f"adamw {cell} {seg} {tuple(g.shape)} (g strides "
+                         f"{g.stride()}): step {s} is not bit-equal to "
+                         "plain")
+            ms = time_ms(torch, lambda: adamw_update(p, g, mk, vk,
+                                                     **steps[1]), reps=10)
+            plain_ms = time_ms(torch, lambda: adamw_update_plain(
+                p, g, m, v, **steps[1]), reps=2)
+            del pk, mk, vk
+            gc = g.contiguous()
+            lib_ms = _adamw_library_ms(torch, p, gc, m, v, 2)
+            del p, m, v, g, gc
+            torch.cuda.empty_cache()
+            bound = bound_ms(28.0 * P * n, 16.0 * P * n)
+            r = {"shape": f"{cell} {seg} {[P, *shape]}", "max_abs_err": 0.0,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                 "bound_by": bound[1], "library_ms": lib_ms}
+            shapes.append(r)
+            log(f"[kernels] adamw {r['shape']}: {ms:.4f} ms "
+                f"({100 * bound[0] / ms:.1f}% of the bound "
+                f"{bound[0]:.4f}), plain {plain_ms:.3f}, _fused_adamw_ "
+                f"{lib_ms}; bit-equal to plain over 2 steps")
+            acc = sums.setdefault(cell, {"ms": 0.0, "plain_ms": 0.0,
+                                         "bound_ms": 0.0, "library_ms": 0.0})
+            for k in acc:
+                acc[k] = None if acc[k] is None or r[k] is None \
+                    else acc[k] + r[k]
+        del g_mean
+        torch.cuda.empty_cache()
+    t = sums["train"]
+    row = _row("adamw", "src/repro_torch/csrc/adamw.cu",
+               "none: src/repro/optim/optimizers.py (jnp ops)", 0.0,
+               t["ms"], t["plain_ms"], (t["bound_ms"], "bytes"),
+               t["library_ms"])
+    row["shapes"] = [{"shape": f"{cell}, the four segments summed",
+                      "max_abs_err": 0.0, "bound_by": "bytes", **acc}
+                     for cell, acc in sums.items()] + shapes
+    log("[kernels] adamw, the four segments summed: " + json.dumps(sums))
+    return row
 
 
 def check_launches(tag, counts, launched, not_launched=()):
@@ -1831,7 +1946,8 @@ class plain_calls:
                                "heavymix_scores_ts_plain",
                                "ts_transpose_plain", "radix_hist_plain"),
              "topk_select": ("topk_select_plain",),
-             "ts_encode": ("ts_encode_plain",)}
+             "ts_encode": ("ts_encode_plain",),
+             "adamw": ("adamw_update_plain",)}
 
     def __enter__(self):
         import importlib
@@ -3498,16 +3614,20 @@ def drive_cell(torch, ts, opt, spec, steps, state=None, **kw):
                  log_every=1, last=steps[-1], **kw)
 
 
-def step_launches(ts) -> dict:
+def step_launches(ts, opt) -> dict:
     """The launches one step of ``ts`` makes on the card: per (model
     rank, worker) and bucket an encode, its finish (once a bucket and
     exchange group for a fused merge, which finishes the group's workers'
     sketches), the decode past the reference's chunked threshold (d >
-    2^22 and d > 4k) or the scores kernel below it, and the select."""
+    2^22 and d > 4k) or the scores kernel below it, and the select; with
+    ``opt`` AdamW, its update once a flat segment."""
     import collections
 
     from repro_torch.core.heavymix import _CHUNK
+    from repro_torch.models.flatten import SEG_NAMES
     want = collections.Counter()
+    if opt.name == "adamw":
+        want["adamw"] = len(SEG_NAMES)
     p = ts.ma.tp * ts.nworkers
     groups = max(1, len(ts.comp_groups))
     sizes = ts.compressor.spec.sizes
@@ -3617,7 +3737,7 @@ def train_traced_phase(torch, ts, opt, exchange, profiled=None,
     check_launches(tag, counts, launched,
                    ("heavymix_scores", "heavymix_scores_ts", "ts_transpose",
                     "ts_encode"))
-    per_step = step_launches(ts)
+    per_step = step_launches(ts, opt)
     for name, cnt in per_step.items():
         if plain_counts.get(name, 0) != cnt * TRAIN_STEPS:
             fail(f"{name} launched {plain_counts.get(name, 0)} times on the "
@@ -3727,7 +3847,7 @@ def train_watched_phase(torch, ts, opt, exchange, make_step) -> dict:
             ran = 2
             del more
         counts = _diff(dict(LAUNCHES), snaps[last])
-        want = {k: v * ran for k, v in step_launches(new_ts).items()}
+        want = {k: v * ran for k, v in step_launches(new_ts, opt).items()}
         log(f"[{tag}] re-planned at step {last} (error feedback "
             f"{'kept' if rp['ef_kept'] else 'reset'}); the rebuilt step ran "
             f"{ran} steps: launches {counts}, its geometry implies {want}")
@@ -4511,13 +4631,15 @@ def sharded_runs(torch, cfg, ma, dp_mode, kw, card="cuda", steps=3):
 def parity_tp_phase(torch, card="cuda") -> dict:
     """Card against the CPU port at the sharded layouts' smoke configs
     (``hold_parity`` at TP_PARITY_RTOL): the nine archs of
-    tests/test_tp.py at tp = 2 (dense, 3 steps, no kernel launched),
+    tests/test_tp.py at tp = 2 (dense, 3 steps, no kernel launched but
+    AdamW's, once a segment and step),
     qwen3-4b at tp = 2 x data = 2 and yi-9b in fsdp at pod = 2 x data = 2
     with gs-SGD (TP_PARITY_KW, 2 buckets; the scores route, a recovery a
     worker, model rank, bucket and step). Returns the gs-SGD runs' summed
     card launches."""
     from repro_torch.configs import SMOKES
     from repro_torch.core.gs_sgd import MeshAxes
+    from repro_torch.models.flatten import SEG_NAMES
     archs = ("qwen3-4b", "starcoder2-3b", "yi-9b", "minicpm-2b",
              "musicgen-large", "rwkv6-7b", "zamba2-2.7b",
              "qwen3-moe-235b-a22b", "llama-3.2-vision-11b")
@@ -4539,8 +4661,9 @@ def parity_tp_phase(torch, card="cuda") -> dict:
         worst = max(worst, hold_parity(torch, "parity_tp", label, results, c,
                                        rtol=TP_PARITY_RTOL,
                                        launched=() if dense else SCORES_ROUTE))
-        if dense:
-            if any(v for k, v in c.items() if k != "slab_overflows"):
+        if dense:   # AdamW's update alone, once a segment and step
+            if {k: v for k, v in c.items() if v and k != "slab_overflows"} \
+                    != {"adamw": len(SEG_NAMES) * 3}:
                 fail(f"parity_tp {label}: the dense run launched {c}")
             continue
         check_route(f"parity_tp {label}", c, {}, ma.dp_size * ma.tp * 2 * 3,
@@ -5678,7 +5801,7 @@ def traced_interleave(torch, device, tag, ts, opt, exchange, path):
                 source="train")
     if plain:
         fail(f"overlap_audit: plain versions called on the card: {plain}")
-    for name, cnt in step_launches(ts).items():
+    for name, cnt in step_launches(ts, opt).items():
         if counts.get(name, 0) != cnt * (TRAIN_STEPS + 1):
             fail(f"overlap_audit {tag}: {name} launched "
                  f"{counts.get(name, 0)} times, not "
@@ -5909,6 +6032,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside the repository)
+    from repro_torch.models.flatten import SEG_NAMES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5943,6 +6067,10 @@ def main() -> int:
                  f"not once per recovery ({recoveries})")
     log(f"[train] topk_select launches {counts['topk_select']} = "
         f"{TRAIN_P} workers x {ts.n_buckets} buckets x {TRAIN_STEPS} steps")
+    if counts.get("adamw", 0) != len(SEG_NAMES) * TRAIN_STEPS:
+        fail(f"adamw launched {counts.get('adamw', 0)} times on the train "
+             f"path, not once a segment and step "
+             f"({len(SEG_NAMES) * TRAIN_STEPS})")
     log(f"[train] phase took {time.time() - t0:.1f} s")
     state, profiled = profile_phase(torch, ts, state, stream)
     del state
@@ -6053,7 +6181,7 @@ def main() -> int:
                 "topk_select": counts, "ts_encode": ts_counts,
                 "heavymix_scores_ts": ts_counts, "ts_transpose": ts_counts,
                 "heavymix_scores": mini["counts"],
-                "sketch_encode_finish": counts}
+                "sketch_encode_finish": counts, "adamw": counts}
     for kr in kernels:
         kr["launches"] = launches[kr["name"]].get(kr["name"], 0)
         kr["launches_interleave"] = inter["counts"].get(kr["name"], 0)

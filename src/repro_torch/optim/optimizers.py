@@ -3,8 +3,10 @@
 Port of ``repro/optim/optimizers.py``. Updates are elementwise, so they
 apply unchanged to (P, f) per-worker segments. ``step`` is the 0-based
 step count as a Python int; the bias corrections are computed in f32 as
-in the reference. The moment tensors are updated in place (the optimizer
-owns them; at full width each is gigabytes).
+in the reference, once a step. The moment tensors are updated in place
+(the optimizer owns them; at full width each is gigabytes). AdamW's
+update is ``kernels.adamw``: one CUDA kernel a segment on the card, its
+plain op-by-op version on the CPU.
 
     opt = make("adamw", lr=1e-3)
     state = opt.init(shape, device)
@@ -14,9 +16,12 @@ owns them; at full width each is gigabytes).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.kernels.adamw import adamw_update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,16 +61,20 @@ def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     def init(shape, device="cpu"):
         return (_zeros(shape, device), _zeros(shape, device))
 
-    def apply(p, g, state, step: int):
-        m, v = state
+    @functools.lru_cache(maxsize=4)
+    def corrections(step: int) -> tuple[float, float]:
+        # once a step, not once a segment
         t = torch.tensor(step + 1.0, dtype=torch.float32)
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** t
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** t
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        upd = (m / bc1.item()) / (torch.sqrt(v / bc2.item()) + eps)
-        upd.add_(weight_decay * p)
-        return p - _lr(lr, step) * upd, (m, v)
+        return bc1.item(), bc2.item()
+
+    def apply(p, g, state, step: int):
+        m, v = state
+        bc1, bc2 = corrections(step)
+        return adamw_update(p, g, m, v, lr=_lr(lr, step), b1=b1, b2=b2,
+                            eps=eps, weight_decay=weight_decay, bc1=bc1,
+                            bc2=bc2), (m, v)
 
     return Optimizer("adamw", init, apply, slots=2)
 
